@@ -1,0 +1,24 @@
+// Host (C++) build of the K1 and K2 per-lane bodies, one lane after another.
+//
+// Not a runtime path: the port's wrappers take the kernels on CUDA tensors
+// and the plain torch versions on CPU tensors.  This entry lets the tests
+// check the kernels' lane logic against the plain versions on a machine
+// without CUDA (tests/test_torch_kernel_host.py).
+
+#include "cycle_kernel.cu"
+#include "rolling_fold.cu"
+
+extern "C" int eravm_k1_host(const K1Args *a) {
+    for (int b = 0; b < a->batch; b++) k1_run_lane(*a, b);
+    return 0;
+}
+
+extern "C" int eravm_k2_host(const void *meta, const void *value,
+                             const void *flags, void *wc_state,
+                             void *wc_count, int n_rows, int batch) {
+    for (int b = 0; b < batch; b++)
+        k2_run_lane((const int32_t *)meta, (const int32_t *)value,
+                    (const int32_t *)flags, (int32_t *)wc_state,
+                    (int32_t *)wc_count, n_rows, batch, b);
+    return 0;
+}

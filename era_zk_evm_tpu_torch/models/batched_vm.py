@@ -1,0 +1,863 @@
+"""The plain PyTorch cycle step: the reference version of the K1 kernel.
+
+A vectorised translation of `era_zk_evm_tpu/models/batched_vm.py::cycle_step`
+for the ported slice: NOP, ADD, SUB, MUL, DIV, JUMP, CONTEXT, SHIFT, BINOP,
+PTR, NEAR_CALL, RET and UMA, with register, stack and code addressing, the
+heap and aux heap, the memory witness queue and the rolling commitment.  The
+LOG, FAR_CALL and precompile branches are left out; a LOG or FAR_CALL opcode
+sets `lane_error`, as the JAX engine does when `storage_slots == 0`.
+
+Every value is computed in int64 holding a u32 (or a bool), and the state
+fields are written back as int32.  `cycle_step` updates the state in place
+and returns it.  The CUDA kernel `csrc/cycle_kernel.cu` computes the same
+function one lane per thread; `models/fused_cycle.py` dispatches between
+the two by the device of the state.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from era_zk_evm_tpu.isa import params
+from era_zk_evm_tpu.isa.encoding import VARIANT_MASK, exception_revert_encoding
+from era_zk_evm_tpu.isa.opcodes import (
+    ContextOp, FarCallOp, LogOp, Opcode, OperandMode, PtrOp, RetOp, ShiftOp,
+    UMAOp, decode_consts,
+)
+
+from ..config import CS, SLOTS_PER_CYCLE, VmConfig, check_slice
+from ..ops import u256
+from ..ops.u256 import M32, narrow, wide
+from ..witness.rolling import rolling_absorb
+from .state import BatchedVmState
+
+_PANIC_ENC = exception_revert_encoding()
+I64 = torch.int64
+M16 = 0xFFFF
+
+
+def _rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """arr[b, idx[b]] per lane; an index outside [0, N) reads zeros."""
+    n = arr.shape[1]
+    ok = (idx >= 0) & (idx < n)
+    lanes = torch.arange(arr.shape[0], device=arr.device)
+    got = arr[lanes, idx.clamp(0, n - 1)]
+    ok = ok.view(ok.shape + (1,) * (got.dim() - 1))
+    return torch.where(ok, got, torch.zeros_like(got))
+
+
+def _put_rows(arr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+              mask: torch.Tensor) -> None:
+    """arr[b, idx[b]] = val[b] in place where mask[b]; an index outside
+    [0, N) writes nothing."""
+    n = arr.shape[1]
+    m = mask & (idx >= 0) & (idx < n)
+    lanes = torch.arange(arr.shape[0], device=arr.device)
+    i = idx.clamp(0, n - 1)
+    if arr.dtype != torch.bool:
+        val = narrow(val, arr.dtype)
+    old = arr[lanes, i]
+    m = m.view(m.shape + (1,) * (old.dim() - 1))
+    arr[lanes, i] = torch.where(m, val.expand_as(old), old)
+
+
+def _word(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """u256 word gather from a word arena ([B, W, 8] or flat [B, W*8])."""
+    if arr.dim() == 2:
+        arr = arr.view(arr.shape[0], -1, 8)
+    return wide(_rows(arr, idx))
+
+
+def _put_word(arr, idx, val, mask) -> None:
+    if arr.dim() == 2:
+        arr = arr.view(arr.shape[0], -1, 8)
+    _put_rows(arr, idx, val, mask)
+
+
+def _map_stack_index(config: VmConfig, idx: torch.Tensor):
+    """Logical stack index -> physical arena slot + in-window flag (the
+    two-window map of the JAX engine)."""
+    if config.stack_abs_words is None:
+        return idx, idx < config.stack_words
+    a = config.stack_abs_words
+    s0 = config.stack_sp_base
+    w = config.stack_words - a
+    in_abs = idx < a
+    in_sp = (idx >= s0) & (idx < s0 + w)
+    phys = torch.where(in_abs, idx, a + (idx - s0))
+    ok = in_abs | in_sp
+    return torch.where(ok, phys, torch.full_like(idx, config.stack_words)), ok
+
+
+def _sel(mask, a, b):
+    """where with mask broadcast over trailing dims."""
+    return torch.where(mask.view(mask.shape + (1,) * (a.dim() - mask.dim())),
+                       a, b)
+
+
+def _cat_zero(x: torch.Tensor) -> torch.Tensor:
+    """[B, k] limbs -> [B, 8] with the high limbs zero."""
+    z = torch.zeros((x.shape[0], 8 - x.shape[1]), dtype=x.dtype,
+                    device=x.device)
+    return torch.cat([x, z], dim=1)
+
+
+def cycle_step(state: BatchedVmState, config: VmConfig,
+               block: tuple | None = None) -> BatchedVmState:
+    """Advance every lane by one cycle, in place.
+
+    In rolling-commitment mode the cycle's 8 memory-query slots are folded
+    into `wc_state` — or, when `block` is given as the `(meta, value,
+    flags)` views of 8 rows of a chunk slot block, written there for a
+    later fold (the layout the K2 kernel reads).
+    """
+    check_slice(config)
+    dev = state.done.device
+    B, D = config.batch, config.max_depth
+    step = int(state.global_step.min())
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=I64, device=dev)
+
+    frozen = state.done
+    active = ~frozen
+    lane_error = state.lane_error.clone()
+
+    depth = state.depth.to(I64)
+    scal = wide(_rows(state.cs_scalars, depth))             # [B, F]
+    this_addr = wide(_rows(state.cs_this_address, depth))
+    msg_sender = wide(_rows(state.cs_msg_sender, depth))
+    code_addr = wide(_rows(state.cs_code_address, depth))
+    frame_u128 = wide(_rows(state.cs_context_u128, depth))
+
+    pc = scal[:, CS["pc"]]
+    code_page = scal[:, CS["code_page"]]
+    ergs0 = scal[:, CS["ergs_remaining"]]
+    flags_word = scal[:, CS["flags_word"]]
+    is_static = (flags_word & 1) != 0
+    is_local_frame = ((flags_word >> 1) & 1) != 0
+    base_page = scal[:, CS["base_memory_page"]]
+    heap_bound0 = scal[:, CS["heap_bound"]]
+    aux_bound0 = scal[:, CS["aux_heap_bound"]]
+
+    # ---------------------------------------------------------------- fetch
+    pending = state.pending_exception
+    super_pc = pc >> 2
+    sub_pc = pc & 3
+    prev_super_pc = wide(state.previous_super_pc)
+    pages_differ = code_page != wide(state.previous_code_page)
+    code_read_needed = ~pending & (pages_differ | (super_pc != prev_super_pc))
+
+    P = config.code_pages
+    cb_match = (wide(state.cb_page) == code_page[:, None]) & state.cb_valid
+    code_slot = (cb_match.to(I64)
+                 * torch.arange(P, device=dev)[None, :]).sum(1)
+    code_page_found = cb_match.any(1)
+    fetched = _word(state.code, code_slot * config.code_words + super_pc)
+    lane_error |= active & code_read_needed & (
+        ~code_page_found | (super_pc >= config.code_words))
+
+    code_word = _sel(code_read_needed, fetched,
+                     wide(state.previous_code_word))
+    new_prev_super_pc = torch.where(code_read_needed | pending, super_pc,
+                                    prev_super_pc)
+    new_prev_code_page = code_page
+
+    lo_idx = 6 - 2 * sub_pc
+    insn_lo = torch.gather(code_word, 1, lo_idx[:, None])[:, 0]
+    insn_hi = torch.gather(code_word, 1, lo_idx[:, None] + 1)[:, 0]
+    insn_lo = torch.where(pending, _PANIC_ENC & M32, insn_lo)
+    insn_hi = torch.where(pending, _PANIC_ENC >> 32, insn_hi)
+    new_pending = torch.zeros_like(pending)
+
+    # ------------------------------------------------- decode + masking
+    raw_variant = insn_lo & VARIANT_MASK
+    condition = (insn_lo >> 11) & 7
+    src0_reg = (insn_lo >> 16) & 0xF
+    src1_reg = (insn_lo >> 20) & 0xF
+    dst0_reg = (insn_lo >> 24) & 0xF
+    dst1_reg = (insn_lo >> 28) & 0xF
+    imm0 = insn_hi & M16
+    imm1 = (insn_hi >> 16) & M16
+
+    dc = {k: torch.as_tensor(v.astype("int64"), device=dev)
+          for k, v in decode_consts().items()}
+    fam16 = (raw_variant[:, None] >= dc["start"][None, :]).sum(1) - 1
+    f_start, f_nflags, f_ndst, f_nsrc, f_srcbase, f_dstbase = (
+        dc[k][fam16] for k in ("start", "n_flags", "n_dst", "n_src",
+                               "src_base", "dst_base"))
+    rr = raw_variant - f_start
+    combo = rr % f_nflags
+    rr = rr // f_nflags
+    dst_i = rr % f_ndst
+    rr = rr // f_ndst
+    src_i = rr % f_nsrc
+    sub_raw = rr // f_nsrc
+    src0_mode_raw = f_srcbase + src_i
+    dst0_mode_raw = f_dstbase + dst_i
+    flag0_raw = (combo & 1) != 0
+    flag1_raw = ((combo >> 1) & 1) != 0
+
+    OP = Opcode
+    invalid = fam16 == OP.INVALID
+    requires_kernel = ((fam16 == OP.CONTEXT)
+                       & (sub_raw >= ContextOp.SET_CONTEXT_U128)) \
+        | ((fam16 == OP.LOG) & (sub_raw == LogOp.PRECOMPILE_CALL)) \
+        | ((fam16 == OP.FAR_CALL) & (sub_raw == FarCallOp.MIMIC))
+    allowed_in_static = ~(
+        ((fam16 == OP.LOG) & (sub_raw >= LogOp.STORAGE_WRITE)
+         & (sub_raw <= LogOp.TO_L1_MESSAGE))
+        | ((fam16 == OP.CONTEXT) & (sub_raw == ContextOp.SET_CONTEXT_U128)))
+
+    M = OperandMode
+    rich = ((src0_mode_raw >= M.FULL_STACK_PUSH_POP)
+            & (src0_mode_raw != M.FULL_IMM16)) \
+        | ((dst0_mode_raw >= M.FULL_STACK_PUSH_POP)
+           & (dst0_mode_raw <= M.FULL_ABS_STACK))
+    p = params
+    alu_like = (fam16 <= OP.JUMP) | (fam16 == OP.SHIFT) \
+        | (fam16 == OP.BINOP) | (fam16 == OP.PTR)
+    price = torch.where(rich, p.RICH_ADDRESSING_OPCODE_ERGS,
+                        p.AVERAGE_OPCODE_ERGS)
+    log_prices = torch.tensor([p.STORAGE_READ_IO_PRICE,
+                               p.STORAGE_WRITE_IO_PRICE, p.EVENT_IO_PRICE,
+                               p.L1_MESSAGE_IO_PRICE,
+                               p.PRECOMPILE_CALL_BASE_PRICE], device=dev)
+    log_price = torch.where(sub_raw < 5, log_prices[sub_raw.clamp(0, 4)], 0)
+    price = torch.where(
+        alu_like | (fam16 == OP.CONTEXT), price,
+        torch.where(fam16 == OP.LOG, log_price,
+        torch.where(fam16 == OP.NEAR_CALL, p.NEAR_CALL_ERGS,
+        torch.where(fam16 == OP.FAR_CALL, p.FAR_CALL_ERGS,
+        torch.where(fam16 == OP.RET, p.RET_ERGS,
+        torch.where(fam16 == OP.UMA, p.UMA_ERGS,
+                    p.INVALID_OPCODE_ERGS))))))
+
+    not_enough = ergs0 < price
+    ergs1 = torch.where(not_enough, 0, ergs0 - price)
+
+    is_kernel = (this_addr[:, 0] < (1 << 16)) & (this_addr[:, 1:] == 0).all(1)
+    callstack_full = depth >= params.VM_MAX_STACK_DEPTH
+    mask_panic = invalid | not_enough | (requires_kernel & ~is_kernel) \
+        | (~allowed_in_static & is_static) | callstack_full
+
+    lt_f, eq_f, gt_f = state.flags[:, 0], state.flags[:, 1], state.flags[:, 2]
+    cond_table = torch.stack([
+        torch.ones_like(lt_f), gt_f, lt_f, eq_f, gt_f | eq_f, lt_f | eq_f,
+        ~eq_f, gt_f | lt_f], dim=1)
+    cond_met = torch.gather(cond_table, 1, condition[:, None])[:, 0]
+    mask_nop = ~cond_met & ~mask_panic
+
+    zeroed = mask_panic | mask_nop
+    src0_reg, src1_reg, dst0_reg, dst1_reg, imm0, imm1 = (
+        torch.where(zeroed, 0, x)
+        for x in (src0_reg, src1_reg, dst0_reg, dst1_reg, imm0, imm1))
+
+    def ov(raw_field, panic_const, nop_const):
+        return torch.where(mask_panic, int(panic_const),
+                           torch.where(mask_nop, int(nop_const), raw_field))
+
+    opcode = ov(fam16, OP.RET, OP.NOP)
+    sub_variant = ov(sub_raw, RetOp.PANIC, 0)
+    src0_mode = ov(src0_mode_raw, M.REG_ONLY, M.FULL_REG)
+    dst0_mode = ov(dst0_mode_raw, M.REG_ONLY, M.FULL_REG)
+    vflag0 = flag0_raw & ~zeroed
+    vflag1 = flag1_raw & ~zeroed
+    set_flags = vflag0 & (((opcode >= OP.ADD) & (opcode <= OP.DIV))
+                          | (opcode == OP.SHIFT) | (opcode == OP.BINOP))
+    swap_operands = (vflag1 & ((opcode == OP.SUB) | (opcode == OP.DIV)
+                               | (opcode == OP.SHIFT))) \
+        | (vflag0 & (opcode == OP.PTR))
+    src0_can_ptr = (opcode == OP.PTR) | (opcode == OP.RET) \
+        | (opcode == OP.FAR_CALL) \
+        | ((opcode == OP.UMA) & (sub_variant == UMAOp.FAT_POINTER_READ))
+    src1_can_ptr = opcode == OP.PTR
+
+    def read_reg(idx):
+        # r0 reads as zero: index -1 lies outside the register file
+        return wide(_rows(state.regs, idx - 1)), _rows(state.reg_ptr, idx - 1)
+
+    # ------------------------------------------------ operand addressing
+    sp0 = scal[:, CS["sp"]]
+    src0_reg_val, src0_reg_tag = read_reg(src0_reg)
+    vaddr0 = ((src0_reg_val[:, 0] & M16) + imm0) & M16
+    src0_pushpop = src0_mode == M.FULL_STACK_PUSH_POP
+    src0_stack_off = src0_mode == M.FULL_STACK_OFFSET
+    src0_abs = src0_mode == M.FULL_ABS_STACK
+    src0_code = src0_mode == M.FULL_CODE_PAGE
+    sp1 = torch.where(src0_pushpop, (sp0 - vaddr0) & M16, sp0)
+    src0_loc = torch.where(src0_pushpop, sp1,
+                           torch.where(src0_stack_off, (sp1 - vaddr0) & M16,
+                                       vaddr0))
+    src0_is_stack_mem = src0_pushpop | src0_stack_off | src0_abs
+
+    dst0_reg_val, _ = read_reg(dst0_reg)
+    vaddr1 = ((dst0_reg_val[:, 0] & M16) + imm1) & M16
+    dst0_pushpop = dst0_mode == M.FULL_STACK_PUSH_POP
+    dst0_stack_off = dst0_mode == M.FULL_STACK_OFFSET
+    dst0_abs = dst0_mode == M.FULL_ABS_STACK
+    sp2 = torch.where(dst0_pushpop, (sp1 + vaddr1) & M16, sp1)
+    dst0_loc = torch.where(dst0_pushpop, sp1,
+                           torch.where(dst0_stack_off, (sp2 - vaddr1) & M16,
+                                       vaddr1))
+    dst0_is_stack_mem = dst0_pushpop | dst0_stack_off | dst0_abs
+
+    is_nop_op = opcode == OP.NOP
+    do_src0_mem_read = (src0_is_stack_mem | src0_code) & ~is_nop_op
+
+    src0_phys, src0_in_window = _map_stack_index(config, src0_loc)
+    stack_val = _word(state.stack, src0_phys)
+    stack_tag = _rows(state.stack_ptr_tag, src0_phys)
+    code_val = _word(state.code, code_slot * config.code_words + src0_loc)
+    lane_error |= active & do_src0_mem_read & src0_is_stack_mem \
+        & ~src0_in_window
+    lane_error |= active & do_src0_mem_read & src0_code \
+        & (src0_loc >= config.code_words)
+
+    src0_mem_val = _sel(src0_code, code_val, stack_val)
+    src0_mem_tag = ~src0_code & stack_tag & do_src0_mem_read
+
+    use_reg = (src0_mode == M.REG_ONLY) | (src0_mode == M.FULL_REG) \
+        | (src0_mode == M.REG_OR_IMM_REG)
+    use_imm = (src0_mode == M.FULL_IMM16) | (src0_mode == M.REG_OR_IMM_IMM)
+    src0 = _sel(use_reg, src0_reg_val,
+                _sel(use_imm, u256.from_u32_scalar(imm0), src0_mem_val))
+    src0_tag = torch.where(use_reg, src0_reg_tag, ~use_imm & src0_mem_tag)
+    src1, src1_tag = read_reg(src1_reg)
+
+    src0, src1 = (_sel(swap_operands, src1, src0),
+                  _sel(swap_operands, src0, src1))
+    src0_tag, src1_tag = (torch.where(swap_operands, src1_tag, src0_tag),
+                          torch.where(swap_operands, src0_tag, src1_tag))
+
+    new_pc_lin = (pc + 1) & M16
+
+    # pointer-taint erasure: clear page/start/length limbs
+    def erase(val, tag, can_ptr):
+        do = tag & ~can_ptr & ~is_kernel
+        erased = val.clone()
+        erased[:, 1:4] = 0
+        return _sel(do, erased, val), tag & ~do
+
+    src0, src0_tag = erase(src0, src0_tag, src0_can_ptr)
+    src1, src1_tag = erase(src1, src1_tag, src1_can_ptr)
+
+    # ================================================== opcode semantics
+    is_add = opcode == OP.ADD
+    is_sub = opcode == OP.SUB
+    is_mul = opcode == OP.MUL
+    is_div = opcode == OP.DIV
+    is_jump = opcode == OP.JUMP
+    is_ctx = opcode == OP.CONTEXT
+    is_shift = opcode == OP.SHIFT
+    is_binop = opcode == OP.BINOP
+    is_ptr = opcode == OP.PTR
+    is_near_call = opcode == OP.NEAR_CALL
+    is_ret = opcode == OP.RET
+    is_uma = opcode == OP.UMA
+    # no LOG unit in the slice: LOG and FAR_CALL are unsupported
+    lane_error |= active & ((opcode == OP.FAR_CALL) | (opcode == OP.LOG))
+
+    sum_val, carry = u256.add(src0, src1)
+    diff_val, borrow = u256.sub(src0, src1)
+    if bool(is_mul.any()):
+        mul_lo, mul_hi = u256.mul_full(src0, src1)
+    else:
+        mul_lo = mul_hi = torch.zeros_like(src0)
+    if bool(is_div.any()):
+        div_q, div_r = u256.div_mod(src0, src1)
+    else:
+        div_q = div_r = torch.zeros_like(src0)
+    div_by_zero = u256.is_zero(src1)
+
+    shift_amount = src1[:, 0] & 0xFF
+    if bool(is_shift.any()):
+        s = sub_variant
+        shift_val = _sel(s == ShiftOp.SHL, u256.shl(src0, shift_amount),
+                    _sel(s == ShiftOp.SHR, u256.shr(src0, shift_amount),
+                    _sel(s == ShiftOp.ROL, u256.rol(src0, shift_amount),
+                         u256.ror(src0, shift_amount))))
+    else:
+        shift_val = torch.zeros_like(src0)
+
+    binop_val = _sel(sub_variant == 0, src0 ^ src1,
+                     _sel(sub_variant == 1, src0 & src1, src0 | src1))
+
+    # ---------------------------------------------------------- context
+    ctx_sub = sub_variant
+    meta = zeros(B, 8)
+    meta[:, 0] = wide(state.ergs_per_pubdata)
+    meta[:, 2] = heap_bound0
+    meta[:, 3] = aux_bound0
+    sid = scal[:, CS["shard_ids"]]
+    meta[:, 7] = (sid & 0xFF) | (((sid >> 8) & 0xFF) << 8) \
+        | (((sid >> 16) & 0xFF) << 16)
+    ctx_val = _sel(ctx_sub == ContextOp.THIS, _cat_zero(this_addr),
+              _sel(ctx_sub == ContextOp.CALLER, _cat_zero(msg_sender),
+              _sel(ctx_sub == ContextOp.CODE_ADDRESS, _cat_zero(code_addr),
+              _sel(ctx_sub == ContextOp.META, meta,
+              _sel(ctx_sub == ContextOp.ERGS_LEFT, u256.from_u32_scalar(ergs1),
+              _sel(ctx_sub == ContextOp.SP, u256.from_u32_scalar(sp2),
+                   _cat_zero(frame_u128)))))))
+    ctx_writes_dst = is_ctx & (ctx_sub <= ContextOp.GET_CONTEXT_U128)
+    ctx_set_u128 = is_ctx & (ctx_sub == ContextOp.SET_CONTEXT_U128)
+    ctx_set_pubdata = is_ctx & (ctx_sub == ContextOp.SET_ERGS_PER_PUBDATA_BYTE)
+    ctx_inc_tx = is_ctx & (ctx_sub == ContextOp.INCREMENT_TX_NUMBER)
+
+    new_context_u128 = _sel(ctx_set_u128, src0[:, :4],
+                            wide(state.context_u128))
+    new_ergs_per_pubdata = torch.where(ctx_set_pubdata, src0[:, 0],
+                                       wide(state.ergs_per_pubdata))
+    tx = wide(state.tx_number)
+    new_tx_number = torch.where(ctx_inc_tx, (tx + 1) & M16, tx)
+
+    # ---------------------------------------------------------- ptr ops
+    ptr_sub = sub_variant
+    fp_offset = src0[:, 0]
+    fp_length = src0[:, 3]
+    src1_low32 = src1[:, 0]
+    src1_ge_2_32 = (src1[:, 1:] != 0).any(1)
+    ptr_basic_panic = is_ptr & (~src0_tag | src1_tag)
+    ptr_addsub = is_ptr & (ptr_sub <= PtrOp.SUB)
+    ptr_range_panic = ptr_addsub & src1_ge_2_32
+    new_off_add = (fp_offset + src1_low32) & M32
+    add_of = new_off_add < fp_offset
+    new_off_sub = (fp_offset - src1_low32) & M32
+    sub_uf = fp_offset < src1_low32
+    ptr_off_panic = is_ptr & (((ptr_sub == PtrOp.ADD) & add_of)
+                              | ((ptr_sub == PtrOp.SUB) & sub_uf))
+    src1_low128_nz = (src1[:, :4] != 0).any(1)
+    ptr_pack_panic = is_ptr & (ptr_sub == PtrOp.PACK) & src1_low128_nz
+    new_len = (fp_length - src1_low32) & M32
+    shrink_uf = fp_length < src1_low32
+    ptr_shrink_panic = is_ptr & (ptr_sub == PtrOp.SHRINK) & shrink_uf
+    ptr_panic = ptr_basic_panic | ptr_range_panic | ptr_off_panic \
+        | ptr_pack_panic | ptr_shrink_panic
+
+    ptr_result = src0.clone()
+    ptr_result[:, 0] = torch.where(
+        ptr_sub == PtrOp.ADD, new_off_add,
+        torch.where(ptr_sub == PtrOp.SUB, new_off_sub, src0[:, 0]))
+    ptr_result[:, 3] = torch.where(ptr_sub == PtrOp.SHRINK, new_len,
+                                   src0[:, 3])
+    pack_result = torch.cat([src0[:, :4], src1[:, 4:]], dim=1)
+    ptr_result = _sel(ptr_sub == PtrOp.PACK, pack_result, ptr_result)
+    ptr_writes = is_ptr & ~ptr_panic
+
+    # -------------------------------------------------------------- UMA
+    uma_sub = sub_variant
+    uma_is_heap = is_uma & ((uma_sub == UMAOp.HEAP_READ)
+                            | (uma_sub == UMAOp.HEAP_WRITE))
+    uma_is_aux = is_uma & ((uma_sub == UMAOp.AUX_HEAP_READ)
+                           | (uma_sub == UMAOp.AUX_HEAP_WRITE))
+    uma_is_ptr_read = is_uma & (uma_sub == UMAOp.FAT_POINTER_READ)
+    uma_is_read = (is_uma & ((uma_sub == UMAOp.HEAP_READ)
+                             | (uma_sub == UMAOp.AUX_HEAP_READ))) \
+        | uma_is_ptr_read
+    uma_is_write = is_uma & ~uma_is_read
+    uma_increment = is_uma & vflag0
+
+    u_offset = src0[:, 0]
+    u_page_field = src0[:, 1]
+    u_start = src0[:, 2]
+    u_length = src0[:, 3]
+
+    heap_page = (base_page + 2) & M32
+    aux_page = (base_page + 3) & M32
+    cur_heap_slot = scal[:, CS["heap_slot"]]
+
+    uma_exc_not_ptr = uma_is_ptr_read & ~src0_tag
+    uma_skip_oob_ptr = uma_is_ptr_read & ~(u_offset < u_length)
+    src0_gt_max = (src0[:, 1:] != 0).any(1) \
+        | (u_offset > params.MAX_OFFSET_TO_DEREF)
+    uma_exc_deref = (uma_is_heap | uma_is_aux) & src0_gt_max
+    src_byte_off = torch.where(uma_is_ptr_read, (u_start + u_offset) & M32,
+                               u_offset)
+
+    incremented = (u_offset + 32) & M32
+    uma_exc_incr = is_uma & (incremented < u_offset)
+
+    # heap growth (uma.rs:152-217)
+    cur_bound = torch.where(uma_is_heap, heap_bound0, aux_bound0)
+    growth_uf = incremented < cur_bound
+    growth = torch.where(growth_uf | ~(uma_is_heap | uma_is_aux), 0,
+                         incremented - cur_bound)
+    new_heap_bound_u = torch.where(uma_is_heap & ~growth_uf, incremented,
+                                   heap_bound0)
+    new_aux_bound_u = torch.where(uma_is_aux & ~growth_uf, incremented,
+                                  aux_bound0)
+
+    uma_cost = (growth * params.MEMORY_GROWTH_ERGS_PER_BYTE) & M32
+    uma_cost = torch.where(uma_exc_deref, M32, uma_cost)
+    uma_cost = torch.where(is_uma, uma_cost, 0)
+    uma_no_ergs = ergs1 < uma_cost
+    ergs2 = torch.where(uma_no_ergs, 0, ergs1 - uma_cost)
+
+    uma_set_panic = is_uma & (uma_exc_not_ptr | uma_exc_deref | uma_exc_incr
+                              | uma_no_ergs)
+    uma_skip_mem = uma_skip_oob_ptr | uma_set_panic
+
+    word0 = src_byte_off >> 5
+    word1 = word0 + 1
+    unalign = src_byte_off & 31
+    is_unaligned = unalign != 0
+
+    F = config.heap_frames
+    frames = torch.arange(F, device=dev)[None, :]
+    hp_match = wide(state.hp_page) == u_page_field[:, None]
+    ap_match = wide(state.ap_page) == u_page_field[:, None]
+    ptr_heap_slot = (hp_match.to(I64) * frames).sum(1)
+    ptr_aux_slot = (ap_match.to(I64) * frames).sum(1)
+    ptr_page_is_heap = uma_is_ptr_read & hp_match.any(1)
+    ptr_page_is_aux = uma_is_ptr_read & ~ptr_page_is_heap & ap_match.any(1)
+    lane_error |= active & uma_is_ptr_read & ~uma_skip_mem \
+        & ~(ptr_page_is_heap | ptr_page_is_aux)
+    use_heap_arena = uma_is_heap | ptr_page_is_heap
+    use_aux_arena = uma_is_aux | ptr_page_is_aux
+    uma_slot = torch.where(uma_is_ptr_read,
+                           torch.where(ptr_page_is_heap, ptr_heap_slot,
+                                       ptr_aux_slot),
+                           cur_heap_slot)
+
+    do_mem = is_uma & ~uma_skip_mem
+    hw_err = do_mem & use_heap_arena & (word1 >= config.heap_words)
+    aw_err = do_mem & use_aux_arena & (word1 >= config.aux_heap_words)
+    lane_error |= active & (hw_err | aw_err)
+
+    h_base = (uma_slot * config.heap_words) & M32
+    a_base = (uma_slot * config.aux_heap_words) & M32
+    z8 = zeros(B, 8)
+    w0 = _sel(do_mem, _sel(use_heap_arena,
+                           _word(state.heap, (h_base + word0) & M32),
+                           _word(state.aux_heap, (a_base + word0) & M32)), z8)
+    w1 = _sel(do_mem & is_unaligned,
+              _sel(use_heap_arena,
+                   _word(state.heap, (h_base + word1) & M32),
+                   _word(state.aux_heap, (a_base + word1) & M32)), z8)
+
+    una_bits = unalign * 8
+    read_val = u256.shl(w0, una_bits) | u256.shr(w1, 256 - una_bits)
+    # fat-pointer tail cleanup (uma.rs:305-320)
+    beyond_uf = incremented < u_length
+    beyond = torch.where(beyond_uf | uma_skip_mem, 0,
+                         incremented - u_length) & 31
+    bb = beyond * 8
+    read_val = _sel(uma_is_ptr_read, u256.shl(u256.shr(read_val, bb), bb),
+                    read_val)
+
+    keep_hi_bits = (32 - unalign) * 8
+    new_w0 = u256.shl(u256.shr(w0, keep_hi_bits), keep_hi_bits) \
+        | u256.shr(src1, una_bits)
+    new_w1 = u256.shr(u256.shl(w1, una_bits), una_bits) \
+        | u256.shl(src1, keep_hi_bits)
+
+    uma_do_write = uma_is_write & ~uma_skip_mem
+    uma_do_read_mem = is_uma & ~uma_skip_mem
+    incremented_src0 = src0.clone()
+    incremented_src0[:, 0] = incremented
+
+    # -------------------------------------------------------- near call
+    ergs_after = ergs2   # no LOG unit in the slice
+    nc_abi = src0[:, 0]
+    nc_pass_all = (nc_abi == 0) | (nc_abi > ergs_after)
+    nc_passed = torch.where(nc_pass_all, ergs_after, nc_abi)
+    nc_left = torch.where(nc_pass_all, 0, ergs_after - nc_abi)
+
+    # -------------------------------------------------------------- ret
+    ret_sub = sub_variant
+    ret_is_panic0 = is_ret & (ret_sub == RetOp.PANIC)
+    ret_src0 = _sel(ret_is_panic0, torch.zeros_like(src0), src0)
+    ret_src0_tag = src0_tag & ~ret_is_panic0
+    r_off = ret_src0[:, 0]
+    r_page = ret_src0[:, 1]
+    r_start = ret_src0[:, 2]
+    r_len = ret_src0[:, 3]
+    r_mode = (ret_src0[:, 7] >> 8) & 0xFF
+    r_mode = torch.where(r_mode > 2, 0, r_mode)
+    r_fwd = r_mode == 1
+    r_use_aux = r_mode == 2
+
+    nonlocal_ret = is_ret & ~is_local_frame
+    rp_not_ptr = r_fwd & ~ret_src0_tag
+    rp_back_fwd = r_fwd & (r_page < base_page)
+    r_deref_exc = ((r_start + r_len) & M32) < r_start
+    r_off_exc = ~r_fwd & (r_off != 0)
+    rp_slice = r_off > r_len
+    ret_panic1 = nonlocal_ret & (rp_not_ptr | rp_back_fwd | r_deref_exc
+                                 | r_off_exc | rp_slice)
+    ret_escalated = ret_is_panic0 | ret_panic1
+    r_off, r_page, r_start, r_len = (torch.where(ret_escalated, 0, x)
+                                     for x in (r_off, r_page, r_start, r_len))
+    fwd_now = nonlocal_ret & ~ret_escalated & r_fwd
+    r_start = torch.where(fwd_now, (r_start + r_off) & M32, r_start)
+    r_len = torch.where(fwd_now, (r_len - r_off) & M32, r_len)
+    r_off = torch.where(fwd_now, 0, r_off)
+    r_page = torch.where(nonlocal_ret & ~ret_escalated & ~r_fwd,
+                         torch.where(r_use_aux, aux_page, heap_page), r_page)
+    r_upper = (r_start + r_len) & M32
+    r_upper = torch.where(nonlocal_ret & r_deref_exc, M32, r_upper)
+    r_bound = torch.where(r_use_aux, aux_bound0, heap_bound0)
+    r_growth = torch.where((r_upper < r_bound) | ~(nonlocal_ret & ~r_fwd), 0,
+                           r_upper - r_bound)
+    r_cost = (r_growth * params.MEMORY_GROWTH_ERGS_PER_BYTE) & M32
+    r_no_ergs = ergs_after < r_cost
+    ergs3 = torch.where(is_ret & ~r_no_ergs, ergs_after - r_cost,
+                        torch.where(is_ret & r_no_ergs, 0, ergs_after))
+    ret_panic2 = nonlocal_ret & r_no_ergs
+    ret_final_panic = ret_escalated | ret_panic2
+    r_off, r_page, r_start, r_len = (torch.where(ret_panic2, 0, x)
+                                     for x in (r_off, r_page, r_start, r_len))
+    ret_panicked = is_ret & ((ret_sub == RetOp.REVERT) | ret_final_panic)
+    is_to_label = is_ret & vflag0
+
+    returndata_u256 = _cat_zero(torch.stack([r_off, r_page, r_start, r_len],
+                                            dim=1))
+
+    # =================================================== flags writeback
+    cb_ = carry != 0
+    bb_ = borrow != 0
+    add_eq = u256.is_zero(sum_val)
+    sub_eq = u256.is_zero(diff_val)
+    mul_of = ~u256.is_zero(mul_hi)
+    mul_eq = u256.is_zero(mul_lo)
+    div_eq = u256.is_zero(div_q)
+    div_gt = u256.is_zero(div_r)
+    f_ = torch.zeros_like(cb_)
+    new_lt = torch.where(is_add, cb_, torch.where(is_sub, bb_, f_))
+    new_eq = torch.where(is_add, add_eq, torch.where(is_sub, sub_eq, f_))
+    new_gt = torch.where(is_add, ~add_eq & ~cb_,
+                         torch.where(is_sub, ~sub_eq & ~bb_, f_))
+    new_lt = torch.where(is_mul, mul_of, new_lt)
+    new_eq = torch.where(is_mul, mul_eq, new_eq)
+    new_gt = torch.where(is_mul, ~mul_of & ~mul_eq, new_gt)
+    new_lt = torch.where(is_div, div_by_zero, new_lt)
+    new_eq = torch.where(is_div, div_eq & ~div_by_zero, new_eq)
+    new_gt = torch.where(is_div, div_gt & ~div_by_zero, new_gt)
+    new_eq = torch.where(is_shift, u256.is_zero(shift_val), new_eq)
+    new_lt = new_lt & ~(is_shift | is_binop)
+    new_gt = new_gt & ~(is_shift | is_binop)
+    new_eq = torch.where(is_binop, u256.is_zero(binop_val), new_eq)
+
+    writes_flags = set_flags & (is_add | is_sub | is_mul | is_div
+                                | is_shift | is_binop)
+    resets_flags = is_near_call | is_ret
+    ret_sets_lt = is_ret & ret_final_panic
+    new_flags = torch.stack([
+        torch.where(writes_flags, new_lt,
+                    torch.where(resets_flags, ret_sets_lt, lt_f)),
+        torch.where(writes_flags, new_eq, ~resets_flags & eq_f),
+        torch.where(writes_flags, new_gt, ~resets_flags & gt_f)], dim=1)
+
+    # ============================================= dst0 / dst1 selection
+    dst0_val = _sel(is_add, sum_val, z8)
+    dst0_val = _sel(is_sub, diff_val, dst0_val)
+    dst0_val = _sel(is_mul, mul_lo, dst0_val)
+    dst0_val = _sel(is_div & ~div_by_zero, div_q,
+                    _sel(is_div, z8, dst0_val))
+    dst0_val = _sel(is_shift, shift_val, dst0_val)
+    dst0_val = _sel(is_binop, binop_val, dst0_val)
+    dst0_val = _sel(is_ctx, ctx_val, dst0_val)
+    dst0_val = _sel(ptr_writes, ptr_result, dst0_val)
+    dst0_val = _sel(uma_is_read, read_val, dst0_val)
+    dst0_val = _sel(uma_is_write & uma_increment, incremented_src0, dst0_val)
+    dst0_is_ptr = ptr_writes
+
+    dst0_write = is_add | is_sub | is_mul | is_div | is_shift | is_binop \
+        | ctx_writes_dst | ptr_writes \
+        | (uma_is_read & ~uma_set_panic) \
+        | (uma_is_write & uma_increment & ~uma_set_panic)
+
+    dst1_val = _sel(is_mul, mul_hi, z8)
+    dst1_val = _sel(is_div & ~div_by_zero, div_r, _sel(is_div, z8, dst1_val))
+    dst1_val = _sel(uma_is_read & uma_increment, incremented_src0, dst1_val)
+    dst1_is_ptr = uma_is_read & uma_increment & src0_tag
+    dst1_write = is_mul | is_div \
+        | (uma_is_read & uma_increment & ~uma_set_panic)
+
+    new_pending = new_pending | (is_ptr & ptr_panic) | uma_set_panic
+
+    # ============================================ pc + frame machinery
+    cur_pc_new = torch.where(is_jump, src0[:, 0] & M16, new_pc_lin)
+    cur_scal = scal.clone()
+    cur_scal[:, CS["pc"]] = cur_pc_new
+    cur_scal[:, CS["sp"]] = sp2
+    cur_scal[:, CS["ergs_remaining"]] = torch.where(
+        is_near_call, nc_left, torch.where(is_ret, 0, ergs3))
+    cur_scal[:, CS["heap_bound"]] = torch.where(is_uma, new_heap_bound_u,
+                                                heap_bound0)
+    cur_scal[:, CS["aux_heap_bound"]] = torch.where(is_uma, new_aux_bound_u,
+                                                    aux_bound0)
+    _put_rows(state.cs_scalars, depth, cur_scal, active)
+
+    # push (near call)
+    push_mask = is_near_call & active
+    pushed = cur_scal.clone()
+    pushed[:, CS["pc"]] = imm0
+    pushed[:, CS["exception_handler"]] = imm1
+    pushed[:, CS["ergs_remaining"]] = nc_passed
+    pushed[:, CS["flags_word"]] = flags_word | 2
+    pushed[:, CS["journal_snapshot"]] = wide(state.j_count)
+    pushed[:, CS["event_snapshot"]] = wide(state.ev_count)
+    push_idx = torch.clamp(depth + 1, max=D - 1)
+    lane_error |= active & push_mask & (depth + 1 >= D)
+    _put_rows(state.cs_scalars, push_idx, pushed, push_mask)
+    _put_rows(state.cs_this_address, push_idx, this_addr, push_mask)
+    _put_rows(state.cs_msg_sender, push_idx, msg_sender, push_mask)
+    _put_rows(state.cs_code_address, push_idx, code_addr, push_mask)
+    _put_rows(state.cs_context_u128, push_idx, frame_u128, push_mask)
+
+    # pop (ret): update the parent frame
+    pop_mask = is_ret & active
+    parent_idx = torch.clamp(depth - 1, min=0)
+    parent = wide(_rows(state.cs_scalars, parent_idx))
+    parent[:, CS["ergs_remaining"]] = \
+        (parent[:, CS["ergs_remaining"]] + ergs3) & M32
+    parent[:, CS["pc"]] = torch.where(
+        is_to_label & is_local_frame, imm0,
+        torch.where(ret_panicked, scal[:, CS["exception_handler"]],
+                    parent[:, CS["pc"]]))
+    # local frames propagate heap bounds up
+    parent[:, CS["heap_bound"]] = torch.where(
+        is_local_frame, torch.where(is_uma, new_heap_bound_u, heap_bound0),
+        parent[:, CS["heap_bound"]])
+    parent[:, CS["aux_heap_bound"]] = torch.where(
+        is_local_frame, torch.where(is_uma, new_aux_bound_u, aux_bound0),
+        parent[:, CS["aux_heap_bound"]])
+    _put_rows(state.cs_scalars, parent_idx, parent, pop_mask)
+
+    new_depth = torch.clamp(depth + push_mask.to(I64) - pop_mask.to(I64),
+                            min=0)
+    new_done = new_depth == 0
+
+    # =============================================== register writebacks
+    dst0_to_reg = dst0_write & ~dst0_is_stack_mem & (dst0_reg > 0) & active
+    r0i = torch.clamp(dst0_reg - 1, min=0)
+    _put_rows(state.regs, r0i, dst0_val, dst0_to_reg)
+    _put_rows(state.reg_ptr, r0i, dst0_is_ptr, dst0_to_reg)
+    dst1_to_reg = dst1_write & (dst1_reg > 0) & active
+    r1i = torch.clamp(dst1_reg - 1, min=0)
+    _put_rows(state.regs, r1i, dst1_val, dst1_to_reg)
+    _put_rows(state.reg_ptr, r1i, dst1_is_ptr, dst1_to_reg)
+
+    # non-local ret register-file protocol: r1 = returndata ptr, rest wiped
+    wipe = nonlocal_ret & active
+    wiped = torch.zeros_like(state.regs)
+    wiped[:, 0] = narrow(returndata_u256, torch.int32)
+    state.regs.copy_(_sel(wipe, wiped, state.regs))
+    wiped_ptr = torch.zeros_like(state.reg_ptr)
+    wiped_ptr[:, 0] = True
+    state.reg_ptr.copy_(_sel(wipe, wiped_ptr, state.reg_ptr))
+    new_context_u128 = _sel(wipe, torch.zeros_like(new_context_u128),
+                            new_context_u128)
+
+    # ================================================= memory writebacks
+    dst0_to_stack = dst0_write & dst0_is_stack_mem & active
+    dst0_phys, dst0_in_window = _map_stack_index(config, dst0_loc)
+    lane_error |= dst0_to_stack & ~dst0_in_window
+    _put_word(state.stack, dst0_phys, dst0_val, dst0_to_stack)
+    _put_rows(state.stack_ptr_tag, dst0_phys, dst0_is_ptr, dst0_to_stack)
+
+    w_heap0 = uma_do_write & use_heap_arena & active
+    w_aux0 = uma_do_write & use_aux_arena & active
+    _put_word(state.heap, (h_base + word0) & M32, new_w0, w_heap0)
+    _put_word(state.heap, (h_base + word1) & M32, new_w1,
+              w_heap0 & is_unaligned)
+    _put_word(state.aux_heap, (a_base + word0) & M32, new_w0, w_aux0)
+    _put_word(state.aux_heap, (a_base + word1) & M32, new_w1,
+              w_aux0 & is_unaligned)
+
+    # ============================================= memory witness slots
+    if config.queue_capacity > 0 or config.rolling_commitment:
+        ts0 = wide(state.timestamp)
+        ts3 = (ts0 + 3) & M32
+        stack_page = (base_page + 1) & M32
+        uma_page = torch.where(uma_is_ptr_read, u_page_field,
+                               torch.where(uma_is_heap, heap_page, aux_page))
+        uma_type = torch.where(uma_is_ptr_read, 3,
+                               torch.where(uma_is_aux, 2, 1))
+        four = torch.full_like(ts0, 4)
+        nul = torch.zeros_like(ts0)
+        no = torch.zeros_like(active)
+        # (valid, type, page, index, value, is_ptr, rw, timestamp), in the
+        # golden emission order
+        slots = [
+            (code_read_needed & ~frozen, four, code_page, super_pc,
+             code_word, no, 0, ts0),
+            (do_src0_mem_read & src0_is_stack_mem, nul, stack_page,
+             src0_loc, stack_val, stack_tag, 0, ts0),
+            (do_src0_mem_read & src0_code, four, code_page, src0_loc,
+             code_val, no, 0, ts0),
+            (uma_do_read_mem, uma_type, uma_page, word0, w0, no, 0, ts0),
+            (uma_do_read_mem & is_unaligned, uma_type, uma_page, word1, w1,
+             no, 0, ts0),
+            (dst0_to_stack, nul, stack_page, dst0_loc, dst0_val,
+             dst0_is_ptr, 1, ts3),
+            (uma_do_write, uma_type, uma_page, word0, new_w0, no, 1, ts3),
+            (uma_do_write & is_unaligned, uma_type, uma_page, word1, new_w1,
+             no, 1, ts3),
+        ]
+        overflow = config.queue_capacity > 0 and \
+            step * SLOTS_PER_CYCLE > config.queue_capacity - SLOTS_PER_CYCLE
+        meta_rows, value_rows, flag_rows = [], [], []
+        wq_count = state.wq_count.to(I64)
+        for valid, mtype, mpage, midx, mval, mptr, rw, ts in slots:
+            valid = valid & active
+            if overflow:
+                lane_error |= valid
+                valid = no
+            vm = valid.to(I64)
+            # invalid slots are all-zero rows, the rw bit included
+            meta_rows.append(torch.stack([ts, mtype, mpage, midx]) * vm)
+            value_rows.append(mval.T * vm)
+            flag_rows.append((rw | (mptr.to(I64) << 1) | 4) * vm)
+            wq_count += vm
+        meta_b = narrow(torch.stack(meta_rows), torch.int32)    # [8, 4, B]
+        value_b = narrow(torch.stack(value_rows), torch.int32)  # [8, 8, B]
+        flag_b = narrow(torch.stack(flag_rows), torch.int32)    # [8, B]
+        if config.queue_capacity > 0:
+            base = min(step * SLOTS_PER_CYCLE,
+                       config.queue_capacity - SLOTS_PER_CYCLE)
+            state.wq_meta[base:base + SLOTS_PER_CYCLE] = meta_b
+            state.wq_value[base:base + SLOTS_PER_CYCLE] = value_b
+            state.wq_flags[base:base + SLOTS_PER_CYCLE] = flag_b
+            state.wq_count.copy_(wq_count.to(torch.int32))
+        elif block is not None:
+            block[0].copy_(meta_b)
+            block[1].copy_(value_b)
+            block[2].copy_(flag_b)
+        else:
+            rolling_absorb(state.wc_state, state.wc_count, meta_b, value_b,
+                           flag_b)
+
+    # ============================ lane scalars; lanes already done freeze
+    def put(name, new):
+        old = getattr(state, name)
+        if old.dtype != torch.bool:
+            new = narrow(new, old.dtype)
+        old.copy_(_sel(frozen, old, new))
+
+    put("flags", new_flags)
+    put("timestamp", (wide(state.timestamp) + params.TIME_DELTA_PER_CYCLE)
+        & M32)
+    put("monotonic_cycle_counter",
+        (wide(state.monotonic_cycle_counter) + 1) & M32)
+    put("ergs_per_pubdata", new_ergs_per_pubdata)
+    put("tx_number", new_tx_number)
+    put("pending_exception", new_pending)
+    put("previous_code_word", code_word)
+    put("previous_super_pc", new_prev_super_pc)
+    put("previous_code_page", new_prev_code_page)
+    put("context_u128", new_context_u128)
+    put("depth", new_depth)
+    put("done", new_done)
+    state.lane_error.copy_(lane_error)
+    state.global_step += 1
+    return state
+
+
+def run_cycles(state: BatchedVmState, config: VmConfig,
+               n_cycles: int) -> BatchedVmState:
+    """Advance all lanes by n_cycles with the plain cycle step, in place."""
+    for _ in range(n_cycles):
+        cycle_step(state, config)
+    return state

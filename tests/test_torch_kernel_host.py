@@ -1,0 +1,113 @@
+"""The CUDA kernels' per-lane bodies, compiled for the host with g++,
+against the port's plain torch versions, bit for bit.
+
+The wrappers never take this build (on CPU tensors they run the plain
+versions); it checks the kernel sources' lane logic where no card or nvcc
+exists.  The kernels themselves are held against the plain versions on the
+card by chip_smoke.py.
+"""
+
+import ctypes
+import random
+
+import pytest
+import torch
+
+from era_zk_evm_tpu_torch import _build
+from era_zk_evm_tpu_torch.config import SLOTS_PER_CYCLE, VmConfig
+from era_zk_evm_tpu_torch.models import fused_cycle
+from era_zk_evm_tpu_torch.models import state as pstate
+from era_zk_evm_tpu_torch.testing import programs
+from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb
+
+from test_batched_vm import (
+    BASIC_PROGRAMS, CALL_PROGRAMS, CONTEXT_PROGRAMS, CONTROL_FLOW,
+    PTR_PROGRAMS, STACK_PROGRAMS, UMA_PROGRAMS,
+)
+
+PROGRAMS = (BASIC_PROGRAMS + CONTROL_FLOW + STACK_PROGRAMS + UMA_PROGRAMS
+            + CALL_PROGRAMS + CONTEXT_PROGRAMS + PTR_PROGRAMS
+            + list(programs.FAMILY_PROGRAMS.values()))
+
+
+@pytest.fixture(scope="module")
+def host():
+    return _build.load_host()
+
+
+def _config(batch, rolling, queue_capacity, code_words=32):
+    return VmConfig(batch=batch, code_words=code_words, stack_words=256,
+                    stack_abs_words=64, stack_sp_base=960, heap_words=64,
+                    aux_heap_words=16, max_depth=8,
+                    queue_capacity=0 if rolling else queue_capacity,
+                    rolling_commitment=rolling)
+
+
+def _host_run(host, st, config, n_cycles, k_inner):
+    """fused_cycle.run_cycles with the host build in place of the kernels."""
+    block = (fused_cycle.new_slot_block(config, k_inner, "cpu")
+             if config.rolling_commitment else None)
+    done = 0
+    while done < n_cycles:
+        k = min(k_inner, n_cycles - done)
+        step0 = st.global_step.min()
+        args = fused_cycle.k1_args(st, config, k, k, block, step0)
+        assert host.eravm_k1_host(ctypes.byref(args)) == 0
+        if block is not None:
+            ptrs = [x.data_ptr() for x in block]
+            assert host.eravm_k2_host(*ptrs, st.wc_state.data_ptr(),
+                                      st.wc_count.data_ptr(),
+                                      k * SLOTS_PER_CYCLE, config.batch) == 0
+        done += k
+
+
+def _assert_same(a, b):
+    a, b = pstate.state_to_numpy(a), pstate.state_to_numpy(b)
+    bad = [k for k in a if not (a[k] == b[k]).all()]
+    assert not bad, f"host kernel/plain mismatch in fields: {bad}"
+
+
+@pytest.mark.parametrize("case", ["queue", "rolling", "no_witness",
+                                  "queue_overflow", "workload",
+                                  "workload_rolling"])
+def test_k1_host_build_matches_plain(host, case):
+    if case.startswith("workload"):
+        words = [programs.assemble(programs.WORKLOAD)] * 4
+        config = _config(4, case.endswith("rolling"), 128 * 8, code_words=16)
+        n, k_inner, ergs = 256, 128, (1 << 31) - 1
+    else:
+        words = [programs.assemble(p) for p in PROGRAMS]
+        # overflow: a queue of 5 cycles, so the slots of lanes still
+        # running after it clamp and set lane_error
+        config = _config(len(words), case == "rolling",
+                         {"queue_overflow": 5 * 8, "no_witness": 0}
+                         .get(case, 48 * 8 * 2))
+        n, k_inner, ergs = 48, 20, 1 << 20
+    plain = pstate.make_entry_state(config, words, ergs=ergs)
+    kern = pstate.clone_state(plain)
+    fused_cycle.run_cycles(plain, config, n, k_inner=k_inner)
+    _host_run(host, kern, config, n, k_inner)
+    _assert_same(plain, kern)
+    if case == "queue_overflow":
+        assert kern.lane_error.any()
+
+
+def test_k2_host_build_matches_plain(host):
+    rng = random.Random(11)
+    gen = torch.Generator().manual_seed(11)
+    B, rows = 37, 24
+    meta = torch.randint(-2**31, 2**31 - 1, (rows, 4, B), generator=gen,
+                         dtype=torch.int32)
+    value = torch.randint(-2**31, 2**31 - 1, (rows, 8, B), generator=gen,
+                          dtype=torch.int32)
+    flags = torch.tensor([[rng.randrange(8) for _ in range(B)]
+                          for _ in range(rows)], dtype=torch.int32)
+    wc = torch.randint(-2**31, 2**31 - 1, (B, 25, 2), generator=gen,
+                       dtype=torch.int32)
+    cnt = torch.tensor([rng.randrange(5) for _ in range(B)], dtype=torch.int32)
+    wk, ck = wc.clone(), cnt.clone()
+    assert host.eravm_k2_host(meta.data_ptr(), value.data_ptr(),
+                              flags.data_ptr(), wk.data_ptr(), ck.data_ptr(),
+                              rows, B) == 0
+    rolling_absorb(wc, cnt, meta, value, flags)
+    assert torch.equal(wk, wc) and torch.equal(ck, cnt)
