@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 The sources are `csrc/*.cu` and `csrc/*.cuh` of this package, plus one
-header generated from `era_zk_evm_tpu.isa` (decode constants, opcode and
+header generated from the port's `isa` package (decode constants, opcode and
 operand-mode values, ergs prices, callstack field indices) and from the
-keccak constants of `era_zk_evm_tpu.golden.precompiles`, so no ISA constant
-is written by hand in the kernels.  The shared library goes to
+keccak constants of `ops/keccak.py`, so no ISA constant is written by hand
+in the kernels.  The shared library goes to
 `era_zk_evm_tpu_torch/_build/<kind>-<hash>/`, keyed by a hash of the
 sources, the flags and the generated header; a build or load failure
-raises.  `build_host()` compiles the same per-lane bodies with g++ for
+raises.  nvcc compiles each source into an object file, all at once in
+parallel, then links them.  `build_host()` compiles the same per-lane bodies with g++ for
 checking them on a machine without CUDA; no runtime path uses it.
 
 Nothing here runs at import time: `load()` builds on first use.
@@ -27,24 +28,21 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-HOST_FLAGS = ["-std=c++17", "-O1", "-shared", "-fPIC"]
-SOURCES = ("cycle_kernel.cu", "rolling_fold.cu")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-std=c++17", "-O1", "-fPIC"]
+SOURCES = ("cycle_kernel.cu", "rolling_fold.cu", "keccak_f.cu")
 
 
 def generate_header() -> str:
-    """The text of `eravm_gen.h`, from the JAX package's jax-free ISA layer."""
-    from era_zk_evm_tpu.golden.precompiles import KECCAK_RC, KECCAK_ROTATIONS
-    from era_zk_evm_tpu.isa import params
-    from era_zk_evm_tpu.isa.encoding import (
-        VARIANT_MASK, exception_revert_encoding,
-    )
-    from era_zk_evm_tpu.isa.opcodes import (
+    """The text of `eravm_gen.h`, from the port's ISA layer."""
+    from .config import CS_SCALAR_FIELDS, SLOTS_PER_CYCLE
+    from .isa import params
+    from .isa.encoding import VARIANT_MASK, exception_revert_encoding
+    from .isa.opcodes import (
         ContextOp, FarCallOp, LogOp, Opcode, OperandMode, PtrOp, RetOp,
         ShiftOp, UMAOp, decode_consts,
     )
-
-    from .config import CS_SCALAR_FIELDS, SLOTS_PER_CYCLE
+    from .ops.keccak import KECCAK_RC, KECCAK_ROTATIONS
 
     out = ["// generated by era_zk_evm_tpu_torch/_build.py — do not edit",
            "#pragma once", "#include <cstdint>", ""]
@@ -65,7 +63,16 @@ def generate_header() -> str:
                  "NEAR_CALL_ERGS", "FAR_CALL_ERGS", "RET_ERGS", "UMA_ERGS",
                  "INVALID_OPCODE_ERGS", "STORAGE_READ_IO_PRICE",
                  "STORAGE_WRITE_IO_PRICE", "EVENT_IO_PRICE",
-                 "L1_MESSAGE_IO_PRICE", "PRECOMPILE_CALL_BASE_PRICE"):
+                 "L1_MESSAGE_IO_PRICE", "PRECOMPILE_CALL_BASE_PRICE",
+                 "INITIAL_STORAGE_WRITE_PUBDATA_BYTES",
+                 "L1_MESSAGE_PUBDATA_BYTES", "EVENT_AUX_BYTE",
+                 "L1_MESSAGE_AUX_BYTE", "STORAGE_AUX_BYTE",
+                 "PRECOMPILE_AUX_BYTE", "DEPLOYER_SYSTEM_CONTRACT_ADDRESS",
+                 "CODE_HASH_VERSION_BYTE", "CODE_AT_REST_MARKER",
+                 "YET_CONSTRUCTED_MARKER", "ERGS_PER_CODE_WORD_DECOMMITTMENT",
+                 "UNMAPPED_PAGE", "INITIAL_SP_ON_FAR_CALL",
+                 "NEW_FRAME_MEMORY_STIPEND",
+                 "NEW_MEMORY_PAGES_PER_FAR_CALL"):
         define(name, getattr(params, name))
     define("VARIANT_MASK", VARIANT_MASK)
     enc = exception_revert_encoding()
@@ -103,8 +110,9 @@ _HOST_LIB = None
 def _compile(kind: str, compiler: str, flags: list[str],
              sources: tuple[str, ...], lib_name: str) -> pathlib.Path:
     """Compile `sources` into `_build/<kind>-<hash>/<lib_name>` once per
-    source hash, with the compiler's output beside it in `build.log`; raise
-    on failure."""
+    source hash: one compiler process per source, all started together, then
+    one link.  The compilers' output goes beside it in `build.log`; raise on
+    failure."""
     header = generate_header()
     out_dir = BUILD_ROOT / f"{kind}-{_key(header, flags)}"
     lib = out_dir / lib_name
@@ -115,13 +123,24 @@ def _compile(kind: str, compiler: str, flags: list[str],
     # build never leaves a half-written library under the final name
     tmp = pathlib.Path(tempfile.mkdtemp(dir=BUILD_ROOT))
     (tmp / "eravm_gen.h").write_text(header)
-    cmd = [compiler, *flags, "-I", str(tmp), "-I", str(CSRC),
-           "-o", str(tmp / lib_name), *(str(CSRC / s) for s in sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    objects = [tmp / (pathlib.Path(s).stem + ".o") for s in sources]
+    procs = [subprocess.Popen(
+        [compiler, *flags, "-c", "-I", str(tmp), "-I", str(CSRC),
+         "-o", str(obj), str(CSRC / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objects)]
+    outputs = [proc.communicate()[0] for proc in procs]
+    log = "".join(outputs)
+    failed = [src for src, proc in zip(sources, procs) if proc.returncode]
+    if not failed:
+        link = subprocess.run(
+            [compiler, "-shared", "-o", str(tmp / lib_name),
+             *map(str, objects)], capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        failed = ["link"] if link.returncode else []
+    if failed:
         shutil.rmtree(tmp, ignore_errors=True)
-        raise RuntimeError(f"{compiler} failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"{compiler} failed on {failed}:\n{log}")
     (tmp / "build.log").write_text(log)
     try:
         tmp.rename(out_dir)
@@ -157,12 +176,19 @@ class K1Args(ctypes.Structure):
         "prev_code_page", "context_u128", "depth", "cs_this", "cs_sender",
         "cs_code_addr", "cs_u128", "cs_scalars", "code", "stack",
         "stack_tag", "heap", "aux_heap", "hp_page", "ap_page", "cb_page",
-        "cb_valid", "j_count", "ev_count", "done", "lane_error",
-        "global_step", "wq_count", "q_meta", "q_value", "q_flags", "step0",
+        "cb_valid", "j_count", "ev_count", "spent_pubdata", "st_key",
+        "st_val", "st_used", "st_count", "j_slot", "j_prev", "ev_key",
+        "ev_val", "ev_meta", "ev_cancelled", "lq_meta", "lq_addr", "lq_key",
+        "lq_read", "lq_written", "lq_count", "dq_hash", "dq_meta", "dq_count",
+        "cb_hash", "default_aa_hash", "frame_count", "page_counter", "done",
+        "lane_error", "global_step", "wq_count", "q_meta", "q_value",
+        "q_flags", "step0",
     )] + [(name, ctypes.c_int) for name in (
         "batch", "max_depth", "code_words", "code_pages", "stack_words",
         "stack_abs_words", "stack_sp_base", "heap_words", "aux_heap_words",
-        "heap_frames", "queue_capacity", "emit_mode", "k_cycles", "k_stop",
+        "heap_frames", "queue_capacity", "storage_slots", "journal_slots",
+        "event_slots", "log_queue_capacity", "decommit_queue_capacity",
+        "emit_mode", "k_cycles", "k_stop",
     )]
 
 
@@ -178,6 +204,9 @@ def load() -> ctypes.CDLL:
         lib.eravm_k2_launch.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.eravm_k2_launch.restype = ctypes.c_int
+        lib.eravm_k3_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p]
+        lib.eravm_k3_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -192,5 +221,8 @@ def load_host() -> ctypes.CDLL:
         lib.eravm_k2_host.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_int]
         lib.eravm_k2_host.restype = ctypes.c_int
+        lib.eravm_k3_host.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_int]
+        lib.eravm_k3_host.restype = ctypes.c_int
         _HOST_LIB = lib
     return _HOST_LIB

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from era_zk_evm_tpu.isa import params
+from .isa import params
 
 #: max memory queries one cycle can emit: the 8-slot block of the memory
 #: witness queue (era_zk_evm_tpu/models/batched_vm.py SLOTS_PER_CYCLE)
@@ -97,19 +97,23 @@ def from_jax_config(cfg) -> VmConfig:
 def check_slice(config: VmConfig) -> None:
     """Raise NotImplementedError for configs outside the ported slice.
 
-    The port covers the memory-witness path: opcode families without LOG,
-    FAR_CALL or precompiles, with either the memory queue or the rolling
-    commitment.  LOG and FAR_CALL opcodes still set `lane_error`, exactly
-    as the JAX engine does when `storage_slots == 0`.
+    The port covers the memory-witness path (every opcode family but LOG,
+    FAR_CALL and the precompiles, with the memory queue or the rolling
+    commitment) and, with `storage_slots > 0`, the LOG family and FAR_CALL
+    with their storage, journal and event slots, the log and decommit
+    witness queues, several heap frames and code pages.  LOG and FAR_CALL
+    set `lane_error` when `storage_slots == 0`, and `log.precompile` always
+    does, exactly as the JAX engine does without those units.
+
+    Still outside: the precompile units and their queue, the TPU-only
+    `limb_major_arenas` layout, and the rolling commitment together with a
+    memory queue.
     """
-    if config.storage_slots > 0:
-        raise NotImplementedError("storage / LOG unit (storage_slots > 0)")
-    if (config.log_queue_capacity or config.decommit_queue_capacity
-            or config.precompile_queue_capacity):
-        raise NotImplementedError("log, decommit or precompile queue")
     if (config.precompile_keccak_blocks or config.precompile_sha_rounds
             or config.precompile_ecrecover):
         raise NotImplementedError("precompile units")
+    if config.precompile_queue_capacity:
+        raise NotImplementedError("precompile witness queue")
     if config.limb_major_arenas:
         raise NotImplementedError("limb_major_arenas (a TPU-only layout)")
     # the exclusivity rule of fused_cycle.supported(): both modes consume

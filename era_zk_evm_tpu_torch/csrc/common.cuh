@@ -15,4 +15,4 @@
 #define EVM_TABLE static const
 #endif
 
-#include "eravm_gen.h"   // generated from era_zk_evm_tpu.isa by _build.py
+#include "eravm_gen.h"   // generated from the port's isa/ by _build.py

@@ -1,11 +1,18 @@
 // K1: the K-cycle EraVM interpreter, one thread per lane (CUDA C++, sm_90a).
 //
 // Replaces the TPU kernel era_zk_evm_tpu/models/fused_cycle.py::_build_kernel
-// (wrapped by _build_call, driven by _run_chunk) for the memory-witness slice:
-// NOP ADD SUB MUL DIV JUMP CONTEXT SHIFT BINOP PTR NEAR_CALL RET UMA, with
-// register, stack and code addressing, heap and aux heap, the memory witness
-// queue (mode a) or a chunk slot block for the rolling fold K2 (mode b).  LOG
-// and FAR_CALL set lane_error, as the JAX engine does with storage_slots == 0.
+// (:2794, wrapped by _build_call, driven by _run_chunk) for three of its
+// slices.  (a) the memory-witness slice: NOP ADD SUB MUL DIV JUMP CONTEXT
+// SHIFT BINOP PTR NEAR_CALL RET UMA, with register, stack and code
+// addressing, heap and aux heap, the memory witness queue (mode a) or a chunk
+// slot block for the rolling fold K2 (mode b).  (b) LOG and (c) FAR_CALL,
+// compiled in only for storage_slots > 0 (template <bool kLog>, as the JAX
+// engine's static log_enabled): storage reads and writes with pubdata ergs,
+// events, the journal and its rollback on a panicked pop, far calls with the
+// code-hash read, decommit from the code bank and fresh heap frames, and the
+// log and decommit witness queues.  Without kLog, LOG and FAR_CALL set
+// lane_error, as the JAX engine does with storage_slots == 0; log.precompile
+// always does (the precompile units are not ported).
 // Its plain version is era_zk_evm_tpu_torch/models/batched_vm.py::cycle_step;
 // both follow era_zk_evm_tpu/models/batched_vm.py::cycle_step section by
 // section, and the smoke run holds them equal bit for bit.
@@ -20,14 +27,25 @@
 // honoured.  Each cycle writes its 8 memory-query slots straight into the
 // persistent queue at min(step * 8, cap - 8) (mode a) or into row c * 8 of
 // the chunk block (mode b); both are batch-last, so those stores coalesce.
+// With kLog, the storage lookup is a per-lane loop over the S slots of
+// st_key[B, S, 14]; journal and event entries are per-lane appends; a
+// panicked pop replays the lane's journal newest-first down to the frame's
+// snapshot (the batch-wide while_loop of the JAX engine becomes a per-lane
+// loop); a far call binds its code by a per-lane search of cb_hash[B, P, 8]
+// and takes pages from page_counter; each cycle writes one log row and one
+// decommit row, all-zero when the lane emitted nothing, straight into the
+// lane-major lq_*[B, LQ, .] and dq_*[B, DQ, .] at min(step, cap - 1).
 //
 // What bounds it on an H100: the arenas are lane-major ([B, SW * 8] stack,
 // [B, W, 8] heap/code), so a warp's 32 word loads hit 32 different 32-byte
 // sectors in different rows — uncoalesced traffic, one sector per lane per
 // access — and the per-lane register file and slot arrays sit in local
 // memory (ptxas: 254 registers, a 936-byte stack frame, no spills), which
-// caps occupancy at 8 warps per SM.  Making the arenas coalesced (or
-// staging them in shared memory) is later work.
+// caps occupancy at 8 warps per SM.  The kLog instance adds per-lane loops
+// over lane-major storage, journal, event and code-bank arrays (uncoalesced
+// again) and more local memory for the log row it builds each cycle.
+// Making the arenas coalesced (or staging them in shared memory) is later
+// work.
 
 #include "common.cuh"
 #include "u256.cuh"
@@ -54,6 +72,27 @@ struct K1Args {
     int32_t *cb_page;       // [B, P]
     uint8_t *cb_valid;      // [B, P]
     int32_t *j_count, *ev_count;
+    // LOG / FAR_CALL state, read only by the kLog instance
+    int32_t *spent_pubdata;
+    int32_t *st_key;        // [B, S, 14]
+    int32_t *st_val;        // [B, S, 8]
+    uint8_t *st_used;       // [B, S]
+    int32_t *st_count;
+    int32_t *j_slot;        // [B, J]
+    int32_t *j_prev;        // [B, J, 8]
+    int32_t *ev_key, *ev_val;  // [B, E, 8]
+    int32_t *ev_meta;       // [B, E, 2]
+    uint8_t *ev_cancelled;  // [B, E]
+    int32_t *lq_meta;       // [B, LQ, 4]
+    int32_t *lq_addr;       // [B, LQ, 5]
+    int32_t *lq_key, *lq_read, *lq_written;  // [B, LQ, 8]
+    int32_t *lq_count;
+    int32_t *dq_hash;       // [B, DQ, 8]
+    int32_t *dq_meta;       // [B, DQ, 4]
+    int32_t *dq_count;
+    int32_t *cb_hash;       // [B, P, 8]
+    int32_t *default_aa_hash;  // [B, 8]
+    int32_t *frame_count, *page_counter;
     uint8_t *done, *lane_error;
     int32_t *global_step, *wq_count;
     int32_t *q_meta;        // [rows, 4, B]
@@ -64,6 +103,8 @@ struct K1Args {
     int stack_abs_words;    // -1: one window
     int stack_sp_base, heap_words, aux_heap_words, heap_frames;
     int queue_capacity;
+    int storage_slots, journal_slots, event_slots;
+    int log_queue_capacity, decommit_queue_capacity;
     int emit_mode;          // 0 no slots, 1 persistent queue, 2 chunk block
     int k_cycles, k_stop;
 };
@@ -72,6 +113,19 @@ struct Slot {
     bool valid;
     uint32_t type, page, index, ptr, rw, ts;
     U256 val;
+};
+
+// one cycle's log-queue row and decommit-queue row
+struct LogRow {
+    bool valid;
+    uint32_t meta[4], addr[5];
+    U256 key, read, written;
+};
+
+struct DecRow {
+    bool valid;
+    uint32_t meta[4];
+    U256 hash;
 };
 
 HD U256 load_word(const int32_t *lane_arena, uint64_t n_words, uint64_t idx) {
@@ -113,7 +167,25 @@ struct Lane {
     int32_t depth;
     bool done, lane_error;
     int32_t wq_count;
+    uint32_t spent_pubdata, page_counter;
+    int32_t st_count, j_count, ev_count, lq_count, dq_count, frame_count;
 };
+
+HD U256 load_u256(const int32_t *p) {
+    U256 r;
+    for (int l = 0; l < 8; l++) r.w[l] = (uint32_t)p[l];
+    return r;
+}
+
+HD void store_u256(int32_t *p, const U256 &v) {
+    for (int l = 0; l < 8; l++) p[l] = (int32_t)v.w[l];
+}
+
+HD bool addr_is_kernel(const uint32_t *addr5) {
+    bool k = addr5[0] < KERNEL_SPACE_BOUND;
+    for (int i = 1; i < 5; i++) k = k && addr5[i] == 0;
+    return k;
+}
 
 HD void read_reg(const Lane &L, uint32_t idx, U256 *v, bool *tag) {
     // r0 reads as zero
@@ -132,10 +204,13 @@ HD void write_reg(Lane &L, uint32_t idx, const U256 &v, bool tag) {
 }
 
 // one cycle of one live lane (done lanes never get here); fills the
-// cycle's 8 witness slots
-HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots) {
+// cycle's 8 witness slots and, with kLog, its log and decommit rows
+template <bool kLog>
+HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots, LogRow &lr,
+                   DecRow &dr) {
     const int D = a.max_depth;
     for (int s = 0; s < SLOTS_PER_CYCLE; s++) slots[s].valid = false;
+    lr.valid = dr.valid = false;
 
     // ---------------------------------------------------------- frame
     const int32_t depth = L.depth;
@@ -248,8 +323,7 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots) {
     const bool not_enough = ergs0 < price;
     const uint32_t ergs1 = not_enough ? 0 : ergs0 - price;
 
-    bool is_kernel = this_addr[0] < KERNEL_SPACE_BOUND;
-    for (int i = 1; i < 5; i++) is_kernel = is_kernel && this_addr[i] == 0;
+    const bool is_kernel = addr_is_kernel(this_addr);
     const bool callstack_full = depth >= (int32_t)VM_MAX_STACK_DEPTH;
     const bool mask_panic = invalid || not_enough ||
         (requires_kernel && !is_kernel) || (!allowed_in_static && is_static) ||
@@ -359,8 +433,12 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots) {
     const bool is_shift = opcode == OP_SHIFT, is_binop = opcode == OP_BINOP;
     const bool is_ptr = opcode == OP_PTR, is_near_call = opcode == OP_NEAR_CALL;
     const bool is_ret = opcode == OP_RET, is_uma = opcode == OP_UMA;
-    // no LOG unit in the slice: LOG and FAR_CALL are unsupported
-    if (opcode == OP_FAR_CALL || opcode == OP_LOG) L.lane_error = true;
+    const bool is_log = opcode == OP_LOG;
+    // the precompile units are not ported; without kLog, neither are LOG
+    // and FAR_CALL
+    if (kLog ? (is_log && sub_variant == LOG_PRECOMPILE_CALL)
+             : (opcode == OP_FAR_CALL || is_log))
+        L.lane_error = true;
 
     bool carry = false, borrow = false;
     const U256 sum_val = u256_add(src0, src1, &carry);
@@ -533,8 +611,102 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots) {
     U256 incremented_src0 = src0;
     incremented_src0.w[0] = incremented;
 
+    // ---------------------------------------------------- log family
+    // pubdata ergs first, then the storage / event action (log.rs)
+    const uint32_t shard_this = scal[CS_SHARD_IDS] & 0xFF;
+    const uint32_t ts_log = L.timestamp + 1;
+    const int S = a.storage_slots;
+    uint32_t ergs_after = ergs2;
+    bool do_sread = false, do_swrite = false, do_event = false;
+    bool do_precomp = false, l_precomp = false;
+    U256 current_val = u256_zero();
+    uint32_t aux_byte = 0;
+    int32_t new_j_count = L.j_count, new_ev_count = L.ev_count;
+    if (kLog && is_log) {
+        const uint32_t ls = sub_variant;
+        const bool l_swrite = ls == LOG_STORAGE_WRITE;
+        const bool l_event = ls == LOG_EVENT, l_tol1 = ls == LOG_TO_L1_MESSAGE;
+        l_precomp = ls == LOG_PRECOMPILE_CALL;
+        uint32_t eop = 0;
+        if (l_swrite && shard_this == 0)
+            eop = L.ergs_per_pubdata * INITIAL_STORAGE_WRITE_PUBDATA_BYTES;
+        else if (l_tol1)
+            eop = L.ergs_per_pubdata * L1_MESSAGE_PUBDATA_BYTES;
+        const uint32_t total = eop + (l_precomp ? src1.w[0] : 0u);
+        const bool not_enough = total > ergs2;
+        // the soft out-of-ergs path skips the query and spends what is left
+        ergs_after = not_enough ? 0 : ergs2 - total;
+        L.spent_pubdata += not_enough ? (ergs2 < eop ? ergs2 : eop) : eop;
+        do_sread = ls == LOG_STORAGE_READ;
+        do_swrite = l_swrite && !not_enough;
+        do_event = (l_event || l_tol1) && !not_enough;
+        do_precomp = l_precomp && !not_enough;
+
+        // compare-all lookup over the lane's KV slots; a write goes to the
+        // match, or to a fresh slot at st_count
+        uint32_t key14[14];
+        for (int i = 0; i < 8; i++) key14[i] = src0.w[i];
+        for (int i = 0; i < 5; i++) key14[8 + i] = this_addr[i];
+        key14[13] = shard_this;
+        int32_t *lane_key = a.st_key + (uint64_t)b * S * 14;
+        int32_t *lane_val = a.st_val + (uint64_t)b * S * 8;
+        uint8_t *lane_used = a.st_used + (uint64_t)b * S;
+        bool found = false;
+        int32_t write_slot = 0;
+        for (int s = 0; s < S; s++) {
+            bool m = lane_used[s] != 0;
+            for (int i = 0; i < 14 && m; i++)
+                m = (uint32_t)lane_key[s * 14 + i] == key14[i];
+            if (!m) continue;
+            found = true;
+            write_slot += s;
+            for (int l = 0; l < 8; l++)
+                current_val.w[l] += (uint32_t)lane_val[s * 8 + l];
+            if (do_swrite) store_u256(lane_val + s * 8, src1);
+        }
+        if (do_swrite && !found) {
+            if (L.st_count >= S) {
+                L.lane_error = true;
+            } else {
+                for (int i = 0; i < 14; i++)
+                    lane_key[L.st_count * 14 + i] = (int32_t)key14[i];
+                store_u256(lane_val + L.st_count * 8, src1);
+                lane_used[L.st_count] = 1;
+                write_slot = L.st_count;
+            }
+            L.st_count += 1;
+        }
+
+        // journal (slot, previous value) for rollback; events
+        if (do_swrite) {
+            const int J = a.journal_slots;
+            if (L.j_count >= J) {
+                L.lane_error = true;
+            } else {
+                const uint64_t ji = (uint64_t)b * J + L.j_count;
+                a.j_slot[ji] = write_slot;
+                store_u256(a.j_prev + ji * 8, current_val);
+            }
+            new_j_count = L.j_count + 1;
+        }
+        if (do_event) {
+            const int E = a.event_slots;
+            aux_byte = l_event ? EVENT_AUX_BYTE : L1_MESSAGE_AUX_BYTE;
+            if (L.ev_count >= E) {
+                L.lane_error = true;
+            } else {
+                const uint64_t ei = (uint64_t)b * E + L.ev_count;
+                store_u256(a.ev_key + ei * 8, src0);
+                store_u256(a.ev_val + ei * 8, src1);
+                a.ev_meta[ei * 2] = (int32_t)ts_log;
+                a.ev_meta[ei * 2 + 1] = (int32_t)(
+                    aux_byte | ((uint32_t)vflag0 << 8) | (L.tx_number << 16));
+            }
+            new_ev_count = L.ev_count + 1;
+        }
+    }
+
     // ---------------------------------------------------- near call
-    const uint32_t ergs_after = ergs2;   // no LOG unit in the slice
     const uint32_t nc_abi = src0.w[0];
     const bool nc_pass_all = nc_abi == 0 || nc_abi > ergs_after;
     const uint32_t nc_passed = nc_pass_all ? ergs_after : nc_abi;
@@ -579,10 +751,158 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots) {
     const bool ret_panicked = is_ret && (sub_variant == RET_REVERT || ret_final_panic);
     const bool is_to_label = is_ret && vflag0;
 
+    // ------------------------------------------ far call (far_call.rs)
+    const bool is_far_call = kLog && opcode == OP_FAR_CALL;
+    bool fc_exc = false, fc_do_sread = false, fc_do_decommit = false;
+    bool fc_fresh = false, fc_ctor = false, fc_to_system = false;
+    uint32_t fc_left = 0, fc_passed = 0;
+    uint32_t fc_new_heap_bound = heap_bound0, fc_new_aux_bound = aux_bound0;
+    const uint32_t fc_new_base = L.page_counter;
+    uint32_t fc_code_page = 0, fc_code_len = 0;
+    uint32_t fc_this_shard = 0, fc_code_shard = 0;
+    const int32_t fc_heap_slot = L.frame_count;
+    uint32_t fc_addr5[5] = {0, 0, 0, 0, 0};
+    uint32_t fc_next_this[5], fc_next_sender[5], fc_next_u128[4];
+    uint32_t fc_cd[4] = {0, 0, 0, 0};   // calldata: offset, page, start, length
+    U256 fc_hash_storage = u256_zero(), fc_code_hash = u256_zero();
+    if (is_far_call) {
+        const bool fc_delegate = sub_variant == FAR_DELEGATE;
+        const bool fc_mimic = sub_variant == FAR_MIMIC;
+        for (int i = 0; i < 5; i++) fc_addr5[i] = src1.w[i];
+        const bool dst_kernel = addr_is_kernel(fc_addr5);
+        const uint32_t off = src0.w[0], page_f = src0.w[1];
+        const uint32_t start = src0.w[2], len = src0.w[3];
+        const uint32_t abi7 = src0.w[7];
+        uint32_t mode = (abi7 >> 8) & 0xFF;
+        if (mode > 2) mode = 0;
+        fc_ctor = ((abi7 >> 16) & 0xFF) != 0 && is_kernel;
+        fc_to_system = ((abi7 >> 24) & 0xFF) != 0 && dst_kernel;
+        fc_code_shard = vflag1 ? (abi7 & 0xFF) : shard_this;
+        fc_this_shard = fc_delegate ? shard_this : fc_code_shard;
+
+        // code-hash storage read (skipped for the unavailable-shard mapping)
+        const bool trivial = fc_code_shard != 0;
+        fc_do_sread = !trivial;
+        if (!trivial) {
+            uint32_t key14[14] = {0};
+            for (int i = 0; i < 5; i++) key14[i] = fc_addr5[i];
+            key14[8] = DEPLOYER_SYSTEM_CONTRACT_ADDRESS;
+            key14[13] = fc_code_shard;
+            const int32_t *lane_key = a.st_key + (uint64_t)b * S * 14;
+            const int32_t *lane_val = a.st_val + (uint64_t)b * S * 8;
+            for (int s = 0; s < S; s++) {
+                bool m = a.st_used[(uint64_t)b * S + s] != 0;
+                for (int i = 0; i < 14 && m; i++)
+                    m = (uint32_t)lane_key[s * 14 + i] == key14[i];
+                if (m)
+                    for (int l = 0; l < 8; l++)
+                        fc_hash_storage.w[l] += (uint32_t)lane_val[s * 8 + l];
+            }
+        }
+        // default-AA masking for empty slots of user-space targets
+        const U256 aa = load_u256(a.default_aa_hash + (uint64_t)b * 8);
+        const bool mask_aa = u256_is_zero(fc_hash_storage) && !dst_kernel && !trivial;
+        const U256 hash_raw = mask_aa ? aa : fc_hash_storage;
+        // versioned-hash validation (the BE byte layout lives in limb 7)
+        const uint32_t h7 = hash_raw.w[7];
+        const bool vh_ok = (h7 >> 24) == CODE_HASH_VERSION_BYTE;
+        const uint32_t marker = (h7 >> 16) & 0xFF;
+        const bool marker_rest = marker == CODE_AT_REST_MARKER;
+        const bool marker_ctor = marker == YET_CONSTRUCTED_MARKER;
+        const bool marker_valid = marker_rest || marker_ctor;
+        const bool can_call = (!fc_ctor && marker_rest) || (fc_ctor && marker_ctor);
+        const bool callable_direct = vh_ok && marker_valid && can_call;
+        const bool degrade_aa = vh_ok && marker_valid && !can_call && !dst_kernel;
+        const bool bad_hash = !vh_ok || !marker_valid;
+        const bool ctor_system = vh_ok && marker_valid && !can_call && dst_kernel;
+        if (callable_direct) {
+            fc_code_hash = hash_raw;
+            fc_code_hash.w[7] = h7 & 0xFF00FFFFu;   // marker byte -> at rest
+            fc_code_len = h7 & 0xFFFF;
+        } else if (degrade_aa) {
+            fc_code_hash = aa;
+            fc_code_len = aa.w[7] & 0xFFFF;
+        }
+
+        // ABI quasi-pointer validation and forwarding (as in ret)
+        const bool fwd = mode == 1, use_aux = mode == 2;
+        const bool deref = (uint32_t)(start + len) < start;
+        const bool exc0 = bad_hash || ctor_system || (fwd && !src0_tag) ||
+                          deref || (!fwd && off != 0) || off > len;
+        if (!exc0) {
+            fc_cd[0] = fwd ? 0 : off;
+            fc_cd[1] = fwd ? page_f : (use_aux ? aux_page : heap_page);
+            fc_cd[2] = fwd ? start + off : start;
+            fc_cd[3] = fwd ? len - off : len;
+        }
+        // memory growth paid against the caller frame's bounds
+        const uint32_t upper = deref ? 0xFFFFFFFFu : fc_cd[2] + fc_cd[3];
+        const uint32_t bound = use_aux ? aux_bound0 : heap_bound0;
+        const bool growth_uf = upper < bound;
+        const uint32_t growth = (growth_uf || fwd) ? 0 : upper - bound;
+        if (!fwd && !growth_uf) {
+            if (use_aux) fc_new_aux_bound = upper;
+            else fc_new_heap_bound = upper;
+        }
+        const uint32_t cost_growth = growth * MEMORY_GROWTH_ERGS_PER_BYTE;
+        const bool no_ergs_grow = ergs_after < cost_growth;
+        const uint32_t ergs_a = no_ergs_grow ? 0 : ergs_after - cost_growth;
+        const uint32_t cost_dec = ERGS_PER_CODE_WORD_DECOMMITTMENT * fc_code_len;
+        const bool no_ergs_dec = ergs_a < cost_dec;
+        fc_exc = exc0 || no_ergs_grow || no_ergs_dec;
+        uint32_t ergs_b = no_ergs_dec ? ergs_a : ergs_a - cost_dec;
+
+        // decommit: bind a pre-staged code-bank slot to the candidate page
+        fc_do_decommit = !fc_exc;
+        bool bank_found = false;
+        uint32_t bound_page = 0;
+        for (int p = 0; p < P; p++) {
+            const uint64_t pi = (uint64_t)b * P + p;
+            bool m = a.cb_valid[pi] != 0;
+            for (int l = 0; l < 8 && m; l++)
+                m = (uint32_t)a.cb_hash[pi * 8 + l] == fc_code_hash.w[l];
+            if (m) { bank_found = true; bound_page += (uint32_t)a.cb_page[pi]; }
+        }
+        // an unknown code hash is the VM's single hard error
+        if (fc_do_decommit && !bank_found) L.lane_error = true;
+        fc_fresh = bound_page == 0;
+        fc_code_page = fc_fresh ? fc_new_base : bound_page;
+        if (fc_do_decommit && fc_fresh) {
+            for (int p = 0; p < P; p++) {
+                const uint64_t pi = (uint64_t)b * P + p;
+                bool m = a.cb_valid[pi] != 0;
+                for (int l = 0; l < 8 && m; l++)
+                    m = (uint32_t)a.cb_hash[pi * 8 + l] == fc_code_hash.w[l];
+                if (m) a.cb_page[pi] = (int32_t)fc_new_base;
+            }
+        }
+        // a repeat decommit refunds its cost (far_call.rs:450-453)
+        if (fc_do_decommit && !fc_fresh) ergs_b += cost_dec;
+        if (fc_exc) fc_code_page = UNMAPPED_PAGE;
+
+        // the 63/64 rule
+        const uint32_t max_pass = (ergs_b / 64) * 63;
+        const uint32_t leftover = ergs_b - max_pass;
+        const uint32_t want = src0.w[6];
+        const bool over = want > max_pass;
+        fc_passed = over ? max_pass : want;
+        fc_left = over ? leftover : leftover + max_pass - want;
+
+        // the callee frame's addresses and context
+        for (int i = 0; i < 5; i++) {
+            fc_next_this[i] = fc_delegate ? this_addr[i] : fc_addr5[i];
+            fc_next_sender[i] = fc_delegate ? msg_sender[i]
+                : (fc_mimic ? L.regs[14][i] : this_addr[i]);
+        }
+        for (int i = 0; i < 4; i++)
+            fc_next_u128[i] = fc_delegate ? frame_u128[i] : L.ctx[i];
+        if (fc_heap_slot >= a.heap_frames) L.lane_error = true;
+    }
+
     // ============================================ flags writeback
     const bool writes_flags = set_flags &&
         (is_add || is_sub || is_mul || is_div || is_shift || is_binop);
-    const bool resets_flags = is_near_call || is_ret;
+    const bool resets_flags = is_near_call || is_ret || is_far_call;
     bool n_lt = false, n_eq = false, n_gt = false;
     if (is_add) {
         n_eq = u256_is_zero(sum_val); n_lt = carry; n_gt = !n_eq && !carry;
@@ -616,9 +936,11 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots) {
     else if (ptr_writes) dst0_val = ptr_result;
     else if (uma_is_read) dst0_val = read_val;
     else if (uma_is_write && uma_increment) dst0_val = incremented_src0;
+    else if (do_sread) dst0_val = current_val;
+    else if (l_precomp) dst0_val = u256_from32(do_precomp ? 1u : 0u);
     const bool dst0_is_ptr = ptr_writes;
     const bool dst0_write = is_add || is_sub || is_mul || is_div || is_shift ||
-        is_binop || ctx_writes_dst || ptr_writes ||
+        is_binop || ctx_writes_dst || ptr_writes || do_sread || l_precomp ||
         (uma_is_read && !uma_set_panic) ||
         (uma_is_write && uma_increment && !uma_set_panic);
 
@@ -630,41 +952,77 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots) {
     const bool dst1_write = is_mul || is_div ||
         (uma_is_read && uma_increment && !uma_set_panic);
 
-    new_pending = (is_ptr && ptr_panic) || uma_set_panic;
+    new_pending = (is_ptr && ptr_panic) || uma_set_panic ||
+                  (is_far_call && fc_exc);
 
     // ====================================== pc + frame machinery
     uint32_t cur[NF];
     for (int f = 0; f < (int)NF; f++) cur[f] = scal[f];
     cur[CS_PC] = is_jump ? (src0.w[0] & 0xFFFF) : new_pc_lin;
     cur[CS_SP] = sp2;
-    cur[CS_ERGS_REMAINING] = is_near_call ? nc_left : (is_ret ? 0 : ergs3);
-    cur[CS_HEAP_BOUND] = is_uma ? new_heap_bound_u : heap_bound0;
-    cur[CS_AUX_HEAP_BOUND] = is_uma ? new_aux_bound_u : aux_bound0;
+    cur[CS_ERGS_REMAINING] = is_near_call ? nc_left
+        : (is_far_call ? fc_left : (is_ret ? 0 : ergs3));
+    cur[CS_HEAP_BOUND] = is_uma ? new_heap_bound_u
+        : (is_far_call ? fc_new_heap_bound : heap_bound0);
+    cur[CS_AUX_HEAP_BOUND] = is_uma ? new_aux_bound_u
+        : (is_far_call ? fc_new_aux_bound : aux_bound0);
     if (frame_ok) {
         const uint64_t fi = (uint64_t)b * D + depth;
         for (int f = 0; f < (int)NF; f++) a.cs_scalars[fi * NF + f] = (int32_t)cur[f];
     }
-    if (is_near_call) {
+    if (is_near_call || is_far_call) {
         const int32_t push_idx = depth + 1 < D - 1 ? depth + 1 : D - 1;
         if (depth + 1 >= D) L.lane_error = true;
         if (push_idx >= 0) {
             uint32_t pushed[NF];
             for (int f = 0; f < (int)NF; f++) pushed[f] = cur[f];
-            pushed[CS_PC] = imm0;
-            pushed[CS_EXCEPTION_HANDLER] = imm1;
-            pushed[CS_ERGS_REMAINING] = nc_passed;
-            pushed[CS_FLAGS_WORD] = flags_word | 2;
-            pushed[CS_JOURNAL_SNAPSHOT] = (uint32_t)a.j_count[b];
-            pushed[CS_EVENT_SNAPSHOT] = (uint32_t)a.ev_count[b];
+            pushed[CS_JOURNAL_SNAPSHOT] = (uint32_t)new_j_count;
+            pushed[CS_EVENT_SNAPSHOT] = (uint32_t)new_ev_count;
+            const uint32_t *p_this = this_addr, *p_sender = msg_sender;
+            const uint32_t *p_code = code_addr, *p_u128 = frame_u128;
+            if (is_far_call) {
+                pushed[CS_PC] = 0;
+                pushed[CS_EXCEPTION_HANDLER] = imm0;
+                pushed[CS_ERGS_REMAINING] = fc_passed;
+                // far frames keep only the static bit
+                pushed[CS_FLAGS_WORD] = (flags_word & 1) | (uint32_t)vflag0;
+                pushed[CS_BASE_MEMORY_PAGE] = fc_new_base;
+                pushed[CS_CODE_PAGE] = fc_code_page;
+                pushed[CS_SP] = INITIAL_SP_ON_FAR_CALL;
+                pushed[CS_SHARD_IDS] = fc_this_shard | (shard_this << 8) |
+                                       (fc_code_shard << 16);
+                pushed[CS_HEAP_BOUND] = NEW_FRAME_MEMORY_STIPEND;
+                pushed[CS_AUX_HEAP_BOUND] = NEW_FRAME_MEMORY_STIPEND;
+                pushed[CS_HEAP_SLOT] = (uint32_t)fc_heap_slot;
+                p_this = fc_next_this; p_sender = fc_next_sender;
+                p_code = fc_addr5; p_u128 = fc_next_u128;
+            } else {
+                pushed[CS_PC] = imm0;
+                pushed[CS_EXCEPTION_HANDLER] = imm1;
+                pushed[CS_ERGS_REMAINING] = nc_passed;
+                pushed[CS_FLAGS_WORD] = flags_word | 2;
+            }
             const uint64_t pi = (uint64_t)b * D + push_idx;
             for (int f = 0; f < (int)NF; f++) a.cs_scalars[pi * NF + f] = (int32_t)pushed[f];
             for (int i = 0; i < 5; i++) {
-                a.cs_this[pi * 5 + i] = (int32_t)this_addr[i];
-                a.cs_sender[pi * 5 + i] = (int32_t)msg_sender[i];
-                a.cs_code_addr[pi * 5 + i] = (int32_t)code_addr[i];
+                a.cs_this[pi * 5 + i] = (int32_t)p_this[i];
+                a.cs_sender[pi * 5 + i] = (int32_t)p_sender[i];
+                a.cs_code_addr[pi * 5 + i] = (int32_t)p_code[i];
             }
-            for (int i = 0; i < 4; i++) a.cs_u128[pi * 4 + i] = (int32_t)frame_u128[i];
+            for (int i = 0; i < 4; i++) a.cs_u128[pi * 4 + i] = (int32_t)p_u128[i];
         }
+    }
+    if (is_far_call) {
+        // the context register is consumed by the call (far_call.rs:558);
+        // a fresh heap / aux-heap frame slot and page range for the callee
+        for (int i = 0; i < 4; i++) new_ctx[i] = 0;
+        const int F = a.heap_frames;
+        if (fc_heap_slot >= 0 && fc_heap_slot < F) {
+            a.hp_page[(uint64_t)b * F + fc_heap_slot] = (int32_t)(fc_new_base + 2);
+            a.ap_page[(uint64_t)b * F + fc_heap_slot] = (int32_t)(fc_new_base + 3);
+        }
+        L.frame_count += 1;
+        L.page_counter += NEW_MEMORY_PAGES_PER_FAR_CALL;
     }
     if (is_ret) {
         const int32_t parent_idx = depth - 1 > 0 ? depth - 1 : 0;
@@ -679,8 +1037,31 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots) {
                 par[CS_AUX_HEAP_BOUND] = (int32_t)aux_bound0;
             }
         }
+        if (kLog && ret_panicked) {
+            // storage rollback: replay the journal newest-first down to the
+            // frame's snapshot; then cancel the frame's events
+            const int32_t j_snap = (int32_t)scal[CS_JOURNAL_SNAPSHOT];
+            const int32_t ev_snap = (int32_t)scal[CS_EVENT_SNAPSHOT];
+            const int J = a.journal_slots, E = a.event_slots;
+            for (int32_t idx = new_j_count; idx > j_snap; idx--) {
+                const int32_t e = idx - 1 > 0 ? idx - 1 : 0;
+                int32_t slot = 0;
+                U256 prev = u256_zero();
+                if (e < J) {
+                    slot = a.j_slot[(uint64_t)b * J + e];
+                    prev = load_u256(a.j_prev + ((uint64_t)b * J + e) * 8);
+                }
+                if (slot >= 0 && slot < S)
+                    store_u256(a.st_val + ((uint64_t)b * S + slot) * 8, prev);
+            }
+            new_j_count = j_snap;
+            for (int32_t pos = ev_snap > 0 ? ev_snap : 0;
+                 pos < new_ev_count && pos < E; pos++)
+                a.ev_cancelled[(uint64_t)b * E + pos] = 1;
+        }
     }
-    int32_t new_depth = depth + (is_near_call ? 1 : 0) - (is_ret ? 1 : 0);
+    int32_t new_depth = depth + ((is_near_call || is_far_call) ? 1 : 0) -
+                        (is_ret ? 1 : 0);
     if (new_depth < 0) new_depth = 0;
 
     // ====================================== register writebacks
@@ -696,6 +1077,19 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots) {
         L.regs[0][0] = r_off; L.regs[0][1] = r_page;
         L.regs[0][2] = r_start; L.regs[0][3] = r_len;
         for (int i = 0; i < 4; i++) new_ctx[i] = 0;
+    }
+    if (is_far_call) {
+        // far-call register protocol (far_call.rs:571-610): r1 = calldata
+        // pointer, r2 = ctor | system markers, r3..r12 kept (tags cleared)
+        // only for system calls, r13..r15 zeroed
+        for (int r = 0; r < 15; r++) {
+            const bool keep = fc_to_system && r >= 2 && r <= 11;
+            if (!keep)
+                for (int l = 0; l < 8; l++) L.regs[r][l] = 0;
+            L.rtag[r] = r == 0;
+        }
+        for (int i = 0; i < 4; i++) L.regs[0][i] = fc_cd[i];
+        L.regs[1][0] = (uint32_t)fc_ctor | ((uint32_t)fc_to_system << 1);
     }
 
     // ======================================== memory writebacks
@@ -734,7 +1128,48 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots) {
     slots[7] = Slot{uma_do_write && is_unaligned, uma_type, uma_page, word1, 0, 1, ts3,
                     new_w1};
 
+    // ============================== log and decommit witness rows
+    if (kLog) {
+        lr.valid = do_sread || do_swrite || do_event || do_precomp || fc_do_sread;
+        if (lr.valid) {
+            const uint32_t l_aux = do_precomp ? PRECOMPILE_AUX_BYTE
+                : ((do_sread || do_swrite || fc_do_sread) ? STORAGE_AUX_BYTE
+                                                         : aux_byte);
+            const uint32_t l_rw = do_swrite || do_event;
+            const uint32_t l_svc = vflag0 && !fc_do_sread;
+            const uint32_t l_shard = fc_do_sread ? fc_code_shard : shard_this;
+            lr.meta[0] = ts_log;
+            lr.meta[1] = l_aux | (l_rw << 8) | (l_svc << 9) | (l_shard << 16);
+            lr.meta[2] = L.tx_number;
+            lr.meta[3] = 1;
+            if (fc_do_sread) {
+                lr.addr[0] = DEPLOYER_SYSTEM_CONTRACT_ADDRESS;
+                for (int i = 1; i < 5; i++) lr.addr[i] = 0;
+                lr.key = u256_zero();
+                for (int i = 0; i < 5; i++) lr.key.w[i] = fc_addr5[i];
+                lr.read = lr.written = fc_hash_storage;
+            } else {
+                for (int i = 0; i < 5; i++) lr.addr[i] = this_addr[i];
+                lr.key = src0;
+                // reads copy read_value into written_value (helpers.rs)
+                lr.read = (do_sread || do_swrite) ? current_val : u256_zero();
+                lr.written = do_sread ? current_val
+                    : ((do_swrite || do_event) ? src1 : u256_zero());
+            }
+        }
+        dr.valid = fc_do_decommit;
+        if (dr.valid) {
+            dr.hash = fc_code_hash;
+            dr.meta[0] = L.timestamp + 1;
+            dr.meta[1] = fc_code_page;
+            dr.meta[2] = fc_code_len;
+            dr.meta[3] = 1u | ((uint32_t)fc_fresh << 1);
+        }
+    }
+
     // ======================================== lane scalar updates
+    L.j_count = new_j_count;
+    L.ev_count = new_ev_count;
     L.lt = f_lt; L.eq = f_eq; L.gt = f_gt;
     L.timestamp += TIME_DELTA_PER_CYCLE;
     L.mcc += 1;
@@ -772,6 +1207,39 @@ HD void emit_slots(const K1Args &a, int b, uint64_t base, const Slot *slots,
     }
 }
 
+// write one cycle's log row at min(step, LQ - 1) of the lane's log queue
+HD void emit_log_row(const K1Args &a, int b, int64_t step, const LogRow &lr,
+                     Lane &L) {
+    const int64_t LQ = a.log_queue_capacity;
+    bool v = lr.valid;
+    if (v && step >= LQ) {
+        L.lane_error = true;
+        v = false;
+    }
+    const uint64_t r = (uint64_t)b * LQ + (step < LQ - 1 ? step : LQ - 1);
+    for (int i = 0; i < 4; i++) a.lq_meta[r * 4 + i] = v ? (int32_t)lr.meta[i] : 0;
+    for (int i = 0; i < 5; i++) a.lq_addr[r * 5 + i] = v ? (int32_t)lr.addr[i] : 0;
+    store_u256(a.lq_key + r * 8, v ? lr.key : u256_zero());
+    store_u256(a.lq_read + r * 8, v ? lr.read : u256_zero());
+    store_u256(a.lq_written + r * 8, v ? lr.written : u256_zero());
+    L.lq_count += v;
+}
+
+HD void emit_decommit_row(const K1Args &a, int b, int64_t step,
+                          const DecRow &dr, Lane &L) {
+    const int64_t DQ = a.decommit_queue_capacity;
+    bool v = dr.valid;
+    if (v && step >= DQ) {
+        L.lane_error = true;
+        v = false;
+    }
+    const uint64_t r = (uint64_t)b * DQ + (step < DQ - 1 ? step : DQ - 1);
+    store_u256(a.dq_hash + r * 8, v ? dr.hash : u256_zero());
+    for (int i = 0; i < 4; i++) a.dq_meta[r * 4 + i] = v ? (int32_t)dr.meta[i] : 0;
+    L.dq_count += v;
+}
+
+template <bool kLog>
 HD void k1_run_lane(const K1Args &a, int b) {
     Lane L;
     for (int r = 0; r < 15; r++) {
@@ -794,17 +1262,37 @@ HD void k1_run_lane(const K1Args &a, int b) {
     L.done = a.done[b] != 0;
     L.lane_error = a.lane_error[b] != 0;
     L.wq_count = a.wq_count[b];
+    L.j_count = a.j_count[b];
+    L.ev_count = a.ev_count[b];
+    if (kLog) {
+        L.spent_pubdata = a.spent_pubdata[b];
+        L.page_counter = a.page_counter[b];
+        L.st_count = a.st_count[b];
+        L.lq_count = a.lq_count[b];
+        L.dq_count = a.dq_count[b];
+        L.frame_count = a.frame_count[b];
+    } else {
+        L.spent_pubdata = L.page_counter = 0;
+        L.st_count = L.lq_count = L.dq_count = L.frame_count = 0;
+    }
 
     const int n = a.k_stop < a.k_cycles ? a.k_stop : a.k_cycles;
     const int64_t step0 = *a.step0;
     Slot slots[SLOTS_PER_CYCLE];
+    LogRow lr;
+    DecRow dr;
     for (int c = 0; c < n; c++) {
         if (L.done) {
-            // a frozen lane writes nothing but its all-zero slot rows
+            // a frozen lane writes nothing but its all-zero rows
             for (int s = 0; s < SLOTS_PER_CYCLE; s++) slots[s].valid = false;
+            lr.valid = dr.valid = false;
         } else {
-            lane_cycle(a, b, L, slots);
+            lane_cycle<kLog>(a, b, L, slots, lr, dr);
         }
+        if (kLog && a.log_queue_capacity > 0)
+            emit_log_row(a, b, step0 + c, lr, L);
+        if (kLog && a.decommit_queue_capacity > 0)
+            emit_decommit_row(a, b, step0 + c, dr, L);
         if (a.emit_mode == 1) {
             const int64_t pos = (step0 + c) * SLOTS_PER_CYCLE;
             const int64_t last = (int64_t)a.queue_capacity - SLOTS_PER_CYCLE;
@@ -835,18 +1323,32 @@ HD void k1_run_lane(const K1Args &a, int b) {
     a.lane_error[b] = L.lane_error;
     a.global_step[b] += n;
     if (a.emit_mode == 1) a.wq_count[b] = L.wq_count;
+    if (kLog) {
+        a.spent_pubdata[b] = (int32_t)L.spent_pubdata;
+        a.page_counter[b] = (int32_t)L.page_counter;
+        a.st_count[b] = L.st_count;
+        a.j_count[b] = L.j_count;
+        a.ev_count[b] = L.ev_count;
+        a.lq_count[b] = L.lq_count;
+        a.dq_count[b] = L.dq_count;
+        a.frame_count[b] = L.frame_count;
+    }
 }
 
 #ifdef __CUDACC__
+template <bool kLog>
 __global__ void __launch_bounds__(128) k1_kernel(const K1Args a) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b < a.batch) k1_run_lane(a, b);
+    if (b < a.batch) k1_run_lane<kLog>(a, b);
 }
 
 extern "C" int eravm_k1_launch(const K1Args *args, void *stream) {
     const int threads = 128;
     const int blocks = (args->batch + threads - 1) / threads;
-    k1_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+    if (args->storage_slots > 0)
+        k1_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+    else
+        k1_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
     return (int)cudaGetLastError();
 }
 #endif

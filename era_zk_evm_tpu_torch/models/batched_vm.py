@@ -3,9 +3,14 @@
 A vectorised translation of `era_zk_evm_tpu/models/batched_vm.py::cycle_step`
 for the ported slice: NOP, ADD, SUB, MUL, DIV, JUMP, CONTEXT, SHIFT, BINOP,
 PTR, NEAR_CALL, RET and UMA, with register, stack and code addressing, the
-heap and aux heap, the memory witness queue and the rolling commitment.  The
-LOG, FAR_CALL and precompile branches are left out; a LOG or FAR_CALL opcode
-sets `lane_error`, as the JAX engine does when `storage_slots == 0`.
+heap and aux heap, the memory witness queue and the rolling commitment; and,
+with `storage_slots > 0` (the JAX engine's `log_enabled`), the LOG family
+(storage reads and writes with pubdata ergs, events and L1 messages, the
+journal and its rollback on a panicked pop) and FAR_CALL (code-hash storage
+read, decommit from the code bank, far frames with their heap pages), with
+the log and decommit witness queues.  The precompile units are left out:
+`log.precompile` sets `lane_error`, as the JAX engine does when they are
+off, and so do LOG and FAR_CALL when `storage_slots == 0`.
 
 Every value is computed in int64 holding a u32 (or a bool), and the state
 fields are written back as int32.  `cycle_step` updates the state in place
@@ -18,9 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from era_zk_evm_tpu.isa import params
-from era_zk_evm_tpu.isa.encoding import VARIANT_MASK, exception_revert_encoding
-from era_zk_evm_tpu.isa.opcodes import (
+from ..isa import params
+from ..isa.encoding import VARIANT_MASK, exception_revert_encoding
+from ..isa.opcodes import (
     ContextOp, FarCallOp, LogOp, Opcode, OperandMode, PtrOp, RetOp, ShiftOp,
     UMAOp, decode_consts,
 )
@@ -89,6 +94,11 @@ def _map_stack_index(config: VmConfig, idx: torch.Tensor):
     return torch.where(ok, phys, torch.full_like(idx, config.stack_words)), ok
 
 
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """u32 values (in int64) read as int32, as the JAX engine's astype."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x)
+
+
 def _sel(mask, a, b):
     """where with mask broadcast over trailing dims."""
     return torch.where(mask.view(mask.shape + (1,) * (a.dim() - mask.dim())),
@@ -100,6 +110,152 @@ def _cat_zero(x: torch.Tensor) -> torch.Tensor:
     z = torch.zeros((x.shape[0], 8 - x.shape[1]), dtype=x.dtype,
                     device=x.device)
     return torch.cat([x, z], dim=1)
+
+
+def _addr_is_kernel(addr5: torch.Tensor) -> torch.Tensor:
+    return (addr5[:, 0] < params.KERNEL_SPACE_BOUND) \
+        & (addr5[:, 1:] == 0).all(1)
+
+
+def _deployer5(like: torch.Tensor) -> torch.Tensor:
+    d = torch.zeros((like.shape[0], 5), dtype=I64, device=like.device)
+    d[:, 0] = params.DEPLOYER_SYSTEM_CONTRACT_ADDRESS
+    return d
+
+
+def far_call(state, config, src0, src0_tag, src1, vflag0, vflag1,
+             sub_variant, is_far_call, active, is_kernel, this_addr,
+             msg_sender, frame_u128, shard_this, ergs_after, heap_bound0,
+             aux_bound0, heap_page, aux_page) -> dict:
+    """The far-call unit of one cycle (far_call.rs:35-613), before any
+    frame is pushed: the code-hash storage read, default-AA masking, the
+    versioned-hash checks, ABI forwarding, memory growth, decommit cost and
+    refund, the code-bank binding (written to `state.cb_page` in place),
+    the 63/64 rule and the callee frame's addressing.  Returns the values
+    the rest of the cycle reads, by name."""
+    lane_error = torch.zeros_like(active)
+    fc_delegate = is_far_call & (sub_variant == FarCallOp.DELEGATE)
+    fc_mimic = is_far_call & (sub_variant == FarCallOp.MIMIC)
+    addr5 = src1[:, :5]
+    dst_kernel = _addr_is_kernel(addr5)
+    off, page_f, start, length = (src0[:, i] for i in range(4))
+    abi7 = src0[:, 7]
+    mode = (abi7 >> 8) & 0xFF
+    mode = torch.where(mode > 2, 0, mode)
+    ctor = (((abi7 >> 16) & 0xFF) != 0) & is_kernel
+    to_system = (((abi7 >> 24) & 0xFF) != 0) & dst_kernel
+    code_shard = torch.where(vflag1, abi7 & 0xFF, shard_this)
+    this_shard = torch.where(fc_delegate, shard_this, code_shard)
+    new_base = wide(state.page_counter)
+
+    # code-hash storage read (skipped for the unavailable-shard mapping)
+    trivial = code_shard != 0
+    do_sread = is_far_call & active & ~trivial
+    key14 = torch.cat([_cat_zero(addr5), _deployer5(src0),
+                       code_shard[:, None]], dim=1)
+    match = (wide(state.st_key) == key14[:, None, :]).all(2) & state.st_used
+    hash_storage = torch.where(match[:, :, None], wide(state.st_val),
+                               0).sum(1) & M32
+    hash_storage = _sel(trivial, torch.zeros_like(hash_storage), hash_storage)
+    # default-AA masking for empty slots of user-space targets
+    aa = wide(state.default_aa_hash)
+    mask_aa = u256.is_zero(hash_storage) & ~dst_kernel & ~trivial
+    hash_raw = _sel(mask_aa, aa, hash_storage)
+
+    # versioned-hash validation (the BE byte layout lives in limb 7)
+    h7 = hash_raw[:, 7]
+    vh_ok = (h7 >> 24) == params.CODE_HASH_VERSION_BYTE
+    marker = (h7 >> 16) & 0xFF
+    marker_rest = marker == params.CODE_AT_REST_MARKER
+    marker_valid = marker_rest | (marker == params.YET_CONSTRUCTED_MARKER)
+    can_call = (~ctor & marker_rest) \
+        | (ctor & (marker == params.YET_CONSTRUCTED_MARKER))
+    callable_direct = vh_ok & marker_valid & can_call
+    degrade_aa = vh_ok & marker_valid & ~can_call & ~dst_kernel
+    bad_hash = ~vh_ok | ~marker_valid
+    ctor_system = vh_ok & marker_valid & ~can_call & dst_kernel
+    stored_hash = hash_raw.clone()
+    stored_hash[:, 7] = h7 & 0xFF00FFFF          # marker byte -> at rest
+    z8 = torch.zeros_like(hash_raw)
+    code_hash = _sel(callable_direct, stored_hash, _sel(degrade_aa, aa, z8))
+    code_len = torch.where(callable_direct, h7 & 0xFFFF,
+                           torch.where(degrade_aa, aa[:, 7] & 0xFFFF, 0))
+
+    # ABI quasi-pointer validation and forwarding (as in ret, vs the caller)
+    fwd = mode == 1
+    use_aux = mode == 2
+    deref = ((start + length) & M32) < start
+    exc0 = is_far_call & (bad_hash | ctor_system | (fwd & ~src0_tag) | deref
+                          | (~fwd & (off != 0)) | (off > length))
+    start2 = torch.where(fwd, (start + off) & M32, start)
+    len2 = torch.where(fwd, (length - off) & M32, length)
+    off2 = torch.where(fwd, 0, off)
+    page2 = torch.where(fwd, page_f, torch.where(use_aux, aux_page, heap_page))
+    calldata = _cat_zero(torch.stack(
+        [torch.where(exc0, 0, x) for x in (off2, page2, start2, len2)], 1))
+
+    # memory growth paid against the caller frame's bounds
+    upper = (calldata[:, 2] + calldata[:, 3]) & M32
+    upper = torch.where(is_far_call & deref, M32, upper)
+    bound = torch.where(use_aux, aux_bound0, heap_bound0)
+    growth_uf = upper < bound
+    growth = torch.where(growth_uf | fwd, 0, upper - bound)
+    bound_update = is_far_call & ~fwd & ~growth_uf
+    new_heap_bound = torch.where(bound_update & ~use_aux, upper, heap_bound0)
+    new_aux_bound = torch.where(bound_update & use_aux, upper, aux_bound0)
+    cost_growth = (torch.where(is_far_call, growth, 0)
+                   * params.MEMORY_GROWTH_ERGS_PER_BYTE) & M32
+    no_ergs_grow = ergs_after < cost_growth
+    exc1 = exc0 | (is_far_call & no_ergs_grow)
+    ergs_a = torch.where(no_ergs_grow, 0, ergs_after - cost_growth)
+    cost_decommit = (params.ERGS_PER_CODE_WORD_DECOMMITTMENT * code_len) & M32
+    no_ergs_dec = ergs_a < cost_decommit
+    exc = exc1 | (is_far_call & no_ergs_dec)
+    ergs_b = torch.where(no_ergs_dec, ergs_a, ergs_a - cost_decommit)
+
+    # decommit: bind a pre-staged code-bank slot to the candidate page
+    do_decommit = is_far_call & active & ~exc
+    bank_match = (wide(state.cb_hash) == code_hash[:, None, :]).all(2) \
+        & state.cb_valid
+    # an unknown code hash is the VM's single hard error (decommitter.rs)
+    lane_error |= do_decommit & ~bank_match.any(1)
+    cb_page = wide(state.cb_page)
+    bound_page = torch.where(bank_match, cb_page, 0).sum(1) & M32
+    fresh = bound_page == 0
+    code_page = torch.where(fresh, new_base, bound_page)
+    bind = bank_match & (do_decommit & fresh)[:, None]
+    state.cb_page.copy_(narrow(torch.where(bind, new_base[:, None], cb_page),
+                               torch.int32))
+    # a repeat decommit refunds its cost (far_call.rs:450-453)
+    ergs_c = torch.where(do_decommit & ~fresh, (ergs_b + cost_decommit) & M32,
+                         ergs_b)
+    code_page = torch.where(exc, params.UNMAPPED_PAGE, code_page)
+
+    # the 63/64 rule
+    max_passable = (ergs_c // 64) * 63
+    leftover = ergs_c - max_passable
+    want = src0[:, 6]
+    over = want > max_passable
+    passed = torch.where(over, max_passable, want)
+    left = torch.where(over, leftover, leftover + max_passable - want)
+
+    # the callee frame's addresses and context
+    mimic_sender = wide(state.regs[:, 14, :5])
+    next_sender = _sel(fc_delegate, msg_sender,
+                       _sel(fc_mimic, mimic_sender, this_addr))
+    heap_slot = state.frame_count.to(I64)
+    lane_error |= is_far_call & active & (heap_slot >= config.heap_frames)
+    return dict(
+        lane_error=lane_error, do_sread=do_sread, do_decommit=do_decommit,
+        exc=exc, fresh=fresh, addr5=addr5, code_shard=code_shard,
+        this_shard=this_shard, new_base=new_base, hash_storage=hash_storage,
+        code_hash=code_hash, code_len=code_len, code_page=code_page,
+        calldata=calldata, ctor=ctor, to_system=to_system,
+        new_heap_bound=new_heap_bound, new_aux_bound=new_aux_bound,
+        passed=passed, left=left, heap_slot=heap_slot,
+        next_this=_sel(fc_delegate, this_addr, addr5),
+        next_sender=next_sender,
+        next_u128=_sel(fc_delegate, frame_u128, wide(state.context_u128)))
 
 
 def cycle_step(state: BatchedVmState, config: VmConfig,
@@ -236,7 +392,7 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
     not_enough = ergs0 < price
     ergs1 = torch.where(not_enough, 0, ergs0 - price)
 
-    is_kernel = (this_addr[:, 0] < (1 << 16)) & (this_addr[:, 1:] == 0).all(1)
+    is_kernel = _addr_is_kernel(this_addr)
     callstack_full = depth >= params.VM_MAX_STACK_DEPTH
     mask_panic = invalid | not_enough | (requires_kernel & ~is_kernel) \
         | (~allowed_in_static & is_static) | callstack_full
@@ -355,8 +511,14 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
     is_near_call = opcode == OP.NEAR_CALL
     is_ret = opcode == OP.RET
     is_uma = opcode == OP.UMA
-    # no LOG unit in the slice: LOG and FAR_CALL are unsupported
-    lane_error |= active & ((opcode == OP.FAR_CALL) | (opcode == OP.LOG))
+    is_log = opcode == OP.LOG
+    # the precompile units are outside the slice
+    log_enabled = config.storage_slots > 0
+    if log_enabled:
+        unsupported = is_log & (sub_variant == LogOp.PRECOMPILE_CALL)
+    else:
+        unsupported = (opcode == OP.FAR_CALL) | is_log
+    lane_error |= active & unsupported
 
     sum_val, carry = u256.add(src0, src1)
     diff_val, borrow = u256.sub(src0, src1)
@@ -556,8 +718,86 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
     incremented_src0 = src0.clone()
     incremented_src0[:, 0] = incremented
 
+    # ------------------------------------------------------ log family
+    # pubdata ergs first, then the storage / event action (log.rs)
+    shard_this = scal[:, CS["shard_ids"]] & 0xFF
+    ts_log = (wide(state.timestamp) + 1) & M32
+    no_lane = torch.zeros_like(active)
+    do_sread = do_swrite = do_event = do_precomp = l_precomp = no_lane
+    ergs_after = ergs2
+    if log_enabled:
+        S = config.storage_slots
+        l_sread = is_log & (sub_variant == LogOp.STORAGE_READ)
+        l_swrite = is_log & (sub_variant == LogOp.STORAGE_WRITE)
+        l_event = is_log & (sub_variant == LogOp.EVENT)
+        l_tol1 = is_log & (sub_variant == LogOp.TO_L1_MESSAGE)
+        l_precomp = is_log & (sub_variant == LogOp.PRECOMPILE_CALL)
+        epp = wide(state.ergs_per_pubdata)
+        ergs_on_pubdata = torch.where(
+            l_swrite & (shard_this == 0),
+            (epp * params.INITIAL_STORAGE_WRITE_PUBDATA_BYTES) & M32,
+            torch.where(l_tol1, (epp * params.L1_MESSAGE_PUBDATA_BYTES) & M32,
+                        0))
+        log_total_cost = (ergs_on_pubdata
+                          + torch.where(l_precomp, src1[:, 0], 0)) & M32
+        log_not_enough = log_total_cost > ergs2
+        ergs_after = torch.where(
+            is_log & log_not_enough, 0,
+            (ergs2 - torch.where(is_log, log_total_cost, 0)) & M32)
+        spent = torch.where(log_not_enough,
+                            torch.minimum(ergs2, ergs_on_pubdata),
+                            ergs_on_pubdata)
+        new_spent_pubdata = (wide(state.spent_pubdata)
+                             + torch.where(active & is_log, spent, 0)) & M32
+
+        # compare-all lookup over the lane's KV slots
+        key14 = torch.cat([src0, this_addr, shard_this[:, None]], dim=1)
+        slot_match = (wide(state.st_key) == key14[:, None, :]).all(2) \
+            & state.st_used                                   # [B, S]
+        slot_found = slot_match.any(1)
+        current_val = torch.where(slot_match[:, :, None], wide(state.st_val),
+                                  0).sum(1) & M32
+
+        do_sread = l_sread & active
+        do_swrite = l_swrite & active & ~log_not_enough
+        do_event = (l_event | l_tol1) & active & ~log_not_enough
+        do_precomp = l_precomp & active & ~log_not_enough
+
+        # write target: the match, or a fresh slot at st_count
+        st_count = state.st_count.to(I64)
+        fresh = do_swrite & ~slot_found
+        lane_error |= fresh & (st_count >= S)
+        slots_iota = torch.arange(S, device=dev)[None, :]
+        fresh_oh = (slots_iota == st_count[:, None]) & fresh[:, None]
+        write_oh = (slot_match & do_swrite[:, None]) | fresh_oh
+        state.st_key.copy_(_sel(fresh_oh, narrow(key14, torch.int32)[:, None],
+                                state.st_key))
+        state.st_val.copy_(_sel(write_oh, narrow(src1, torch.int32)[:, None],
+                                state.st_val))
+        state.st_used |= fresh_oh
+        new_st_count = st_count + fresh.to(I64)
+        write_slot = (write_oh.to(I64) * slots_iota).sum(1)
+
+        # journal (slot, previous value) for rollback; events
+        j_count = state.j_count.to(I64)
+        lane_error |= do_swrite & (j_count >= config.journal_slots)
+        _put_rows(state.j_slot, j_count, write_slot, do_swrite)
+        _put_rows(state.j_prev, j_count, current_val, do_swrite)
+        new_j_count = j_count + do_swrite.to(I64)
+
+        ev_count = state.ev_count.to(I64)
+        lane_error |= do_event & (ev_count >= config.event_slots)
+        aux_byte = torch.where(l_event, params.EVENT_AUX_BYTE,
+                               params.L1_MESSAGE_AUX_BYTE)
+        ev_meta_row = torch.stack(
+            [ts_log, aux_byte | (vflag0.to(I64) << 8)
+             | ((wide(state.tx_number) << 16) & M32)], dim=1)
+        _put_rows(state.ev_key, ev_count, src0, do_event)
+        _put_rows(state.ev_val, ev_count, src1, do_event)
+        _put_rows(state.ev_meta, ev_count, ev_meta_row, do_event)
+        new_ev_count = ev_count + do_event.to(I64)
+
     # -------------------------------------------------------- near call
-    ergs_after = ergs2   # no LOG unit in the slice
     nc_abi = src0[:, 0]
     nc_pass_all = (nc_abi == 0) | (nc_abi > ergs_after)
     nc_passed = torch.where(nc_pass_all, ergs_after, nc_abi)
@@ -613,6 +853,17 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
     returndata_u256 = _cat_zero(torch.stack([r_off, r_page, r_start, r_len],
                                             dim=1))
 
+    # ------------------------------------------- far call (far_call.rs)
+    is_far_call = (opcode == OP.FAR_CALL) & log_enabled
+    fc_do_sread = fc_do_decommit = no_lane
+    if log_enabled:
+        fc = far_call(state, config, src0, src0_tag, src1, vflag0, vflag1,
+                      sub_variant, is_far_call, active, is_kernel, this_addr,
+                      msg_sender, frame_u128, shard_this, ergs_after,
+                      heap_bound0, aux_bound0, heap_page, aux_page)
+        lane_error |= fc["lane_error"]
+        fc_do_sread, fc_do_decommit = fc["do_sread"], fc["do_decommit"]
+
     # =================================================== flags writeback
     cb_ = carry != 0
     bb_ = borrow != 0
@@ -640,7 +891,7 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
 
     writes_flags = set_flags & (is_add | is_sub | is_mul | is_div
                                 | is_shift | is_binop)
-    resets_flags = is_near_call | is_ret
+    resets_flags = is_near_call | is_ret | is_far_call
     ret_sets_lt = is_ret & ret_final_panic
     new_flags = torch.stack([
         torch.where(writes_flags, new_lt,
@@ -660,10 +911,14 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
     dst0_val = _sel(ptr_writes, ptr_result, dst0_val)
     dst0_val = _sel(uma_is_read, read_val, dst0_val)
     dst0_val = _sel(uma_is_write & uma_increment, incremented_src0, dst0_val)
+    if log_enabled:
+        dst0_val = _sel(do_sread, current_val, dst0_val)
+        dst0_val = _sel(l_precomp & active, u256.from_u32_scalar(
+            do_precomp.to(I64)), dst0_val)
     dst0_is_ptr = ptr_writes
 
     dst0_write = is_add | is_sub | is_mul | is_div | is_shift | is_binop \
-        | ctx_writes_dst | ptr_writes \
+        | ctx_writes_dst | ptr_writes | do_sread | (l_precomp & active) \
         | (uma_is_read & ~uma_set_panic) \
         | (uma_is_write & uma_increment & ~uma_set_panic)
 
@@ -675,36 +930,79 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
         | (uma_is_read & uma_increment & ~uma_set_panic)
 
     new_pending = new_pending | (is_ptr & ptr_panic) | uma_set_panic
+    if log_enabled:
+        new_pending |= is_far_call & fc["exc"]
 
     # ============================================ pc + frame machinery
     cur_pc_new = torch.where(is_jump, src0[:, 0] & M16, new_pc_lin)
     cur_scal = scal.clone()
     cur_scal[:, CS["pc"]] = cur_pc_new
     cur_scal[:, CS["sp"]] = sp2
-    cur_scal[:, CS["ergs_remaining"]] = torch.where(
-        is_near_call, nc_left, torch.where(is_ret, 0, ergs3))
-    cur_scal[:, CS["heap_bound"]] = torch.where(is_uma, new_heap_bound_u,
-                                                heap_bound0)
-    cur_scal[:, CS["aux_heap_bound"]] = torch.where(is_uma, new_aux_bound_u,
-                                                    aux_bound0)
+    cur_ergs = torch.where(is_near_call, nc_left, torch.where(is_ret, 0,
+                                                              ergs3))
+    cur_heap_bound = torch.where(is_uma, new_heap_bound_u, heap_bound0)
+    cur_aux_bound = torch.where(is_uma, new_aux_bound_u, aux_bound0)
+    if log_enabled:
+        cur_ergs = torch.where(is_far_call, fc["left"], cur_ergs)
+        cur_heap_bound = torch.where(is_far_call, fc["new_heap_bound"],
+                                     cur_heap_bound)
+        cur_aux_bound = torch.where(is_far_call, fc["new_aux_bound"],
+                                    cur_aux_bound)
+    cur_scal[:, CS["ergs_remaining"]] = cur_ergs
+    cur_scal[:, CS["heap_bound"]] = cur_heap_bound
+    cur_scal[:, CS["aux_heap_bound"]] = cur_aux_bound
     _put_rows(state.cs_scalars, depth, cur_scal, active)
 
-    # push (near call)
-    push_mask = is_near_call & active
+    # push (near call, far call)
+    push_mask = (is_near_call | is_far_call) & active
     pushed = cur_scal.clone()
     pushed[:, CS["pc"]] = imm0
     pushed[:, CS["exception_handler"]] = imm1
     pushed[:, CS["ergs_remaining"]] = nc_passed
     pushed[:, CS["flags_word"]] = flags_word | 2
-    pushed[:, CS["journal_snapshot"]] = wide(state.j_count)
-    pushed[:, CS["event_snapshot"]] = wide(state.ev_count)
+    pushed[:, CS["journal_snapshot"]] = \
+        new_j_count if log_enabled else wide(state.j_count)
+    pushed[:, CS["event_snapshot"]] = \
+        new_ev_count if log_enabled else wide(state.ev_count)
+    push_this, push_sender = this_addr, msg_sender
+    push_code_addr, push_u128 = code_addr, frame_u128
+    if log_enabled:
+        far = {
+            "pc": 0, "exception_handler": imm0,
+            "ergs_remaining": fc["passed"],
+            # far frames keep only the static bit
+            "flags_word": (flags_word & 1) | vflag0.to(I64),
+            "base_memory_page": fc["new_base"],
+            "code_page": fc["code_page"],
+            "sp": params.INITIAL_SP_ON_FAR_CALL,
+            "shard_ids": fc["this_shard"] | (shard_this << 8)
+            | (fc["code_shard"] << 16),
+            "heap_bound": params.NEW_FRAME_MEMORY_STIPEND,
+            "aux_heap_bound": params.NEW_FRAME_MEMORY_STIPEND,
+            "heap_slot": fc["heap_slot"],
+        }
+        for name, value in far.items():
+            pushed[:, CS[name]] = torch.where(is_far_call, value,
+                                              pushed[:, CS[name]])
+        push_this = _sel(is_far_call, fc["next_this"], this_addr)
+        push_sender = _sel(is_far_call, fc["next_sender"], msg_sender)
+        push_code_addr = _sel(is_far_call, fc["addr5"], code_addr)
+        push_u128 = _sel(is_far_call, fc["next_u128"], frame_u128)
     push_idx = torch.clamp(depth + 1, max=D - 1)
     lane_error |= active & push_mask & (depth + 1 >= D)
     _put_rows(state.cs_scalars, push_idx, pushed, push_mask)
-    _put_rows(state.cs_this_address, push_idx, this_addr, push_mask)
-    _put_rows(state.cs_msg_sender, push_idx, msg_sender, push_mask)
-    _put_rows(state.cs_code_address, push_idx, code_addr, push_mask)
-    _put_rows(state.cs_context_u128, push_idx, frame_u128, push_mask)
+    _put_rows(state.cs_this_address, push_idx, push_this, push_mask)
+    _put_rows(state.cs_msg_sender, push_idx, push_sender, push_mask)
+    _put_rows(state.cs_code_address, push_idx, push_code_addr, push_mask)
+    _put_rows(state.cs_context_u128, push_idx, push_u128, push_mask)
+    far_on = is_far_call & active
+    if log_enabled:
+        # the context register is consumed by the call (far_call.rs:558);
+        # a fresh heap / aux-heap frame slot and page range for the callee
+        new_context_u128 = _sel(far_on, torch.zeros_like(new_context_u128),
+                                new_context_u128)
+        _put_rows(state.hp_page, fc["heap_slot"], fc["new_base"] + 2, far_on)
+        _put_rows(state.ap_page, fc["heap_slot"], fc["new_base"] + 3, far_on)
 
     # pop (ret): update the parent frame
     pop_mask = is_ret & active
@@ -724,6 +1022,27 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
         is_local_frame, torch.where(is_uma, new_aux_bound_u, aux_bound0),
         parent[:, CS["aux_heap_bound"]])
     _put_rows(state.cs_scalars, parent_idx, parent, pop_mask)
+
+    if log_enabled:
+        # storage rollback and event cancel on a panicked pop: replay the
+        # journal newest-first down to the frame's snapshot
+        j_snap = _as_i32(scal[:, CS["journal_snapshot"]])
+        ev_snap = _as_i32(scal[:, CS["event_snapshot"]])
+        panic_pop = pop_mask & ret_panicked
+        idx = new_j_count
+        while True:
+            lane_on = panic_pop & (idx > j_snap)
+            if not bool(lane_on.any()):
+                break
+            e = torch.clamp(idx - 1, min=0)
+            slot = wide(_rows(state.j_slot, e))
+            prev = wide(_rows(state.j_prev, e))
+            _put_rows(state.st_val, slot, prev, lane_on)
+            idx = idx - lane_on.to(I64)
+        new_j_count = torch.where(panic_pop, j_snap, new_j_count)
+        ev_pos = torch.arange(config.event_slots, device=dev)[None, :]
+        state.ev_cancelled |= panic_pop[:, None] \
+            & (ev_pos >= ev_snap[:, None]) & (ev_pos < new_ev_count[:, None])
 
     new_depth = torch.clamp(depth + push_mask.to(I64) - pop_mask.to(I64),
                             min=0)
@@ -749,6 +1068,19 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
     state.reg_ptr.copy_(_sel(wipe, wiped_ptr, state.reg_ptr))
     new_context_u128 = _sel(wipe, torch.zeros_like(new_context_u128),
                             new_context_u128)
+    if log_enabled:
+        # far-call register protocol (far_call.rs:571-610): r1 = calldata
+        # pointer, r2 = ctor | system markers, r3..r12 kept (tags cleared)
+        # only for system calls, r13..r15 zeroed
+        regs_pos = torch.arange(params.REGISTERS_COUNT, device=dev)[None, :]
+        keep_sys = (regs_pos >= 2) & (regs_pos <= 11) \
+            & fc["to_system"][:, None]
+        far_file = torch.where(keep_sys[:, :, None], state.regs, 0)
+        far_file[:, 0] = narrow(fc["calldata"], torch.int32)
+        far_file[:, 1] = narrow(u256.from_u32_scalar(
+            fc["ctor"].to(I64) | (fc["to_system"].to(I64) << 1)), torch.int32)
+        state.regs.copy_(_sel(far_on, far_file, state.regs))
+        state.reg_ptr.copy_(_sel(far_on, wiped_ptr, state.reg_ptr))
 
     # ================================================= memory writebacks
     dst0_to_stack = dst0_write & dst0_is_stack_mem & active
@@ -829,6 +1161,52 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
             rolling_absorb(state.wc_state, state.wc_count, meta_b, value_b,
                            flag_b)
 
+    # ======================= log and decommit witness queues (1 row/cycle)
+    # every lane writes its row at the cycle's position, done lanes too: a
+    # lane that emitted nothing writes zeros
+    if log_enabled and config.log_queue_capacity > 0:
+        lpos = min(step, config.log_queue_capacity - 1)
+        emits = do_sread | do_swrite | do_event | do_precomp | fc_do_sread
+        lvalid = emits & (step < config.log_queue_capacity)
+        lane_error |= emits & ~lvalid
+        l_aux = torch.where(
+            do_precomp, params.PRECOMPILE_AUX_BYTE,
+            torch.where(do_sread | do_swrite | fc_do_sread,
+                        params.STORAGE_AUX_BYTE, aux_byte))
+        l_svc = vflag0 & ~fc_do_sread
+        l_shard = torch.where(fc_do_sread, fc["code_shard"], shard_this)
+        packed_meta = l_aux | ((do_swrite | do_event).to(I64) << 8) \
+            | (l_svc.to(I64) << 9) | (l_shard << 16)
+        meta_row = torch.stack([ts_log, packed_meta, wide(state.tx_number),
+                                torch.ones_like(ts_log)], dim=1)
+        # reads copy read_value into written_value (helpers.rs:145-148)
+        read_row = _sel(do_sread | do_swrite, current_val, z8)
+        read_row = _sel(do_precomp, z8, read_row)
+        written_row = _sel(do_sread, current_val,
+                           _sel(do_swrite | do_event, src1, z8))
+        addr_row = _sel(fc_do_sread, _deployer5(src0), this_addr)
+        key_row = _sel(fc_do_sread, _cat_zero(fc["addr5"]), src0)
+        read_row = _sel(fc_do_sread, fc["hash_storage"], read_row)
+        written_row = _sel(fc_do_sread, fc["hash_storage"], written_row)
+        for arr, row in ((state.lq_meta, meta_row), (state.lq_addr, addr_row),
+                         (state.lq_key, key_row), (state.lq_read, read_row),
+                         (state.lq_written, written_row)):
+            arr[:, lpos] = narrow(_sel(lvalid, row, torch.zeros_like(row)),
+                                  torch.int32)
+        state.lq_count += lvalid.to(torch.int32)
+    if log_enabled and config.decommit_queue_capacity > 0:
+        dpos = min(step, config.decommit_queue_capacity - 1)
+        dvalid = fc_do_decommit & (step < config.decommit_queue_capacity)
+        lane_error |= fc_do_decommit & ~dvalid
+        drow = torch.stack(
+            [(wide(state.timestamp) + 1) & M32, fc["code_page"],
+             fc["code_len"], 1 | (fc["fresh"].to(I64) << 1)], dim=1)
+        state.dq_hash[:, dpos] = narrow(_sel(dvalid, fc["code_hash"], z8),
+                                        torch.int32)
+        state.dq_meta[:, dpos] = narrow(
+            _sel(dvalid, drow, torch.zeros_like(drow)), torch.int32)
+        state.dq_count += dvalid.to(torch.int32)
+
     # ============================ lane scalars; lanes already done freeze
     def put(name, new):
         old = getattr(state, name)
@@ -849,6 +1227,14 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
     put("previous_code_page", new_prev_code_page)
     put("context_u128", new_context_u128)
     put("depth", new_depth)
+    if log_enabled:
+        put("spent_pubdata", new_spent_pubdata)
+        put("st_count", new_st_count)
+        put("j_count", new_j_count)
+        put("ev_count", new_ev_count)
+        put("frame_count", wide(state.frame_count) + far_on.to(I64))
+        put("page_counter", (wide(state.page_counter) + far_on.to(I64)
+                             * params.NEW_MEMORY_PAGES_PER_FAR_CALL) & M32)
     put("done", new_done)
     state.lane_error.copy_(lane_error)
     state.global_step += 1

@@ -1,7 +1,9 @@
 """The dispatcher: chained chunks of the K1 cycle kernel, and K2 in mode (b).
 
 The counterpart of `era_zk_evm_tpu/models/fused_cycle.py::run_cycles_fused`
-for the ported slice.  `run_cycles` runs `n_cycles` in chunks of `k_inner`:
+for the ported slice, storage-enabled configs included (K1 then also reads
+and writes the storage, journal, event, code-bank, frame and log / decommit
+queue tensors).  `run_cycles` runs `n_cycles` in chunks of `k_inner`:
 each chunk is one K1 launch (`cycle_chunk`) and, with the rolling
 commitment on, one K2 launch (`rolling_fold`) over the chunk's slot block.
 
@@ -18,9 +20,8 @@ import ctypes
 
 import torch
 
-from era_zk_evm_tpu.isa import params
-
 from ..config import CS_SCALAR_FIELDS, SLOTS_PER_CYCLE, VmConfig, check_slice
+from ..isa import params
 from ..witness.rolling import rolling_absorb
 from . import batched_vm
 from .state import BOOL_FIELDS, BatchedVmState
@@ -35,6 +36,8 @@ def _k1_fields(config: VmConfig) -> list[tuple[str, str, tuple]]:
     B, D = config.batch, config.max_depth
     R = params.REGISTERS_COUNT
     P, F = config.code_pages, config.heap_frames
+    S, J, E = config.storage_slots, config.journal_slots, config.event_slots
+    LQ, DQ = config.log_queue_capacity, config.decommit_queue_capacity
     return [
         ("regs", "regs", (B, R, 8)), ("reg_ptr", "reg_ptr", (B, R)),
         ("flags", "flags", (B, 3)), ("timestamp", "timestamp", (B,)),
@@ -59,6 +62,22 @@ def _k1_fields(config: VmConfig) -> list[tuple[str, str, tuple]]:
         ("hp_page", "hp_page", (B, F)), ("ap_page", "ap_page", (B, F)),
         ("cb_page", "cb_page", (B, P)), ("cb_valid", "cb_valid", (B, P)),
         ("j_count", "j_count", (B,)), ("ev_count", "ev_count", (B,)),
+        ("spent_pubdata", "spent_pubdata", (B,)),
+        ("st_key", "st_key", (B, S, 14)), ("st_val", "st_val", (B, S, 8)),
+        ("st_used", "st_used", (B, S)), ("st_count", "st_count", (B,)),
+        ("j_slot", "j_slot", (B, J)), ("j_prev", "j_prev", (B, J, 8)),
+        ("ev_key", "ev_key", (B, E, 8)), ("ev_val", "ev_val", (B, E, 8)),
+        ("ev_meta", "ev_meta", (B, E, 2)),
+        ("ev_cancelled", "ev_cancelled", (B, E)),
+        ("lq_meta", "lq_meta", (B, LQ, 4)), ("lq_addr", "lq_addr", (B, LQ, 5)),
+        ("lq_key", "lq_key", (B, LQ, 8)), ("lq_read", "lq_read", (B, LQ, 8)),
+        ("lq_written", "lq_written", (B, LQ, 8)),
+        ("lq_count", "lq_count", (B,)),
+        ("dq_hash", "dq_hash", (B, DQ, 8)), ("dq_meta", "dq_meta", (B, DQ, 4)),
+        ("dq_count", "dq_count", (B,)), ("cb_hash", "cb_hash", (B, P, 8)),
+        ("default_aa_hash", "default_aa_hash", (B, 8)),
+        ("frame_count", "frame_count", (B,)),
+        ("page_counter", "page_counter", (B,)),
         ("done", "done", (B,)), ("lane_error", "lane_error", (B,)),
         ("global_step", "global_step", (B,)), ("wq_count", "wq_count", (B,)),
     ]
@@ -127,6 +146,11 @@ def k1_args(state: BatchedVmState, config: VmConfig, k_cycles: int, n: int,
     args.aux_heap_words = config.aux_heap_words
     args.heap_frames = config.heap_frames
     args.queue_capacity = config.queue_capacity
+    args.storage_slots = config.storage_slots
+    args.journal_slots = config.journal_slots
+    args.event_slots = config.event_slots
+    args.log_queue_capacity = config.log_queue_capacity
+    args.decommit_queue_capacity = config.decommit_queue_capacity
     args.emit_mode = emit
     args.k_cycles = k_cycles
     args.k_stop = n

@@ -8,8 +8,11 @@ shapes and layouts, so a JAX state and a port state convert field for field
 `wq_*` stay batch-last (`[Q, ., B]`), which is also the coalesced layout for
 a kernel that runs one thread per lane.
 
-`empty_state` and `make_entry_state` build the state in numpy exactly as the
-JAX package does, then move it to the requested device.
+`empty_state`, `make_entry_state`, `populate_storage` and
+`populate_code_bank` build the state in numpy exactly as the JAX package
+does, then move it to the device.  Every builder puts the state on the card
+(`torch.device("cuda")`) unless the caller asks for another device; without
+a card, a CUDA build raises.
 """
 
 from __future__ import annotations
@@ -19,9 +22,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from era_zk_evm_tpu.isa import params
-
 from ..config import CS, CS_SCALAR_FIELDS, VmConfig
+from ..isa import params
+from ..isa.abi import FatPointer
+
+#: where the builders put a state unless told otherwise
+DEFAULT_DEVICE = torch.device("cuda")
 
 #: JAX int32 fields; every other non-bool field is u32 in the JAX package
 I32_FIELDS = frozenset({
@@ -179,7 +185,8 @@ def _empty_numpy(config: VmConfig) -> dict[str, np.ndarray]:
     return st
 
 
-def state_from_numpy(arrays: dict, device: torch.device | str = "cpu"
+def state_from_numpy(arrays: dict,
+                     device: torch.device | str = DEFAULT_DEVICE
                      ) -> BatchedVmState:
     """Tensors on `device` from numpy arrays keyed by field name (the JAX
     state's fields as `np.asarray`).  u32 data is reinterpreted, not
@@ -210,8 +217,8 @@ def clone_state(state: BatchedVmState) -> BatchedVmState:
     return BatchedVmState(**{n: getattr(state, n).clone() for n in FIELD_NAMES})
 
 
-def empty_state(config: VmConfig, device: torch.device | str = "cpu"
-                ) -> BatchedVmState:
+def empty_state(config: VmConfig,
+                device: torch.device | str = DEFAULT_DEVICE) -> BatchedVmState:
     return state_from_numpy(_empty_numpy(config), device)
 
 
@@ -228,12 +235,11 @@ def make_entry_state(config: VmConfig, programs: list[list[int]],
                      base_page: int = 8,
                      calldata: list[list[int] | None] | None = None,
                      context_u128: int | list[int] = 0,
-                     device: torch.device | str = "cpu") -> BatchedVmState:
+                     device: torch.device | str = DEFAULT_DEVICE
+                     ) -> BatchedVmState:
     """Load one bytecode (code-word list) per lane and push a
     bootloader-style entry frame; the same arguments and result as
     `era_zk_evm_tpu.models.state.make_entry_state`."""
-    from era_zk_evm_tpu.isa.abi import FatPointer
-
     B = config.batch
     assert len(programs) == B
     st = _empty_numpy(config)
@@ -304,3 +310,84 @@ def make_entry_state(config: VmConfig, programs: list[list[int]],
     sc[:, 0, CS["ergs_remaining"]] = params.VM_INITIAL_FRAME_ERGS - ergs
     st["depth"][:] = 1
     return state_from_numpy(st, device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy with the JAX dtype (u32 data as uint32)."""
+    a = t.detach().cpu().numpy().copy()
+    return a if a.dtype == bool else a.view(np.uint32)
+
+
+def _put(t: torch.Tensor, a: np.ndarray) -> None:
+    """Overwrite tensor `t` in place with numpy data of the same bits."""
+    if a.dtype != bool:
+        a = np.ascontiguousarray(a).astype(np.uint32).view(np.int32)
+    t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+
+
+def populate_code_bank(state: BatchedVmState, config: VmConfig,
+                       contracts: list[list[tuple[int, list[int]]]],
+                       default_aa_hash: int = 0) -> BatchedVmState:
+    """Stage known contracts, in place: contracts[b] = [(stored_code_hash,
+    words)], as `era_zk_evm_tpu.models.state.populate_code_bank`.
+
+    Bank slot 0 is the entry program; staged contracts fill slots 1..P-1 and
+    get bound to VM page numbers on first decommit (far call).
+    """
+    B, P = config.batch, config.code_pages
+    hashes = np.zeros((B, P, 8), dtype=np.uint32)
+    lens = np.zeros((B, P), dtype=np.uint32)
+    valid = np.zeros((B, P), dtype=bool)
+    code = _to_numpy(state.code)
+    for b, lane in enumerate(contracts):
+        assert len(lane) <= P - 1, "code bank full"
+        for i, (code_hash, words) in enumerate(lane):
+            slot = 1 + i
+            hashes[b, slot] = _limbs(code_hash)
+            lens[b, slot] = len(words)
+            valid[b, slot] = True
+            assert len(words) <= config.code_words
+            for w_i, w in enumerate(words):
+                code[b, slot * config.code_words + w_i] = _limbs(w)
+    _put(state.cb_hash, np.where(valid[:, :, None], hashes,
+                                 _to_numpy(state.cb_hash)))
+    _put(state.cb_len, np.where(valid, lens, _to_numpy(state.cb_len)))
+    _put(state.cb_valid, _to_numpy(state.cb_valid) | valid)
+    _put(state.code, code)
+    _put(state.default_aa_hash,
+         np.broadcast_to(_limbs(default_aa_hash), (B, 8)))
+    return state
+
+
+def storage_key_limbs(shard: int, address: int, key: int) -> np.ndarray:
+    """(shard, address, key) -> the 14-limb device storage key."""
+    out = np.zeros(14, dtype=np.uint32)
+    out[:8] = _limbs(key)
+    out[8:13] = _limbs(address, 5)
+    out[13] = shard
+    return out
+
+
+def populate_storage(state: BatchedVmState, config: VmConfig,
+                     entries: list[list[tuple[int, int, int, int]]]
+                     ) -> BatchedVmState:
+    """Pre-populate per-lane storage, in place: entries[b] = [(shard,
+    address, key, value)], as `era_zk_evm_tpu.models.state.populate_storage`
+    (which also replaces every lane's previous storage)."""
+    B, S = config.batch, config.storage_slots
+    keys = np.zeros((B, S, 14), dtype=np.uint32)
+    vals = np.zeros((B, S, 8), dtype=np.uint32)
+    used = np.zeros((B, S), dtype=bool)
+    counts = np.zeros((B,), dtype=np.int32)
+    for b, lane_entries in enumerate(entries):
+        assert len(lane_entries) <= S
+        for i, (shard, address, key, value) in enumerate(lane_entries):
+            keys[b, i] = storage_key_limbs(shard, address, key)
+            vals[b, i] = _limbs(value)
+            used[b, i] = True
+        counts[b] = len(lane_entries)
+    _put(state.st_key, keys)
+    _put(state.st_val, vals)
+    _put(state.st_used, used)
+    state.st_count.copy_(torch.from_numpy(counts))
+    return state

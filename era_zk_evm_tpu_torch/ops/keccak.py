@@ -1,18 +1,49 @@
-"""Batched keccak-f[1600] in plain torch.
+"""Batched keccak-f[1600]: the K3 kernel's wrapper and its plain torch version.
 
-The counterpart of `era_zk_evm_tpu/ops/keccak.py::keccak_f1600_array`:
-states are `int32[B, 25, 2]` (`[..., 0]` = low u32, `[..., 1]` = high u32 of
-each u64 lane, flat index x + 5y).  Inside, each u64 lane is one int64 that
-holds its bit pattern, and every round step runs over all 25 lanes at once.
+The counterpart of `era_zk_evm_tpu/ops/keccak.py`: states are
+`int32[N, 25, 2]` (`[..., 0]` = low u32, `[..., 1]` = high u32 of each u64
+lane, flat index x + 5y).  `keccak_f1600(states, iters)` applies `iters`
+chained permutations: on a CUDA tensor it launches K3
+(`csrc/keccak_f.cu`), which replaces both TPU kernels
+`keccak_f1600_bitsliced` (K3) and `keccak_f1600_pallas` (K4); on a CPU
+tensor it runs the plain version `keccak_f1600_plain` (`keccak_f1600_array`
+chained `iters` times).  `keccak_f1600_` does the same in place.
+`K3_LAUNCHES` counts kernel launches.  Inside the plain version each u64
+lane is one int64 that holds its bit pattern, and every round step runs over
+all 25 lanes at once.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from era_zk_evm_tpu.golden.precompiles import KECCAK_RC, KECCAK_ROTATIONS
-
 from .u256 import M32, narrow
+
+#: iota round constants (FIPS 202), a copy of
+#: era_zk_evm_tpu/golden/precompiles.py KECCAK_RC
+KECCAK_RC = [
+    0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
+    0x8000000080008000, 0x000000000000808B, 0x0000000080000001,
+    0x8000000080008081, 0x8000000000008009, 0x000000000000008A,
+    0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
+    0x000000008000808B, 0x800000000000008B, 0x8000000000008089,
+    0x8000000000008003, 0x8000000000008002, 0x8000000000000080,
+    0x000000000000800A, 0x800000008000000A, 0x8000000080008081,
+    0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
+]
+
+#: rho rotation offsets, flat index x + 5 * y (KECCAK_ROTATIONS there)
+KECCAK_ROTATIONS = [
+    0, 1, 62, 28, 27,
+    36, 44, 6, 55, 20,
+    3, 10, 43, 25, 39,
+    41, 45, 15, 21, 8,
+    18, 2, 61, 56, 14,
+]
+
+K3_LAUNCHES = 0
 
 _RC = [c - (1 << 64) if c >= 1 << 63 else c for c in KECCAK_RC]
 # rho + pi: lane s moves to y + 5 * ((2x + 3y) % 5); gather form
@@ -67,3 +98,63 @@ def keccak_f1600_lanes(a: torch.Tensor) -> torch.Tensor:
 def keccak_f1600_array(state: torch.Tensor) -> torch.Tensor:
     """Permutation over packed states int32[B, 25, 2]."""
     return from_lanes(keccak_f1600_lanes(to_lanes(state)))
+
+
+def keccak_f1600_plain(states: torch.Tensor, iters: int = 1) -> torch.Tensor:
+    """The plain version of K3: `iters` chained permutations of
+    int32[N, 25, 2] in torch, on the states' device."""
+    lanes = to_lanes(states)
+    for _ in range(iters):
+        lanes = keccak_f1600_lanes(lanes)
+    return from_lanes(lanes)
+
+
+def _check(states: torch.Tensor, iters: int) -> None:
+    if states.dim() != 3 or tuple(states.shape[1:]) != (25, 2) \
+            or states.dtype != torch.int32:
+        raise ValueError(f"states: expected int32[N, 25, 2], got "
+                         f"{states.dtype}{list(states.shape)}")
+    if iters < 0:
+        raise ValueError("iters must be >= 0")
+
+
+def keccak_f1600_(states: torch.Tensor, iters: int = 1) -> torch.Tensor:
+    """`iters` chained permutations of every state in int32[N, 25, 2], in
+    place; returns `states`.
+
+    On a CUDA tensor (which must be contiguous) this is one K3 launch; on a
+    CPU tensor, the plain version copied back.
+    """
+    global K3_LAUNCHES
+    _check(states, iters)
+    device = states.device
+    if device.type == "cpu":
+        return states.copy_(keccak_f1600_plain(states, iters))
+    if device.type != "cuda":
+        raise ValueError(f"no K3 kernel for device {device}")
+    if not states.is_contiguous():
+        raise ValueError("states: K3 permutes a contiguous tensor in place")
+    n = states.shape[0]
+    if n == 0 or iters == 0:
+        return states
+    from .._build import load
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = load().eravm_k3_launch(ctypes.c_void_p(states.data_ptr()), n, iters,
+                                ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError {rc}")
+    K3_LAUNCHES += 1
+    return states
+
+
+def keccak_f1600(states: torch.Tensor, iters: int = 1) -> torch.Tensor:
+    """`iters` chained permutations of every state in int32[N, 25, 2].
+
+    Returns a new tensor.  On a CUDA tensor this is one K3 launch on a
+    copy; on a CPU tensor, the plain version.
+    """
+    _check(states, iters)
+    if states.device.type == "cpu":
+        return keccak_f1600_plain(states, iters)
+    return keccak_f1600_(states.contiguous().clone(), iters)

@@ -1,10 +1,21 @@
-"""Assembler sources for driving the port without the JAX package's tests.
+"""Assembler sources for driving the port without the JAX package or its tests.
 
-`WORKLOAD` is the bench program of the repo (`bench.py`); a test holds the
-copy equal to it.  `FAMILY_PROGRAMS` has a few short programs for each opcode
-family of the ported slice, plus the two masking cases: a kernel-only
-context op from user space, and a LOG opcode (outside the slice, so the lane
-sets `lane_error`).
+Copies of the repo's bench programs, each held equal to its source by a test
+(`tests/test_torch_slice.py`, `tests/test_torch_log.py`):
+
+  * `WORKLOAD`: `bench.py:130` (`WORKLOAD`), the memory-witness slice's
+    bench program;
+  * `STORAGE_WORKLOAD`: `bench.py:231` (`STORAGE_WORKLOAD`), the storage /
+    event loop of `bench_storage`;
+  * `tiny_mix_program(iters)`: `bench.py:583-599` (`bench_block`'s `prog`),
+    the tiny-mix transaction: storage, events and heap in every iteration;
+  * `farcall_callee()` / `farcall_caller(callee_addr)`: `bench.py:314-342`
+    (`bench_farcall`), a caller that far-calls one callee in a loop.
+
+`FAMILY_PROGRAMS` has a few short programs for each opcode family of the
+memory-witness slice, plus two masking cases: a kernel-only context op from
+user space, and a LOG opcode, which sets `lane_error` under a config with
+`storage_slots == 0` and runs under one with storage.
 """
 
 # a sustained mixed workload: arithmetic, stack traffic, unaligned-capable
@@ -156,8 +167,94 @@ FAMILY_PROGRAMS = {
 }
 
 
+STORAGE_WORKLOAD = """
+    add 1, r0, r10
+    add code[@n], r0, r1
+    add 0, r0, r2
+    loop:
+    and r1, r10, r3
+    add r3, r10, r3
+    log.swrite r3, r1
+    log.sread r3, r4
+    log.event r3, r4
+    add r4, r2, r2
+    sub! r1, r10, r1
+    jump.if_ne @loop
+    ret r0
+    n: .word 32768
+"""
+
+#: the address bench_farcall gives its callee
+FARCALL_CALLEE_ADDRESS = 0x20042
+
+
+def tiny_mix_program(iters: int) -> str:
+    """bench_block's tiny-mix transaction with `iters` loop iterations."""
+    return f"""
+        add 1, r0, r10
+        add code[@n], r0, r1
+        add 0, r0, r2
+        loop:
+        and r1, r10, r3
+        add r3, r10, r3
+        log.swrite r3, r1
+        log.sread r3, r4
+        log.event r3, r4
+        st.h 0, r4
+        add r4, r2, r2
+        sub! r1, r10, r1
+        jump.if_ne @loop
+        ret r0
+        n: .word {iters}
+    """
+
+
+def farcall_callee() -> str:
+    """bench_farcall's callee: returns calldata[0] + 1 in heap[0..32]."""
+    from ..isa.abi import FatPointer, ForwardingMode, RetABI
+
+    r_abi = RetABI(FatPointer(0, 0, 0, 32), ForwardingMode.USE_HEAP).to_u256()
+    return f"""
+        ld.ptr r1, r5
+        add 1, r0, r6
+        add r5, r6, r5
+        st.h 0, r5
+        add code[@rabi], r0, r7
+        ret r7
+        rabi: .word {r_abi}
+    """
+
+
+def farcall_caller(callee_addr: int = FARCALL_CALLEE_ADDRESS) -> str:
+    """bench_farcall's caller: 4096 far calls to `callee_addr`, each passing
+    heap[0..32] and reading the returndata back."""
+    from ..isa.abi import FarCallABI, FatPointer, ForwardingMode
+
+    f_abi = FarCallABI(FatPointer(0, 0, 0, 32), (1 << 32) - 1, 0,
+                       ForwardingMode.USE_HEAP, False, False).to_u256()
+    return f"""
+        add 1, r0, r10
+        add code[@n], r0, r13
+        add 0, r0, r3
+        loop:
+        st.h 0, r3
+        add code[@abi], r0, r4
+        add code[@dest], r0, r2
+        far_call r4, r2, @fail
+        ld.ptr r1, r3
+        sub! r13, r10, r13
+        jump.if_ne @loop
+        ret r0
+        fail:
+        panic
+        abi: .word {f_abi}
+        dest: .word {callee_addr}
+        n: .word 4096
+    """
+
+
 def assemble(source: str) -> list[int]:
-    """Assembler source -> code words (the repo's assembler)."""
-    from era_zk_evm_tpu.isa.assembler import assemble_to_code_words
+    """Assembler source -> code words (the port's copy of the assembler)."""
+    from ..isa.assembler import assemble_to_code_words
 
     return assemble_to_code_words(source)

@@ -73,8 +73,10 @@ def test_from_jax_config_round_trip():
 
 
 @pytest.mark.parametrize("kw", [
-    {"storage_slots": 4}, {"log_queue_capacity": 8},
-    {"decommit_queue_capacity": 8}, {"precompile_keccak_blocks": 1},
+    {"storage_slots": 4, "precompile_sha_rounds": 1},
+    {"storage_slots": 4, "precompile_queue_capacity": 8},
+    {"storage_slots": 4, "precompile_ecrecover": True},
+    {"precompile_keccak_blocks": 1},
     {"limb_major_arenas": True},
     {"rolling_commitment": True, "queue_capacity": 64},
 ])
@@ -103,7 +105,8 @@ def test_make_entry_state_matches_jax(case):
         kwargs["context_u128"] = [0, 99, (1 << 128) - 1]
         kwargs["is_static"] = True
     ref = jstate.make_entry_state(jc, words, **kwargs)
-    got = pstate.make_entry_state(pconfig.from_jax_config(jc), words, **kwargs)
+    got = pstate.make_entry_state(pconfig.from_jax_config(jc), words,
+                                  device="cpu", **kwargs)
     _assert_same(_jax_numpy(ref), pstate.state_to_numpy(got))
 
 
@@ -119,5 +122,5 @@ def test_numpy_torch_round_trip_is_identity():
                  .astype(v.dtype))
              for k, v in ref.items()}
     for arrays in (ref, noisy):
-        back = pstate.state_to_numpy(pstate.state_from_numpy(arrays))
+        back = pstate.state_to_numpy(pstate.state_from_numpy(arrays, "cpu"))
         _assert_same(arrays, back)

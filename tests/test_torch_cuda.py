@@ -1,4 +1,5 @@
-"""K1 and K2 against their plain versions on a CUDA card.
+"""K1 (both instances), K2 and K3 against their plain versions on a CUDA
+card.
 
 Imports no jax, so it also runs on the GPU machine, where the suite's
 conftest (which configures jax) cannot load:
@@ -13,7 +14,8 @@ import torch
 from era_zk_evm_tpu_torch.config import VmConfig
 from era_zk_evm_tpu_torch.models import batched_vm, fused_cycle
 from era_zk_evm_tpu_torch.models import state as pstate
-from era_zk_evm_tpu_torch.testing import programs
+from era_zk_evm_tpu_torch.ops import keccak
+from era_zk_evm_tpu_torch.testing import log_programs, programs
 from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb
 
 
@@ -75,3 +77,43 @@ def test_k1_rejects_a_wrong_layout(cuda):
     st.regs = st.regs.transpose(1, 2)          # not contiguous
     with pytest.raises(ValueError):
         fused_cycle.cycle_chunk(st, config, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", list(log_programs.RUNS))
+def test_k1_log_matches_plain(cuda, run):
+    # the storage-enabled instance on the LOG and far-call program sets
+    config = VmConfig(batch=log_programs.LANES, code_words=32,
+                      stack_words=256, stack_abs_words=64, stack_sp_base=960,
+                      heap_words=64, aux_heap_words=16, max_depth=8,
+                      queue_capacity=128 * 8 * 2, storage_slots=8,
+                      journal_slots=16, event_slots=16,
+                      log_queue_capacity=256, heap_frames=4, code_pages=4,
+                      decommit_queue_capacity=256)
+    words, entries, banks = log_programs.stage(run)
+    ks = pstate.make_entry_state(config, words, ergs=1 << 20, device=cuda)
+    pstate.populate_storage(ks, config, entries)
+    pstate.populate_code_bank(ks, config, banks)
+    ps = pstate.clone_state(ks)
+    fused_cycle.run_cycles(ks, config, 128, k_inner=40)
+    batched_vm.run_cycles(ps, config, 128)
+    a, b = pstate.state_to_numpy(ks), pstate.state_to_numpy(ps)
+    bad = [k for k in a if not (a[k] == b[k]).all()]
+    assert not bad, f"kernel/plain mismatch in fields: {bad}"
+    assert ks.lq_count.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 5])
+def test_k3_matches_plain(cuda, iters):
+    gen = torch.Generator().manual_seed(iters)
+    states = torch.randint(-2**31, 2**31 - 1, (1000, 25, 2), generator=gen,
+                           dtype=torch.int32)
+    before = keccak.K3_LAUNCHES
+    got = keccak.keccak_f1600(states.to(cuda), iters)
+    assert keccak.K3_LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), keccak.keccak_f1600(states, iters))
+    inplace = states.to(cuda)
+    assert keccak.keccak_f1600_(inplace, iters) is inplace
+    assert keccak.K3_LAUNCHES == before + 2
+    assert torch.equal(inplace.cpu(), got.cpu())

@@ -71,7 +71,8 @@ def _assert_same(ref, got):
 
 
 def _port_entry(config, words):
-    return pstate.make_entry_state(from_jax_config(config), words, ergs=ERGS)
+    return pstate.make_entry_state(from_jax_config(config), words, ergs=ERGS,
+                                   device="cpu")
 
 
 @pytest.fixture(scope="module")

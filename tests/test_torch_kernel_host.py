@@ -3,8 +3,9 @@ against the port's plain torch versions, bit for bit.
 
 The wrappers never take this build (on CPU tensors they run the plain
 versions); it checks the kernel sources' lane logic where no card or nvcc
-exists.  The kernels themselves are held against the plain versions on the
-card by chip_smoke.py.
+exists: K1's memory-witness body and its storage-enabled (kLog) body, K2's
+fold and K3's chained permutation.  The kernels themselves are held against
+the plain versions on the card by chip_smoke.py.
 """
 
 import ctypes
@@ -14,16 +15,20 @@ import pytest
 import torch
 
 from era_zk_evm_tpu_torch import _build
-from era_zk_evm_tpu_torch.config import SLOTS_PER_CYCLE, VmConfig
+from era_zk_evm_tpu_torch.config import (
+    SLOTS_PER_CYCLE, VmConfig, from_jax_config,
+)
 from era_zk_evm_tpu_torch.models import fused_cycle
 from era_zk_evm_tpu_torch.models import state as pstate
-from era_zk_evm_tpu_torch.testing import programs
+from era_zk_evm_tpu_torch.ops import keccak
+from era_zk_evm_tpu_torch.testing import log_programs, programs
 from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb
 
 from test_batched_vm import (
     BASIC_PROGRAMS, CALL_PROGRAMS, CONTEXT_PROGRAMS, CONTROL_FLOW,
     PTR_PROGRAMS, STACK_PROGRAMS, UMA_PROGRAMS,
 )
+from test_fused_cycle import _log_config
 
 PROGRAMS = (BASIC_PROGRAMS + CONTROL_FLOW + STACK_PROGRAMS + UMA_PROGRAMS
             + CALL_PROGRAMS + CONTEXT_PROGRAMS + PTR_PROGRAMS
@@ -83,7 +88,7 @@ def test_k1_host_build_matches_plain(host, case):
                          {"queue_overflow": 5 * 8, "no_witness": 0}
                          .get(case, 48 * 8 * 2))
         n, k_inner, ergs = 48, 20, 1 << 20
-    plain = pstate.make_entry_state(config, words, ergs=ergs)
+    plain = pstate.make_entry_state(config, words, ergs=ergs, device="cpu")
     kern = pstate.clone_state(plain)
     fused_cycle.run_cycles(plain, config, n, k_inner=k_inner)
     _host_run(host, kern, config, n, k_inner)
@@ -111,3 +116,30 @@ def test_k2_host_build_matches_plain(host):
                               rows, B) == 0
     rolling_absorb(wc, cnt, meta, value, flags)
     assert torch.equal(wk, wc) and torch.equal(ck, cnt)
+
+
+@pytest.mark.parametrize("run", list(log_programs.RUNS))
+def test_k1_log_host_build_matches_plain(host, run):
+    # the kLog body on the LOG and far-call program sets, with their
+    # storage entries and code banks, in chunks of 40 cycles
+    config = from_jax_config(_log_config(log_programs.LANES, 128))
+    words, entries, banks = log_programs.stage(run)
+    plain = pstate.make_entry_state(config, words, ergs=1 << 20,
+                                    device="cpu")
+    pstate.populate_storage(plain, config, entries)
+    pstate.populate_code_bank(plain, config, banks)
+    kern = pstate.clone_state(plain)
+    fused_cycle.run_cycles(plain, config, 128, k_inner=40)
+    _host_run(host, kern, config, 128, 40)
+    _assert_same(plain, kern)
+    assert kern.lq_count.any()
+
+
+@pytest.mark.parametrize("iters", [1, 3])
+def test_k3_host_build_matches_plain(host, iters):
+    gen = torch.Generator().manual_seed(iters)
+    states = torch.randint(-2**31, 2**31 - 1, (37, 25, 2), generator=gen,
+                           dtype=torch.int32)
+    got = states.clone()
+    assert host.eravm_k3_host(got.data_ptr(), got.shape[0], iters) == 0
+    assert torch.equal(got, keccak.keccak_f1600(states, iters))

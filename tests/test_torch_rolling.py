@@ -44,7 +44,8 @@ def rolling_runs():
     words = [assemble_to_code_words(s) for s in PROGRAMS]
     ref = run_cycles(make_entry_state(config, words, ergs=ERGS), config,
                      N_CYCLES)
-    st = pstate.make_entry_state(from_jax_config(config), words, ergs=ERGS)
+    st = pstate.make_entry_state(from_jax_config(config), words, ergs=ERGS,
+                                 device="cpu")
     fused_cycle.run_cycles(st, from_jax_config(config), N_CYCLES, k_inner=16)
     return ref, st
 

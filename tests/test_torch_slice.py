@@ -1,7 +1,9 @@
 """The ported slice as a whole, at the bench geometry: WORKLOAD in two
 chained 128-cycle calls with a queue rewind between them, against the JAX
-engine, in both modes; plus the port's import hygiene."""
+engine, in both modes; plus the port's import hygiene: it imports neither
+jax nor anything of the JAX package `era_zk_evm_tpu`."""
 
+import ast
 import dataclasses
 import importlib.util
 import pathlib
@@ -37,7 +39,8 @@ def _two_calls(rolling):
     config = _bench_config(rolling)
     words = [assemble_to_code_words(programs.WORKLOAD)] * LANES
     ref = make_entry_state(config, words, ergs=ERGS)
-    st = pstate.make_entry_state(from_jax_config(config), words, ergs=ERGS)
+    st = pstate.make_entry_state(from_jax_config(config), words, ergs=ERGS,
+                                 device="cpu")
     for _ in range(2):
         ref = _rewind_queues_jit(run_cycles(ref, config, K))
         fused_cycle.run_cycles(st, from_jax_config(config), K)
@@ -67,25 +70,66 @@ def test_workload_copy_equals_bench():
 
 
 def test_port_imports_no_jax():
+    # the CPU paths of both slices, then sys.modules: no jax and no module
+    # of the JAX package
     code = (
         "import sys, torch\n"
         "from era_zk_evm_tpu_torch.config import VmConfig\n"
-        "from era_zk_evm_tpu_torch.models import fused_cycle, state\n"
+        "from era_zk_evm_tpu_torch.models import compaction, fused_cycle, state\n"
         "from era_zk_evm_tpu_torch.models.spill import rewind_queues\n"
-        "from era_zk_evm_tpu_torch.testing.programs import WORKLOAD, assemble\n"
+        "from era_zk_evm_tpu_torch.testing.programs import (\n"
+        "    STORAGE_WORKLOAD, WORKLOAD, assemble)\n"
+        "from era_zk_evm_tpu_torch.testing import wave\n"
+        "from era_zk_evm_tpu_torch.witness import packed\n"
         "from era_zk_evm_tpu_torch.witness.rolling import finalize_rolling\n"
         "from era_zk_evm_tpu_torch import _build\n"
+        "_build.generate_header()\n"
         "cfg = VmConfig(batch=2, code_words=16, stack_words=256,\n"
         "               stack_abs_words=64, stack_sp_base=960, heap_words=64,\n"
         "               aux_heap_words=16, max_depth=8,\n"
         "               rolling_commitment=True)\n"
-        "st = state.make_entry_state(cfg, [assemble(WORKLOAD)] * 2)\n"
+        "st = state.make_entry_state(cfg, [assemble(WORKLOAD)] * 2,\n"
+        "                            device='cpu')\n"
         "fused_cycle.run_cycles(st, cfg, 8)\n"
         "rewind_queues(st)\n"
         "finalize_rolling(st.wc_state, st.wc_count)\n"
         "assert int(st.monotonic_cycle_counter[0]) == 8\n"
-        "assert 'jax' not in sys.modules, 'the port imported jax'\n"
+        "cfg = VmConfig(batch=2, code_words=16, stack_words=256,\n"
+        "               stack_abs_words=64, stack_sp_base=960, heap_words=16,\n"
+        "               aux_heap_words=16, max_depth=8, queue_capacity=64,\n"
+        "               storage_slots=4, journal_slots=8, event_slots=8,\n"
+        "               log_queue_capacity=8)\n"
+        "st = state.make_entry_state(cfg, [assemble(STORAGE_WORKLOAD)] * 2,\n"
+        "                            device='cpu')\n"
+        "_, d = packed.drain_witness_queues_packed(\n"
+        "    fused_cycle.run_cycles(st, cfg, 8), cfg, compact_frac=0.5)\n"
+        "rows = packed.fetch_compacted_rows(d)['log']\n"
+        "logs = packed.split_compacted_by_lane(rows[0], rows[1], int(rows[2]))\n"
+        "wave.wave_commitments({'log': logs}, 'cpu')\n"
+        "compaction.compact_log_state(st, cfg)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'era_zk_evm_tpu' or m.startswith('era_zk_evm_tpu.')]\n"
+        "assert not bad, f'the port imported {bad}'\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=300)
 
+
+
+def _imports(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    [ROOT / "chip_smoke.py", *(ROOT / "era_zk_evm_tpu_torch").rglob("*.py")]))
+def test_port_source_imports_no_jax_package(path):
+    # absolute imports only: the port's own relative imports stay inside it
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    bad = [m for m in _imports(tree)
+           if m.split(".")[0] in ("jax", "jaxlib", "era_zk_evm_tpu")]
+    assert not bad, f"{path} imports {bad}"
