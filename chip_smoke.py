@@ -35,7 +35,24 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 block product; lanes 0..7 equal to a plain CPU run;
   wave-profile  the same wave under torch.profiler: the device's busy
                 time and idle share, and its largest device ops;
-  launches      K1, K2 and K3 launched on their main paths.
+  K1-precompile-small  K1's precompile instance (keccak256 / sha256 units,
+                round-witness rows spliced at the block clock) against plain
+                on the precompile test programs and the precompile mix,
+                chunks of 8 cycles, every field;
+  K1-precompile bench_storage's geometry with the units on, B = 32768, the
+                precompile mix: one 128-cycle call kernel vs plain over the
+                whole batch, timed, with its bound;
+  block-tiny    execute_block at bench_block's tiny-mix shape and knobs
+                (B = 4096, 8192 txs): a warm run, a timed run (txs/s,
+                utilization, the scheduler's profile) and a run under
+                torch.profiler (device idle share); the first 256 txs equal
+                to a plain CPU run at B = 64;
+  block-precompile  the same on the precompile mix with the units and the
+                round-witness queue on;
+  block-realistic  execute_block on bench_block's realistic mix (B = 4096,
+                chunk 128), txs/s, utilization, device idle and
+                vs_engine_ideal against one long tx per lane;
+  launches      K1 (each instance), K2 and K3 launched on their main paths.
 The card's name and power limit come on a line of their own, the kernels'
 JSON record on the line before the last, and the last line is the device
 record.  The script imports no JAX and nothing of the JAX package.
@@ -53,6 +70,7 @@ import numpy as np
 import torch
 
 from era_zk_evm_tpu_torch import _build
+from era_zk_evm_tpu_torch.block import TxSpec, execute_block
 from era_zk_evm_tpu_torch.config import BATCH_LAST_FIELDS, VmConfig
 from era_zk_evm_tpu_torch.isa import params
 from era_zk_evm_tpu_torch.isa.abi import code_hash_for_bytecode
@@ -63,7 +81,7 @@ from era_zk_evm_tpu_torch.models.state import (
     state_to_numpy,
 )
 from era_zk_evm_tpu_torch.ops import keccak
-from era_zk_evm_tpu_torch.testing import log_programs
+from era_zk_evm_tpu_torch.testing import block_programs, log_programs
 from era_zk_evm_tpu_torch.testing.programs import (
     FAMILY_PROGRAMS, FARCALL_CALLEE_ADDRESS, STORAGE_WORKLOAD, WORKLOAD,
     assemble, farcall_callee, farcall_caller, tiny_mix_program,
@@ -98,6 +116,19 @@ K1_MIN_OPS = 64
 #: update folded into one 3-input XOR per word 50), rho 48, chi 50, iota 2
 #: (24 rounds)
 KECCAK_OPS = 24 * 180
+#: int32 operations of one sha256 compression (csrc/sha256.cuh), counting a
+#: rotate and a 3-input logic op as one: per round 17 (two Sigma at 4, ch
+#: and maj at 1, 7 adds), per scheduled word 11, and the 8 final adds
+SHA256_OPS = 64 * 17 + 48 * 11 + 8
+PP_SLOTS = 11                                 # round-witness rows per call
+B_BLOCK, TAIL_MULT, CHECK_TXS, CHECK_BATCH = 4096, 4, 256, 64
+#: bench_block's knobs (bench.py:653-660) at its tiny-mix chunk
+BLOCK_KNOBS = dict(chunk=64, k_inner=64, refill_frac=0.25, order="cost_desc",
+                   tail_chunk_mult=TAIL_MULT, adaptive_chunk=True,
+                   drain_compact_frac={"memory": 0.125, "log": 0.5})
+#: bench_block's realistic mix runs 4 * 4096 txs; cut to half so that the
+#: phase (a timed and a profiled run) stays near a minute on the card
+REALISTIC_CHUNK, REALISTIC_TXS = 128, 2 * 4096
 SECTOR = 32                                   # bytes of one DRAM sector
 
 
@@ -147,15 +178,48 @@ def farcall_config(batch: int, n_calls: int = 12) -> VmConfig:
                     event_slots=8, heap_frames=n_calls + 2, code_pages=2)
 
 
+def block_config(batch: int, chunk: int = 64,
+                 precompile: bool = False) -> VmConfig:
+    """bench.py bench_block's geometry (bench.py:574-579: queues sized to
+    chunk * tail_mult cycles); with `precompile`, the keccak256 / sha256
+    units and a round-witness queue of as many blocks."""
+    cfg = VmConfig(batch=batch, code_words=16, stack_words=256,
+                   sweep_gating=False, stack_abs_words=64, stack_sp_base=960,
+                   heap_words=32, aux_heap_words=16, max_depth=8,
+                   queue_capacity=chunk * 8 * TAIL_MULT, storage_slots=8,
+                   journal_slots=64, event_slots=64,
+                   log_queue_capacity=chunk * TAIL_MULT)
+    if precompile:
+        cfg = dataclasses.replace(
+            cfg, precompile_keccak_blocks=2, precompile_sha_rounds=2,
+            precompile_queue_capacity=chunk * TAIL_MULT * PP_SLOTS)
+    return cfg
+
+
 def wave_config(batch: int) -> VmConfig:
-    """bench.py bench_block's tiny-mix geometry (bench.py:574-579: chunk
-    64, tail_mult 4)."""
-    return VmConfig(batch=batch, code_words=16, stack_words=256,
+    """bench.py bench_block's tiny-mix geometry (chunk 64, tail_mult 4)."""
+    return block_config(batch)
+
+
+def precompile_storage_config(batch: int) -> VmConfig:
+    """bench_storage's geometry with the units on and a round-witness queue
+    of K blocks."""
+    return dataclasses.replace(
+        storage_config(batch), precompile_keccak_blocks=2,
+        precompile_sha_rounds=2, precompile_queue_capacity=K * PP_SLOTS)
+
+
+def precompile_small_config(batch: int) -> VmConfig:
+    """tests/test_torch_precompile.py::precompile_config (chunk 32)."""
+    return VmConfig(batch=batch, code_words=32, stack_words=256,
                     sweep_gating=False, stack_abs_words=64, stack_sp_base=960,
                     heap_words=32, aux_heap_words=16, max_depth=8,
-                    queue_capacity=64 * 8 * 4, storage_slots=8,
-                    journal_slots=64, event_slots=64,
-                    log_queue_capacity=64 * 4)
+                    queue_capacity=4 * 32 * 8, storage_slots=8,
+                    journal_slots=64, event_slots=16,
+                    log_queue_capacity=4 * 32, heap_frames=2, code_pages=2,
+                    decommit_queue_capacity=4 * 32,
+                    precompile_keccak_blocks=2, precompile_sha_rounds=2,
+                    precompile_queue_capacity=32 * PP_SLOTS)
 
 
 def compare(a: dict, b: dict) -> tuple[list[str], int]:
@@ -198,7 +262,12 @@ def timed_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+_T0 = time.time()
+
+
 def phase(tag: str, **fields) -> None:
+    """One phase's line, with the script's elapsed seconds."""
+    fields["t_s"] = round(time.time() - _T0, 1)
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
@@ -222,7 +291,8 @@ def bound_ms(n_bytes: float, n_ops: float, sm_mhz: float) -> tuple:
 _K1_READ_ONLY = {"code", "cb_valid", "cb_hash", "default_aa_hash"}
 #: K1 outputs whose old contents it never reads: the witness queue rows
 _K1_WRITE_ONLY = {"lq_meta", "lq_addr", "lq_key", "lq_read", "lq_written",
-                  "dq_hash", "dq_meta", "wq_meta", "wq_value", "wq_flags"}
+                  "dq_hash", "dq_meta", "wq_meta", "wq_value", "wq_flags",
+                  "pq_meta", "pq_value", "pq_flags"}
 
 
 def changed_bytes(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -246,6 +316,8 @@ def k1_bytes(before, after, config: VmConfig) -> int:
     fields = [field for _, field, _ in fused_cycle._k1_fields(config)]
     if config.queue_capacity:
         fields += ["wq_meta", "wq_value", "wq_flags"]
+    if config.precompile_queue_capacity:
+        fields += ["pq_meta", "pq_value", "pq_flags", "pq_count", "pq_blocks"]
     total = 0
     for field in fields:
         a, b = getattr(before, field), getattr(after, field)
@@ -294,6 +366,106 @@ def wave_programs(batch: int) -> list:
     cache = {}
     return [cache.setdefault(int(n), assemble(tiny_mix_program(int(n))))
             for n in lengths]
+
+
+def mix_txs(mix: str, n_txs: int) -> list:
+    """The block's transactions: bench_block's tiny or realistic mix
+    (bench.py:628-650) or the precompile mix, iteration counts from
+    RandomState(11), each tx's iteration count as its cost hint."""
+    if mix == "tiny":
+        rows = [(0x8001, tiny_mix_program(int(n)), int(n))
+                for n in block_programs.tiny_mix_lengths(n_txs)]
+    elif mix == "realistic":
+        rows = [(0x8001, block_programs.realistic_program(int(n)), int(n))
+                for n in block_programs.realistic_lengths(n_txs)]
+    else:
+        rows = [r[:3] for r in block_programs.precompile_mix(n_txs)]
+    cache = {}
+    return [TxSpec(program=cache.setdefault(src, assemble(src)),
+                   ergs=FULL_ERGS, entry_address=entry, cost_hint=n)
+            for entry, src, n in rows]
+
+
+def profiled(fn) -> dict:
+    """fn() under torch.profiler: the wall time, the device's busy time
+    (device-side events: kernels, copies, fills) and idle share, and its
+    largest device items.  Only the device is traced: host ops are not
+    needed here, and tracing them slowed a long block's run and its
+    post-processing by minutes."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, t in ops) / 1e6
+    if busy <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    top = sorted(ops, key=lambda kv: -kv[1])[:5]
+    return {"profiled_wall_s": round(wall, 4),
+            "device_busy_s": round(busy, 4),
+            "idle_share": round(1 - busy / wall, 4),
+            "top": ";".join(f"{k[:40]}:{t / 1e3:.2f}ms" for k, t in top)}
+
+
+def block_phase(tag: str, config: VmConfig, txs: list, knobs: dict, dev,
+                warm: bool = True) -> tuple:
+    """execute_block on the card: a warm run (if asked), a timed run with
+    the launch counts set to 0 just before it, and a profiled run.  Returns
+    (result, wall seconds, launches, profile)."""
+    if warm:
+        execute_block(config, txs, device=dev, **knobs)
+    torch.cuda.synchronize()
+    fused_cycle.K1_LAUNCHES = fused_cycle.K1_PRECOMPILE_LAUNCHES = 0
+    keccak.K3_LAUNCHES = 0
+    t0 = time.perf_counter()
+    blk = execute_block(config, txs, device=dev, **knobs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": fused_cycle.K1_LAUNCHES,
+                "K1_precompile": fused_cycle.K1_PRECOMPILE_LAUNCHES,
+                "K3": keccak.K3_LAUNCHES}
+    if not blk.all_ok:
+        bad = sum(t.status != "ok" for t in blk.txs)
+        raise AssertionError(f"{tag}: {bad} txs ended in error")
+    prof = profiled(lambda: execute_block(config, txs, device=dev, **knobs))
+    return blk, wall, launches, prof
+
+
+def check_on_cpu(tag: str, config: VmConfig, txs: list, knobs: dict,
+                 blk) -> None:
+    """The first CHECK_TXS txs through the port on the CPU (plain
+    versions) at B = CHECK_BATCH: every tx's status, cycles, registers,
+    family digests and sorted-log product equal to the card's block.  The
+    policy knobs do not change a tx's results; the CPU run takes the ones
+    that waste the fewest lane-cycles (no tail escalation or adaptive
+    chunks, refill at an eighth of the lanes)."""
+    cpu_knobs = dict(knobs, tail_chunk_mult=1, adaptive_chunk=False,
+                     refill_frac=0.125)
+    ref = execute_block(dataclasses.replace(config, batch=CHECK_BATCH),
+                        txs[:CHECK_TXS], device="cpu", **cpu_knobs)
+    for i, (a, b) in enumerate(zip(ref.txs, blk.txs)):
+        if (a.status, a.cycles) != (b.status, b.cycles) \
+                or not np.array_equal(a.registers, b.registers) \
+                or ref.tx_commitments[i] != blk.tx_commitments[i] \
+                or ref.sorted_log_products[i] != blk.sorted_log_products[i]:
+            raise AssertionError(f"{tag}: tx {i} differs from the CPU run")
+
+
+def block_fields(blk, wall: float, n_txs: int) -> dict:
+    return {"txs": n_txs, "txs_per_sec": n_txs / wall,
+            "wall_s": round(wall, 4),
+            "utilization": round(blk.stats["utilization"], 4),
+            "mean_tx_cycles": round(float(np.mean(
+                [r.cycles for r in blk.txs])), 1),
+            "rounds": blk.stats["rounds"],
+            "adaptive_launches": blk.stats["adaptive_launches"],
+            "all_ok": blk.all_ok,
+            "families": ",".join(sorted(blk.commitments)),
+            **{f"host_{k}": v for k, v in blk.stats["profile"].items()}}
 
 
 def main() -> int:
@@ -541,6 +713,69 @@ def main() -> int:
           lane_errors=errors, queued_log_decommit_rows=queue_rows)
     del ks, entry_f
 
+    # -- K1's precompile instance against plain -------------------------
+    pp_lanes = list(block_programs.PRECOMPILE_LANES) + [
+        (e, src) for e, src, *_ in block_programs.precompile_mix(17, seed=3)]
+    cfg_ps = precompile_small_config(len(pp_lanes))
+    ks = make_entry_state(cfg_ps, [assemble(src) for _, src in pp_lanes],
+                          ergs=1 << 20,
+                          entry_address=[e for e, _ in pp_lanes], device=dev)
+    ps = clone_state(ks)
+    fused_cycle.run_cycles(ks, cfg_ps, 96, k_inner=8)
+    batched_vm.run_cycles(ps, cfg_ps, 96)
+    torch.cuda.synchronize()
+    kps_err = require_equal("K1 precompile programs", state_to_numpy(ks),
+                            state_to_numpy(ps))
+    phase("K1-precompile-small", lanes=len(pp_lanes), cycles=96, k_inner=8,
+          equal=True, pq_rows=int(ks.pq_count.sum()),
+          pq_blocks=int(ks.pq_blocks[0]),
+          lane_errors=int(ks.lane_error.sum()))
+    del ks, ps
+
+    cfg_p = precompile_storage_config(B_FULL)
+    mix = block_programs.precompile_mix(B_FULL)
+    cache = {}
+    entry_p = make_entry_state(
+        cfg_p, [cache.setdefault(src, assemble(src)) for _, src, *_ in mix],
+        ergs=FULL_ERGS, entry_address=[e for e, *_ in mix], device=dev)
+    pq_block = fused_cycle.new_pq_block(cfg_p, K, dev)
+    warm = clone_state(entry_p)      # the splice's temporaries allocated
+    fused_cycle.cycle_chunk(warm, cfg_p, K, pq_block=pq_block)
+    del warm
+    ks, ps = clone_state(entry_p), clone_state(entry_p)
+    kp_ms = timed_ms(lambda: fused_cycle.cycle_chunk(ks, cfg_p, K,
+                                                     pq_block=pq_block))
+    # the splice alone, again from the same scratch rows
+    sp = clone_state(entry_p)
+    splice_ms = timed_ms(lambda: fused_cycle.splice_precompile_rows(
+        sp, cfg_p, pq_block, K))
+    del sp
+    kp_plain_ms = timed_ms(lambda: batched_vm.run_cycles(ps, cfg_p, K))
+    kp_err = require_equal("K1-precompile B=32768", state_to_numpy(ks),
+                           state_to_numpy(ps))
+    del ps
+    errors = int(ks.lane_error.sum())
+    if errors:
+        raise AssertionError(f"K1-precompile: {errors} lanes set lane_error")
+    # the units' work in this call: a keccak-f per keccak call (64-byte
+    # input, one block), `rounds` compressions per sha256 call
+    calls = (pq_block[3] != 0).sum(0).cpu().numpy()
+    sha_rounds = np.array([r for *_, r in mix])
+    n_perms = int(calls[sha_rounds == 0].sum())
+    n_comps = int((calls * sha_rounds).sum())
+    kp_nbytes = k1_bytes(entry_p, ks, cfg_p)
+    kp_bound = bound_ms(kp_nbytes, B_FULL * K * K1_MIN_OPS
+                        + n_perms * KECCAK_OPS + n_comps * SHA256_OPS, sm_mhz)
+    phase("K1-precompile", batch=B_FULL, cycles=K, equal=True,
+          ms=round(kp_ms, 3), splice_ms=round(splice_ms, 3),
+          plain_ms=round(kp_plain_ms, 3),
+          bound_ms=round(kp_bound[0], 4), bound_by=kp_bound[1],
+          bound_bytes=kp_nbytes, keccak_calls=n_perms,
+          sha256_compressions=n_comps, pq_rows=int(ks.pq_count.sum()),
+          pq_blocks=int(ks.pq_blocks[0]), lane_errors=errors,
+          cycles_per_sec=B_FULL * K / (kp_ms / 1e3))
+    del ks, entry_p, pq_block
+
     # -- K3 against plain ------------------------------------------------
     gen = torch.Generator().manual_seed(3)
     k3_err, k3_ms, k3_plain_ms = 0, None, None
@@ -635,27 +870,78 @@ def main() -> int:
 
     # the same wave again under torch.profiler: the device's busy share
     st = make_entry_state(cfg_w, wave_words, ergs=FULL_ERGS, device=dev)
+    phase("wave-profile", **profiled(lambda: wave_commitments(
+        run_wave(st, cfg_w, WAVE_SEGMENT, WAVE_FRACS), dev)))
+
+    # -- the block pipeline: execute_block, the product path ------------
+    blocks = {}
+    for tag, mix, precompile in (("block-tiny", "tiny", False),
+                                 ("block-precompile", "precompile", True)):
+        cfg_k = block_config(B_BLOCK, precompile=precompile)
+        knobs = dict(BLOCK_KNOBS)
+        if precompile:
+            knobs["drain_compact_frac"] = dict(knobs["drain_compact_frac"],
+                                               precompile=0.25)
+        txs = mix_txs(mix, 2 * B_BLOCK)
+        blk, wall, launches, prof = block_phase(tag, cfg_k, txs, knobs, dev)
+        need = ("K1", "K3") + (("K1_precompile",) if precompile else ())
+        if any(launches[k] == 0 for k in need):
+            raise AssertionError(f"{tag}: launches {launches}")
+        check_on_cpu(tag, cfg_k, txs, knobs, blk)
+        blocks[tag] = launches
+        extra = {}
+        if precompile:
+            extra["precompile_records"] = sum(
+                r.streams["precompile"].shape[0] for r in blk.txs)
+        phase(tag, batch=B_BLOCK, equal_to_cpu_txs=CHECK_TXS,
+              **block_fields(blk, wall, len(txs)),
+              **{f"launches_{k}": v for k, v in launches.items()},
+              **prof, **extra, log_fold=blk.commitments["log"].hex()[:16],
+              block_product=blk.block_log_product)
+        del blk
+
+    cfg_r = block_config(B_BLOCK, chunk=REALISTIC_CHUNK)
+    knobs_r = dict(BLOCK_KNOBS, chunk=REALISTIC_CHUNK)
+    txs = mix_txs("realistic", REALISTIC_TXS)
+    blk, wall, launches_r, prof = block_phase("block-realistic", cfg_r, txs,
+                                              knobs_r, dev, warm=False)
+    mean_cycles = float(np.mean([r.cycles for r in blk.txs]))
+    # engine-ideal (bench.py:675-708): the same config, one long tx per
+    # lane, pipelined chunk * tail_mult-cycle calls with a queue rewind
+    st = make_entry_state(
+        cfg_r, [assemble(block_programs.realistic_program(1 << 20))] * B_BLOCK,
+        ergs=FULL_ERGS, device=dev)
+    n_call = REALISTIC_CHUNK * TAIL_MULT
+
+    def estep():
+        fused_cycle.run_cycles(st, cfg_r, n_call,
+                               k_inner=knobs_r["k_inner"])
+        rewind_queues(st)
+
+    estep()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    best = float("inf")
+    for _ in range(3):
         t0 = time.perf_counter()
-        wave_commitments(run_wave(st, cfg_w, WAVE_SEGMENT, WAVE_FRACS), dev)
+        for _ in range(4):
+            estep()
         torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    # the device-side events only (kernels, copies, fills): the host ops
-    # that launched them report the same time again
-    ops = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_s = sum(t for _, t in ops) / 1e6
-    top = sorted(ops, key=lambda kv: -kv[1])[:4]
-    phase("wave-profile", wall_s=round(prof_wall, 4),
-          device_busy_s=round(busy_s, 4),
-          idle_share=round(1 - busy_s / prof_wall, 4),
-          top=";".join(f"{k[:40]}:{t / 1e3:.2f}ms" for k, t in top))
+        best = min(best, (time.perf_counter() - t0) / 4)
+    engine_rate = B_BLOCK * n_call / best
+    phase("block-realistic", batch=B_BLOCK, chunk=REALISTIC_CHUNK,
+          **block_fields(blk, wall, len(txs)),
+          **{f"launches_{k}": v for k, v in launches_r.items()}, **prof,
+          engine_cycles_per_sec=engine_rate,
+          vs_engine_ideal=round((len(txs) / wall)
+                                / (engine_rate / mean_cycles), 4))
+    del blk, st
 
     phase("launches", K1=main_k1 + wave_k1, K1_main=main_k1,
-          K1_wave=wave_k1, K2=main_k2, K3=wave_k3)
+          K1_wave=wave_k1, K2=main_k2, K3=wave_k3,
+          K1_block_tiny=blocks["block-tiny"]["K1"],
+          K3_block_tiny=blocks["block-tiny"]["K3"],
+          K1_precompile_block=blocks["block-precompile"]["K1_precompile"],
+          K3_block_precompile=blocks["block-precompile"]["K3"])
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "era_zk_evm_tpu" or m.startswith("era_zk_evm_tpu.")]
     if bad:
@@ -676,15 +962,21 @@ def main() -> int:
         kernel("K1 cycle_kernel, slice (a)", "cycle_kernel.cu", k1_src,
                main_k1, k1_err, k1_ms, k1_plain_ms, k1_bound),
         kernel("K1 cycle_kernel, slices (b) LOG and (c) FAR_CALL",
-               "cycle_kernel.cu", k1_src, wave_k1,
+               "cycle_kernel.cu", k1_src, blocks["block-tiny"]["K1"],
                max(ks_err, kf_err, kw_err),
                ks2_ms, ks_plain_ms, ks_bound),
+        kernel("K1 cycle_kernel, slice (d) keccak256/sha256 precompiles",
+               "cycle_kernel.cu", "era_zk_evm_tpu/models/fused_cycle.py:2794"
+               " (precompile unit :1395-1600)",
+               blocks["block-precompile"]["K1_precompile"],
+               max(kps_err, kp_err), kp_ms, kp_plain_ms, kp_bound),
         kernel("K2 rolling_fold", "rolling_fold.cu",
                "era_zk_evm_tpu/models/fused_cycle.py:3205", main_k2, k2_err,
                k2_ms, k2_plain_ms, k2_bound),
         kernel("K3/K4 keccak_f", "keccak_f.cu",
                "era_zk_evm_tpu/ops/keccak.py:292, era_zk_evm_tpu/ops/"
-               "keccak.py:371", wave_k3, k3_err, k3_ms, k3_plain_ms,
+               "keccak.py:371", blocks["block-tiny"]["K3"], k3_err, k3_ms,
+               k3_plain_ms,
                k3_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {

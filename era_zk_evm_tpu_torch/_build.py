@@ -42,7 +42,9 @@ def generate_header() -> str:
         ContextOp, FarCallOp, LogOp, Opcode, OperandMode, PtrOp, RetOp,
         ShiftOp, UMAOp, decode_consts,
     )
+    from .isa.abi import PrecompileCallABI
     from .ops.keccak import KECCAK_RC, KECCAK_ROTATIONS
+    from .ops.sha256 import SHA256_IV, SHA256_K
 
     out = ["// generated by era_zk_evm_tpu_torch/_build.py — do not edit",
            "#pragma once", "#include <cstdint>", ""]
@@ -72,8 +74,19 @@ def generate_header() -> str:
                  "YET_CONSTRUCTED_MARKER", "ERGS_PER_CODE_WORD_DECOMMITTMENT",
                  "UNMAPPED_PAGE", "INITIAL_SP_ON_FAR_CALL",
                  "NEW_FRAME_MEMORY_STIPEND",
-                 "NEW_MEMORY_PAGES_PER_FAR_CALL"):
+                 "NEW_MEMORY_PAGES_PER_FAR_CALL",
+                 "KECCAK256_ROUND_FUNCTION_PRECOMPILE_ADDRESS",
+                 "SHA256_ROUND_FUNCTION_PRECOMPILE_ADDRESS"):
         define(name, getattr(params, name))
+    # the precompile-call ABI: the u32 limb of src0 that holds each field
+    for name, field in (("IN_OFF", "input_memory_offset"),
+                        ("IN_LEN", "input_memory_length"),
+                        ("OUT_OFF", "output_memory_offset"),
+                        ("PAGE_R", "memory_page_to_read"),
+                        ("PAGE_W", "memory_page_to_write"),
+                        ("ROUNDS", "precompile_interpreted_data")):
+        bit = PrecompileCallABI(**{field: 1}).to_u256().bit_length() - 1
+        define(f"PP_ABI_{name}", bit // 32)
     define("VARIANT_MASK", VARIANT_MASK)
     enc = exception_revert_encoding()
     define("PANIC_LO", enc & 0xFFFFFFFF)
@@ -91,6 +104,9 @@ def generate_header() -> str:
     out.append(f"EVM_TABLE uint64_t KECCAK_RC[{len(KECCAK_RC)}] = {{{rc}}};")
     rot = ", ".join(str(r) for r in KECCAK_ROTATIONS)
     out.append(f"EVM_TABLE int KECCAK_ROT[25] = {{{rot}}};")
+    for name, arr in (("SHA256_K", SHA256_K), ("SHA256_IV", SHA256_IV)):
+        vals = ", ".join(f"0x{v:08x}u" for v in arr)
+        out.append(f"EVM_TABLE uint32_t {name}[{len(arr)}] = {{{vals}}};")
     return "\n".join(out) + "\n"
 
 
@@ -182,13 +198,15 @@ class K1Args(ctypes.Structure):
         "lq_read", "lq_written", "lq_count", "dq_hash", "dq_meta", "dq_count",
         "cb_hash", "default_aa_hash", "frame_count", "page_counter", "done",
         "lane_error", "global_step", "wq_count", "q_meta", "q_value",
-        "q_flags", "step0",
+        "q_flags", "step0", "pq_meta_blk", "pq_value_blk", "pq_flags_blk",
+        "pq_emit_blk", "pq_nslots_blk",
     )] + [(name, ctypes.c_int) for name in (
         "batch", "max_depth", "code_words", "code_pages", "stack_words",
         "stack_abs_words", "stack_sp_base", "heap_words", "aux_heap_words",
         "heap_frames", "queue_capacity", "storage_slots", "journal_slots",
         "event_slots", "log_queue_capacity", "decommit_queue_capacity",
-        "emit_mode", "k_cycles", "k_stop",
+        "emit_mode", "k_cycles", "k_stop", "keccak_blocks", "sha_rounds",
+        "pq_slots_in", "pq_capacity",
     )]
 
 

@@ -101,19 +101,29 @@ def check_slice(config: VmConfig) -> None:
     FAR_CALL and the precompiles, with the memory queue or the rolling
     commitment) and, with `storage_slots > 0`, the LOG family and FAR_CALL
     with their storage, journal and event slots, the log and decommit
-    witness queues, several heap frames and code pages.  LOG and FAR_CALL
-    set `lane_error` when `storage_slots == 0`, and `log.precompile` always
-    does, exactly as the JAX engine does without those units.
+    witness queues, several heap frames and code pages, and the keccak256
+    and sha256 precompile units with their round-witness queue.  LOG and
+    FAR_CALL set `lane_error` when `storage_slots == 0`, and
+    `log.precompile` does while `precompile_keccak_blocks == 0`, exactly as
+    the JAX engines do (they turn the units on by the keccak block count
+    alone; sha256 then runs at least one round).
 
-    Still outside: the precompile units and their queue, the TPU-only
-    `limb_major_arenas` layout, and the rolling commitment together with a
-    memory queue.
+    The couplings of the JAX `fused_cycle.supported()` hold: the units need
+    the LOG unit (`storage_slots > 0`), and the precompile queue needs the
+    units.  Still outside: ecrecover, the TPU-only `limb_major_arenas`
+    layout, and the rolling commitment together with a memory queue.
     """
-    if (config.precompile_keccak_blocks or config.precompile_sha_rounds
-            or config.precompile_ecrecover):
-        raise NotImplementedError("precompile units")
-    if config.precompile_queue_capacity:
-        raise NotImplementedError("precompile witness queue")
+    units = config.precompile_keccak_blocks > 0 \
+        or config.precompile_sha_rounds > 0
+    if config.precompile_ecrecover:
+        raise NotImplementedError("precompile_ecrecover (K1 slice e)")
+    if units and config.storage_slots == 0:
+        raise NotImplementedError(
+            "the precompile units need the LOG unit (storage_slots > 0)")
+    if config.precompile_queue_capacity and not (units
+                                                 and config.storage_slots):
+        raise NotImplementedError(
+            "the precompile queue needs the precompile units")
     if config.limb_major_arenas:
         raise NotImplementedError("limb_major_arenas (a TPU-only layout)")
     # the exclusivity rule of fused_cycle.supported(): both modes consume

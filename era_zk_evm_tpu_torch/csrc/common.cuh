@@ -9,9 +9,11 @@
 
 #ifdef __CUDACC__
 #define HD __device__ __forceinline__
+#define HD_NOINLINE __device__ __noinline__
 #define EVM_TABLE static __constant__
 #else
 #define HD static inline
+#define HD_NOINLINE static
 #define EVM_TABLE static const
 #endif
 

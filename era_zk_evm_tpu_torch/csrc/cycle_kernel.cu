@@ -1,7 +1,7 @@
 // K1: the K-cycle EraVM interpreter, one thread per lane (CUDA C++, sm_90a).
 //
 // Replaces the TPU kernel era_zk_evm_tpu/models/fused_cycle.py::_build_kernel
-// (:2794, wrapped by _build_call, driven by _run_chunk) for three of its
+// (:2794, wrapped by _build_call, driven by _run_chunk) for four of its
 // slices.  (a) the memory-witness slice: NOP ADD SUB MUL DIV JUMP CONTEXT
 // SHIFT BINOP PTR NEAR_CALL RET UMA, with register, stack and code
 // addressing, heap and aux heap, the memory witness queue (mode a) or a chunk
@@ -10,9 +10,13 @@
 // engine's static log_enabled): storage reads and writes with pubdata ergs,
 // events, the journal and its rollback on a panicked pop, far calls with the
 // code-hash read, decommit from the code bank and fresh heap frames, and the
-// log and decommit witness queues.  Without kLog, LOG and FAR_CALL set
-// lane_error, as the JAX engine does with storage_slots == 0; log.precompile
-// always does (the precompile units are not ported).
+// log and decommit witness queues.  (d) the keccak256 and sha256 precompile
+// units (the TPU kernel's precompile unit, fused_cycle.py:1395-1600), compiled
+// in only for storage_slots > 0 and precompile_keccak_blocks > 0 (template
+// <kLog, kPrecomp>, as the JAX engines' pp_enabled), with the rows of the
+// round-witness queue.  Without kLog, LOG and FAR_CALL set lane_error, as the
+// JAX engine does with storage_slots == 0; without kPrecomp, log.precompile
+// does.  Ecrecover (slice e) is not ported.
 // Its plain version is era_zk_evm_tpu_torch/models/batched_vm.py::cycle_step;
 // both follow era_zk_evm_tpu/models/batched_vm.py::cycle_step section by
 // section, and the smoke run holds them equal bit for bit.
@@ -46,8 +50,27 @@
 // again) and more local memory for the log row it builds each cycle.
 // Making the arenas coalesced (or staging them in shared memory) is later
 // work.
+//
+// The precompile units (kPrecomp) run in a __noinline__ function that only a
+// lane whose cycle is a precompile call enters, so the hot loop's register
+// allocation does not grow by the keccak state (25 u64 in registers, the
+// K2/K3 keccak-f of keccak.cuh), the byte window or the sha256 state
+// (sha256.cuh, constants in __constant__ memory).  A lane reads its input
+// bytes straight from its heap or aux-heap frame by index, and writes its
+// round-witness rows into a per-chunk scratch block pq_*_blk[K, PS, ., B]
+// (batch-last, so a warp's stores coalesce) with an emit flag and a slot
+// count per cycle.  The queue's block clock is batch-global (it advances on
+// every cycle in which any lane ran a unit), a dependency across lanes that
+// one launch of independent threads cannot resolve: the wrapper splices the
+// scratch rows into the queue after the launch (models/fused_cycle.py,
+// splice_precompile_rows), as the TPU kernel's wrapper does (:3529-3588).
+// The units are bound by their operations (a keccak-f per 136-byte block,
+// a sha256 compression per 64-byte round) and by the divergence between
+// keccak lanes, sha256 lanes and the rest of a warp.
 
 #include "common.cuh"
+#include "keccak.cuh"
+#include "sha256.cuh"
 #include "u256.cuh"
 
 struct K1Args {
@@ -99,6 +122,14 @@ struct K1Args {
     int32_t *q_value;       // [rows, 8, B]
     int32_t *q_flags;       // [rows, B]
     const int32_t *step0;   // device scalar: min(global_step) of the batch
+    // per-chunk round-witness scratch, read only by the kPrecomp instance
+    // with a precompile queue: rows of the emitting lanes, and per cycle
+    // each lane's emit flag and slot count
+    int32_t *pq_meta_blk;   // [K, PS, 4, B]
+    int32_t *pq_value_blk;  // [K, PS, 8, B]
+    int32_t *pq_flags_blk;  // [K, PS, B]
+    int32_t *pq_emit_blk;   // [K, B]
+    int32_t *pq_nslots_blk; // [K, B]
     int batch, max_depth, code_words, code_pages, stack_words;
     int stack_abs_words;    // -1: one window
     int stack_sp_base, heap_words, aux_heap_words, heap_frames;
@@ -107,6 +138,9 @@ struct K1Args {
     int log_queue_capacity, decommit_queue_capacity;
     int emit_mode;          // 0 no slots, 1 persistent queue, 2 chunk block
     int k_cycles, k_stop;
+    int keccak_blocks, sha_rounds;  // the units' limits (MK, MS)
+    int pq_slots_in;        // PS_IN; a call's row block is PS_IN + 1 rows
+    int pq_capacity;        // 0: no round-witness queue
 };
 
 struct Slot {
@@ -169,6 +203,7 @@ struct Lane {
     int32_t wq_count;
     uint32_t spent_pubdata, page_counter;
     int32_t st_count, j_count, ev_count, lq_count, dq_count, frame_count;
+    uint32_t pq_emit, pq_nslots;   // this cycle's round-witness block
 };
 
 HD U256 load_u256(const int32_t *p) {
@@ -203,14 +238,178 @@ HD void write_reg(Lane &L, uint32_t idx, const U256 &v, bool tag) {
     L.rtag[idx - 1] = tag;
 }
 
+// (on the heap, on the aux heap, frame slot) of a page: heap frames first
+HD void page_slot(const K1Args &a, int b, uint32_t page, bool *on_h,
+                  bool *on_a, uint32_t *slot) {
+    const int F = a.heap_frames;
+    uint32_t hs = 0, as = 0;
+    bool h = false, x = false;
+    for (int f = 0; f < F; f++) {
+        if ((uint32_t)a.hp_page[(uint64_t)b * F + f] == page) { hs += f; h = true; }
+        if ((uint32_t)a.ap_page[(uint64_t)b * F + f] == page) { as += f; x = true; }
+    }
+    *on_h = h;
+    *on_a = !h && x;
+    *slot = h ? hs : as;
+}
+
+// word idx of heap frame `slot` (on_h) or aux-heap frame `slot`, u32 index
+// arithmetic; outside the arena it reads zeros
+HD U256 frame_word(const K1Args &a, int b, bool on_h, uint32_t slot,
+                   uint32_t idx) {
+    const uint32_t W = on_h ? a.heap_words : a.aux_heap_words;
+    const uint64_t n = (uint64_t)a.heap_frames * W;
+    const int32_t *arena = (on_h ? a.heap : a.aux_heap) + (uint64_t)b * n * 8;
+    return load_word(arena, n, (uint32_t)(slot * W + idx));
+}
+
+// keccak256 of in_len bytes at byte in_off of the frame: a byte-stream
+// sponge over at most keccak_blocks 136-byte blocks, padding XORed in
+HD U256 keccak_unit(const K1Args &a, int b, bool on_h, uint32_t slot,
+                    uint32_t in_off, uint32_t in_len, uint32_t kc_blocks) {
+    const uint32_t kc_last = kc_blocks * 136u - 1u;
+    uint64_t st[25];
+    for (int i = 0; i < 25; i++) st[i] = 0;
+    uint8_t window[192];
+    for (uint32_t k = 0; k < (uint32_t)a.keccak_blocks && k < kc_blocks; k++) {
+        const uint32_t base_byte = in_off + k * 136u;
+        const uint32_t base_word = base_byte >> 5, sh = base_byte & 31;
+        for (int w = 0; w < 6; w++) {
+            const U256 v = frame_word(a, b, on_h, slot, base_word + w);
+            for (int p = 0; p < 32; p++)     // big-endian bytes of the word
+                window[w * 32 + p] =
+                    (uint8_t)(v.w[7 - p / 4] >> (8 * (3 - p % 4)));
+        }
+        for (int l = 0; l < 17; l++) {
+            uint64_t lane = 0;
+            for (int t = 0; t < 8; t++) {
+                const uint32_t j = 8 * l + t, g = k * 136u + j;
+                uint32_t byte = g < in_len ? window[sh + j] : 0u;
+                if (g == in_len) byte ^= 0x01;
+                if (g == kc_last) byte ^= 0x80;
+                lane |= (uint64_t)byte << (8 * t);
+            }
+            st[l] ^= lane;
+        }
+        keccak_f1600(st);
+    }
+    // the digest's 32 little-endian lane bytes, as one big-endian word
+    U256 out;
+    for (int w = 0; w < 8; w++) {
+        uint32_t limb = 0;
+        for (int q = 0; q < 4; q++) {
+            const int i = 28 - 4 * w + q;
+            limb = (limb << 8) | (uint32_t)((st[i / 8] >> (8 * (i % 8))) & 0xFF);
+        }
+        out.w[w] = limb;
+    }
+    return out;
+}
+
+// the sha256 state after min(rounds, max(sha_rounds, 1)) compressions of
+// two input words each, as one big-endian word
+HD U256 sha_unit(const K1Args &a, int b, bool on_h, uint32_t slot,
+                 uint32_t in_off, uint32_t rounds) {
+    const uint32_t ms = a.sha_rounds > 1 ? a.sha_rounds : 1;
+    uint32_t st[8];
+    for (int i = 0; i < 8; i++) st[i] = SHA256_IV[i];
+    for (uint32_t k = 0; k < ms && k < rounds; k++) {
+        uint32_t blk[16];
+        const U256 w0 = frame_word(a, b, on_h, slot, in_off + 2 * k);
+        const U256 w1 = frame_word(a, b, on_h, slot, in_off + 2 * k + 1);
+        for (int i = 0; i < 8; i++) {
+            blk[i] = w0.w[7 - i];
+            blk[8 + i] = w1.w[7 - i];
+        }
+        sha256_compress(st, blk);
+    }
+    U256 out;
+    for (int i = 0; i < 8; i++) out.w[i] = st[7 - i];
+    return out;
+}
+
+// The precompile unit of one lane's precompile call in cycle c: the
+// keccak256 or sha256 of its input, its round-witness rows in the chunk's
+// scratch block (with emit flag and slot count), then its output word.
+// Returns whether the call sets lane_error.
+HD_NOINLINE bool precompile_unit(const K1Args &a, int b, int c,
+                                 const uint32_t abi[8], uint32_t addr16,
+                                 uint32_t heap_page, uint32_t ts_log,
+                                 uint32_t *emit, uint32_t *nslots) {
+    *emit = *nslots = 0;
+    const bool is_keccak = addr16 == KECCAK256_ROUND_FUNCTION_PRECOMPILE_ADDRESS;
+    const bool is_sha = addr16 == SHA256_ROUND_FUNCTION_PRECOMPILE_ADDRESS;
+    if (!is_keccak && !is_sha) return false;
+    const uint32_t in_off = abi[PP_ABI_IN_OFF], in_len = abi[PP_ABI_IN_LEN];
+    const uint32_t out_off = abi[PP_ABI_OUT_OFF], rounds = abi[PP_ABI_ROUNDS];
+    const uint32_t page_r = abi[PP_ABI_PAGE_R] ? abi[PP_ABI_PAGE_R] : heap_page;
+    const uint32_t page_w = abi[PP_ABI_PAGE_W] ? abi[PP_ABI_PAGE_W] : heap_page;
+    bool r_on_h, r_on_a, w_on_h, w_on_a;
+    uint32_t r_slot, w_slot;
+    page_slot(a, b, page_r, &r_on_h, &r_on_a, &r_slot);
+    page_slot(a, b, page_w, &w_on_h, &w_on_a, &w_slot);
+    bool err = !(r_on_h || r_on_a) || !(w_on_h || w_on_a);
+    const uint32_t kc_blocks = in_len / 136u + 1u;
+    U256 out;
+    if (is_keccak) {
+        err |= kc_blocks > (uint32_t)a.keccak_blocks;
+        out = keccak_unit(a, b, r_on_h, r_slot, in_off, in_len, kc_blocks);
+    } else {
+        err |= rounds > (uint32_t)(a.sha_rounds > 1 ? a.sha_rounds : 1);
+        out = sha_unit(a, b, r_on_h, r_slot, in_off, rounds);
+    }
+
+    if (a.pq_capacity > 0) {
+        // mem_in rows: consecutive words from the call's first word; then
+        // the mem_out row, which carries the round count
+        const uint64_t B = a.batch;
+        const uint32_t ps_in = a.pq_slots_in;
+        const uint32_t first = is_keccak ? in_off >> 5 : in_off;
+        const uint32_t kq_words = in_len == 0 ? 0u
+            : ((in_off + in_len - 1) >> 5) - (in_off >> 5) + 1;
+        const uint32_t n_words = is_keccak ? kq_words : 2 * rounds;
+        err |= n_words > ps_in;
+        for (uint32_t i = 0; i <= ps_in; i++) {
+            const bool in_row = i < ps_in, v = in_row ? i < n_words : true;
+            const uint32_t idx = first + i;
+            const U256 val = !v ? u256_zero()
+                : (in_row ? frame_word(a, b, r_on_h, r_slot, idx) : out);
+            const uint32_t meta[4] = {
+                in_row ? ts_log : ts_log + 1, in_row ? 3u : 1u,
+                in_row ? page_r : page_w, in_row ? idx : out_off};
+            const uint64_t row = (uint64_t)c * (ps_in + 1) + i;
+            for (int q = 0; q < 4; q++)
+                a.pq_meta_blk[(row * 4 + q) * B + b] = v ? (int32_t)meta[q] : 0;
+            for (int l = 0; l < 8; l++)
+                a.pq_value_blk[(row * 8 + l) * B + b] = (int32_t)val.w[l];
+            a.pq_flags_blk[row * B + b] = !v ? 0
+                : (in_row ? 4 : (int32_t)(5u | ((is_keccak ? kc_blocks : rounds) << 3)));
+        }
+        *emit = 1;
+        *nslots = n_words + 1;
+    }
+
+    // the output word, after the mem_in reads
+    const uint32_t W = w_on_h ? a.heap_words : a.aux_heap_words;
+    const bool hw_ok = out_off < W;
+    err |= !hw_ok;
+    if (hw_ok && (w_on_h || w_on_a)) {
+        const uint64_t n = (uint64_t)a.heap_frames * W;
+        int32_t *arena = (w_on_h ? a.heap : a.aux_heap) + (uint64_t)b * n * 8;
+        store_word(arena, n, (uint64_t)w_slot * W + out_off, out);
+    }
+    return err;
+}
+
 // one cycle of one live lane (done lanes never get here); fills the
 // cycle's 8 witness slots and, with kLog, its log and decommit rows
-template <bool kLog>
-HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots, LogRow &lr,
-                   DecRow &dr) {
+template <bool kLog, bool kPrecomp>
+HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
+                   LogRow &lr, DecRow &dr) {
     const int D = a.max_depth;
     for (int s = 0; s < SLOTS_PER_CYCLE; s++) slots[s].valid = false;
     lr.valid = dr.valid = false;
+    L.pq_emit = L.pq_nslots = 0;
 
     // ---------------------------------------------------------- frame
     const int32_t depth = L.depth;
@@ -434,9 +633,8 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots, LogRow &lr,
     const bool is_ptr = opcode == OP_PTR, is_near_call = opcode == OP_NEAR_CALL;
     const bool is_ret = opcode == OP_RET, is_uma = opcode == OP_UMA;
     const bool is_log = opcode == OP_LOG;
-    // the precompile units are not ported; without kLog, neither are LOG
-    // and FAR_CALL
-    if (kLog ? (is_log && sub_variant == LOG_PRECOMPILE_CALL)
+    // without their units, LOG / FAR_CALL and log.precompile are errors
+    if (kLog ? (!kPrecomp && is_log && sub_variant == LOG_PRECOMPILE_CALL)
              : (opcode == OP_FAR_CALL || is_log))
         L.lane_error = true;
 
@@ -529,7 +727,6 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots, LogRow &lr,
     const bool uma_increment = is_uma && vflag0;
     const uint32_t u_offset = src0.w[0], u_page_field = src0.w[1];
     const uint32_t u_start = src0.w[2], u_length = src0.w[3];
-    const uint32_t heap_page = base_page + 2, aux_page = base_page + 3;
 
     const bool uma_exc_not_ptr = uma_is_ptr_read && !src0_tag;
     const bool uma_skip_oob_ptr = uma_is_ptr_read && !(u_offset < u_length);
@@ -705,6 +902,11 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots, LogRow &lr,
             new_ev_count = L.ev_count + 1;
         }
     }
+    const uint32_t heap_page = base_page + 2, aux_page = base_page + 3;
+    if (kPrecomp && do_precomp &&
+        precompile_unit(a, b, c, src0.w, this_addr[0] & 0xFFFF, heap_page,
+                        ts_log, &L.pq_emit, &L.pq_nslots))
+        L.lane_error = true;
 
     // ---------------------------------------------------- near call
     const uint32_t nc_abi = src0.w[0];
@@ -1151,6 +1353,12 @@ HD void lane_cycle(const K1Args &a, int b, Lane &L, Slot *slots, LogRow &lr,
             } else {
                 for (int i = 0; i < 5; i++) lr.addr[i] = this_addr[i];
                 lr.key = src0;
+                if (kPrecomp && do_precomp) {   // the resolved pages
+                    const uint32_t pr = src0.w[PP_ABI_PAGE_R];
+                    const uint32_t pw = src0.w[PP_ABI_PAGE_W];
+                    lr.key.w[PP_ABI_PAGE_R] = pr ? pr : base_page + 2;
+                    lr.key.w[PP_ABI_PAGE_W] = pw ? pw : base_page + 2;
+                }
                 // reads copy read_value into written_value (helpers.rs)
                 lr.read = (do_sread || do_swrite) ? current_val : u256_zero();
                 lr.written = do_sread ? current_val
@@ -1239,7 +1447,7 @@ HD void emit_decommit_row(const K1Args &a, int b, int64_t step,
     L.dq_count += v;
 }
 
-template <bool kLog>
+template <bool kLog, bool kPrecomp>
 HD void k1_run_lane(const K1Args &a, int b) {
     Lane L;
     for (int r = 0; r < 15; r++) {
@@ -1286,8 +1494,13 @@ HD void k1_run_lane(const K1Args &a, int b) {
             // a frozen lane writes nothing but its all-zero rows
             for (int s = 0; s < SLOTS_PER_CYCLE; s++) slots[s].valid = false;
             lr.valid = dr.valid = false;
+            L.pq_emit = L.pq_nslots = 0;
         } else {
-            lane_cycle<kLog>(a, b, L, slots, lr, dr);
+            lane_cycle<kLog, kPrecomp>(a, b, c, L, slots, lr, dr);
+        }
+        if (kPrecomp && a.pq_capacity > 0) {
+            a.pq_emit_blk[(uint64_t)c * a.batch + b] = (int32_t)L.pq_emit;
+            a.pq_nslots_blk[(uint64_t)c * a.batch + b] = (int32_t)L.pq_nslots;
         }
         if (kLog && a.log_queue_capacity > 0)
             emit_log_row(a, b, step0 + c, lr, L);
@@ -1336,19 +1549,23 @@ HD void k1_run_lane(const K1Args &a, int b) {
 }
 
 #ifdef __CUDACC__
-template <bool kLog>
+template <bool kLog, bool kPrecomp>
 __global__ void __launch_bounds__(128) k1_kernel(const K1Args a) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b < a.batch) k1_run_lane<kLog>(a, b);
+    if (b < a.batch) k1_run_lane<kLog, kPrecomp>(a, b);
 }
 
+// the instance the config needs (models/fused_cycle.py k1_instance)
 extern "C" int eravm_k1_launch(const K1Args *args, void *stream) {
     const int threads = 128;
     const int blocks = (args->batch + threads - 1) / threads;
-    if (args->storage_slots > 0)
-        k1_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (args->storage_slots > 0 && args->keccak_blocks > 0)
+        k1_kernel<true, true><<<blocks, threads, 0, s>>>(*args);
+    else if (args->storage_slots > 0)
+        k1_kernel<true, false><<<blocks, threads, 0, s>>>(*args);
     else
-        k1_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+        k1_kernel<false, false><<<blocks, threads, 0, s>>>(*args);
     return (int)cudaGetLastError();
 }
 #endif

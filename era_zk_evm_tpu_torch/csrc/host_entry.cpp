@@ -1,5 +1,5 @@
-// Host (C++) build of the K1, K2 and K3 per-lane bodies, one lane after
-// another.
+// Host (C++) build of the K1 (all three instances), K2 and K3 per-lane
+// bodies, one lane after another.
 //
 // Not a runtime path: the port's wrappers take the kernels on CUDA tensors
 // and the plain torch versions on CPU tensors.  This entry lets the tests
@@ -11,10 +11,12 @@
 #include "keccak_f.cu"
 
 extern "C" int eravm_k1_host(const K1Args *a) {
-    // kLog iff the LOG unit is on, as eravm_k1_launch chooses
+    // the instance eravm_k1_launch chooses
     for (int b = 0; b < a->batch; b++) {
-        if (a->storage_slots > 0) k1_run_lane<true>(*a, b);
-        else k1_run_lane<false>(*a, b);
+        if (a->storage_slots > 0 && a->keccak_blocks > 0)
+            k1_run_lane<true, true>(*a, b);
+        else if (a->storage_slots > 0) k1_run_lane<true, false>(*a, b);
+        else k1_run_lane<false, false>(*a, b);
     }
     return 0;
 }

@@ -1,1 +1,2 @@
-"""Batched VM state, the plain cycle step, the kernel dispatcher."""
+"""Batched VM state, the plain cycle step, the kernel dispatcher, the
+lane-refill scheduler."""

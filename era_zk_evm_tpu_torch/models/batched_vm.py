@@ -8,9 +8,11 @@ with `storage_slots > 0` (the JAX engine's `log_enabled`), the LOG family
 (storage reads and writes with pubdata ergs, events and L1 messages, the
 journal and its rollback on a panicked pop) and FAR_CALL (code-hash storage
 read, decommit from the code bank, far frames with their heap pages), with
-the log and decommit witness queues.  The precompile units are left out:
-`log.precompile` sets `lane_error`, as the JAX engine does when they are
-off, and so do LOG and FAR_CALL when `storage_slots == 0`.
+the log and decommit witness queues; and, with `precompile_keccak_blocks >
+0` as well, the keccak256 and sha256 precompile units with the
+round-witness queue at its batch-global block clock.  Ecrecover is left
+out.  `log.precompile` sets `lane_error` while the units are off, as the
+JAX engine does, and so do LOG and FAR_CALL when `storage_slots == 0`.
 
 Every value is computed in int64 holding a u32 (or a bool), and the state
 fields are written back as int32.  `cycle_step` updates the state in place
@@ -30,8 +32,12 @@ from ..isa.opcodes import (
     UMAOp, decode_consts,
 )
 
-from ..config import CS, SLOTS_PER_CYCLE, VmConfig, check_slice
+from ..config import (
+    CS, SLOTS_PER_CYCLE, VmConfig, check_slice, precompile_queue_slots,
+)
 from ..ops import u256
+from ..ops.keccak import keccak_f1600_lanes
+from ..ops.sha256 import sha256_compress_batched, sha256_iv
 from ..ops.u256 import M32, narrow, wide
 from ..witness.rolling import rolling_absorb
 from .state import BatchedVmState
@@ -256,6 +262,174 @@ def far_call(state, config, src0, src0_tag, src1, vflag0, vflag1,
         next_this=_sel(fc_delegate, this_addr, addr5),
         next_sender=next_sender,
         next_u128=_sel(fc_delegate, frame_u128, wide(state.context_u128)))
+
+
+def _page_slot(state, config, page):
+    """(on the heap, on the aux heap, frame slot) of a page number: the
+    heap frames are matched first."""
+    frames = torch.arange(config.heap_frames, device=page.device)[None, :]
+    hm = wide(state.hp_page) == page[:, None]
+    am = wide(state.ap_page) == page[:, None]
+    on_h = hm.any(1)
+    slot = torch.where(on_h, (hm.to(I64) * frames).sum(1),
+                       (am.to(I64) * frames).sum(1))
+    return on_h, ~on_h & am.any(1), slot
+
+
+def _frame_word(state, config, on_h, slot, idx):
+    """Word `idx` of a lane's heap frame (on_h) or aux-heap frame `slot`;
+    an index outside the arena reads zeros."""
+    return _sel(on_h,
+                _word(state.heap, (slot * config.heap_words + idx) & M32),
+                _word(state.aux_heap, (slot * config.aux_heap_words + idx)
+                      & M32))
+
+
+def _keccak_unit(state, config, on, r_on_h, r_slot, in_off, in_len,
+                 kc_blocks, kc_last):
+    """keccak256 of each `on` lane's input bytes: a byte-stream sponge over
+    at most `precompile_keccak_blocks` 136-byte blocks with the padding
+    XORed in; the digest as one big-endian u256 (int64 limbs)."""
+    B, dev = config.batch, in_off.device
+    lanes = torch.zeros((25, B), dtype=I64, device=dev)
+    j = torch.arange(136, device=dev)[None, :]
+    for k in range(config.precompile_keccak_blocks):
+        blk_on = on & (k < kc_blocks)
+        base_byte = (in_off + k * 136) & M32
+        base_word = base_byte >> 5
+        window = torch.stack([
+            _frame_word(state, config, r_on_h, r_slot, (base_word + w) & M32)
+            for w in range(6)], dim=1).flip(-1)          # limbs high first
+        window_bytes = torch.stack([(window >> (8 * (3 - t))) & 0xFF
+                                    for t in range(4)], dim=-1).reshape(B, 192)
+        aligned = torch.gather(window_bytes, 1, (base_byte & 31)[:, None] + j)
+        g = j + k * 136
+        blk = torch.where(g < in_len[:, None], aligned, 0) \
+            ^ torch.where(g == in_len[:, None], 0x01, 0) \
+            ^ torch.where(g == kc_last[:, None], 0x80, 0)
+        b8 = blk.view(B, 17, 8)
+        rate = b8[:, :, 0]
+        for t in range(1, 8):
+            rate = rate | (b8[:, :, t] << (8 * t))      # u64 bit patterns
+        absorbed = lanes.clone()
+        absorbed[:17] ^= rate.T
+        lanes = torch.where(blk_on[None, :], keccak_f1600_lanes(absorbed),
+                            lanes)
+    digest = torch.stack([(lanes[i // 8] >> (8 * (i % 8))) & 0xFF
+                          for i in range(32)], dim=1)
+    return torch.stack([(digest[:, 28 - 4 * w] << 24)
+                        | (digest[:, 29 - 4 * w] << 16)
+                        | (digest[:, 30 - 4 * w] << 8) | digest[:, 31 - 4 * w]
+                        for w in range(8)], dim=1)
+
+
+def _sha_unit(state, config, on, r_on_h, r_slot, in_off, rounds):
+    """The sha256 state after each `on` lane's rounds (at most
+    max(precompile_sha_rounds, 1)), two input words per round, as one
+    big-endian u256 (int64 limbs)."""
+    st = sha256_iv(config.batch, in_off.device)
+    for k in range(max(config.precompile_sha_rounds, 1)):
+        r_on = on & (k < rounds)
+        w0 = _frame_word(state, config, r_on_h, r_slot, (in_off + 2 * k) & M32)
+        w1 = _frame_word(state, config, r_on_h, r_slot,
+                         (in_off + 2 * k + 1) & M32)
+        blk = narrow(torch.cat([w0.flip(1), w1.flip(1)], dim=1), torch.int32)
+        st = torch.where(r_on[:, None], sha256_compress_batched(st, blk), st)
+    return wide(st.flip(1))
+
+
+def precompile_unit(state, config, src0, this_addr, do_precomp, heap_page,
+                    ts_log) -> dict:
+    """The keccak256 / sha256 precompile unit of one cycle (log.rs:252-328
+    and the reference's precompile processor), before any write: ABI
+    decode, the page-slot lookups, the sponge or the rounds, the output word
+    and the lane's row block of the round-witness queue.  The heavy parts
+    run only when some lane calls a unit.  Returns the values the rest of
+    the cycle reads, by name; `pq_rows` is None without a queue."""
+    B, dev = config.batch, src0.device
+    lane_error = torch.zeros_like(do_precomp)
+    in_off, in_len, out_off = src0[:, 0], src0[:, 1], src0[:, 2]
+    page_r = torch.where(src0[:, 4] == 0, heap_page, src0[:, 4])
+    page_w = torch.where(src0[:, 5] == 0, heap_page, src0[:, 5])
+    rounds = src0[:, 6]
+    addr16 = this_addr[:, 0] & M16
+    is_keccak = do_precomp & (
+        addr16 == params.KECCAK256_ROUND_FUNCTION_PRECOMPILE_ADDRESS)
+    is_sha = do_precomp & (
+        addr16 == params.SHA256_ROUND_FUNCTION_PRECOMPILE_ADDRESS)
+    pp_any = is_keccak | is_sha
+    key = src0.clone()
+    key[:, 4], key[:, 5] = page_r, page_w
+    out = dict(lane_error=lane_error, key=key, any=bool(pp_any.any()),
+               pq_rows=None)
+
+    kc_blocks = in_len // 136 + 1
+    r_on_h, r_on_a, r_slot = _page_slot(state, config, page_r)
+    w_on_h, w_on_a, w_slot = _page_slot(state, config, page_w)
+    z8 = torch.zeros((B, 8), dtype=I64, device=dev)
+    out_val = z8
+    if out["any"]:
+        lane_error |= pp_any & ~(r_on_h | r_on_a)
+        lane_error |= pp_any & ~(w_on_h | w_on_a)
+        lane_error |= is_keccak & (kc_blocks > config.precompile_keccak_blocks)
+        lane_error |= is_sha & (rounds > max(config.precompile_sha_rounds, 1))
+        if bool(is_keccak.any()):
+            out_val = _keccak_unit(state, config, is_keccak, r_on_h, r_slot,
+                                   in_off, in_len, kc_blocks,
+                                   (kc_blocks * 136 - 1) & M32)
+        if bool(is_sha.any()):
+            out_val = _sel(is_sha, _sha_unit(state, config, is_sha, r_on_h,
+                                             r_slot, in_off, rounds), out_val)
+        hw_ok = out_off < torch.where(w_on_h, config.heap_words,
+                                      config.aux_heap_words)
+        lane_error |= pp_any & ~hw_ok
+        out.update(out_val=out_val, out_off=out_off, w_slot=w_slot,
+                   write_h=pp_any & w_on_h & hw_ok,
+                   write_a=pp_any & w_on_a & hw_ok)
+
+    cap = config.precompile_queue_capacity
+    if cap:
+        # the round-witness rows, at the batch-global block clock: every
+        # cycle writes its block (all zero when no lane emitted) at
+        # min(blocks * PS, cap - PS), and advances the clock when any lane
+        # ran a unit
+        ps_in, ps_out = precompile_queue_slots(config)
+        ps = ps_in + ps_out
+        blocks0 = int(state.pq_blocks.min())
+        overflow = blocks0 * ps > cap - ps
+        emit = pp_any & (not overflow)
+        lane_error |= pp_any & overflow
+        meta = torch.zeros((B, ps, 4), dtype=I64, device=dev)
+        value = torch.zeros((B, ps, 8), dtype=I64, device=dev)
+        flags = torch.zeros((B, ps), dtype=I64, device=dev)
+        first_word = torch.where(is_keccak, in_off >> 5, in_off)
+        kq_words = torch.where(
+            in_len == 0, 0,
+            ((((in_off + in_len - 1) & M32) >> 5) - (in_off >> 5) + 1) & M32)
+        n_words = torch.where(is_keccak, kq_words,
+                              torch.where(is_sha, (2 * rounds) & M32, 4))
+        rounds_q = torch.where(is_keccak, kc_blocks,
+                               torch.where(is_sha, rounds, 1))
+        lane_error |= emit & (n_words > ps_in)
+        if bool(emit.any()):
+            for i in range(ps_in):
+                v = emit & (i < n_words)
+                idx = (first_word + i) & M32
+                meta[:, i] = torch.stack([ts_log, torch.full_like(ts_log, 3),
+                                          page_r, idx], dim=1) * v[:, None]
+                value[:, i] = _frame_word(state, config, r_on_h, r_slot,
+                                          idx) * v[:, None]
+                flags[:, i] = 4 * v
+            meta[:, ps_in] = torch.stack(
+                [(ts_log + 1) & M32, torch.ones_like(ts_log), page_w,
+                 out_off], dim=1) * emit[:, None]
+            value[:, ps_in] = out_val * emit[:, None]
+            flags[:, ps_in] = (5 | ((rounds_q << 3) & M32)) * emit
+        out.update(pq_rows=(meta, value, flags),
+                   pq_base=min(blocks0 * ps, cap - ps),
+                   pq_count=torch.where(emit, n_words + 1, 0),
+                   pq_blocks=int(out["any"]))
+    return out
 
 
 def cycle_step(state: BatchedVmState, config: VmConfig,
@@ -512,12 +686,15 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
     is_ret = opcode == OP.RET
     is_uma = opcode == OP.UMA
     is_log = opcode == OP.LOG
-    # the precompile units are outside the slice
+    # without their units, LOG / FAR_CALL and log.precompile are errors
     log_enabled = config.storage_slots > 0
-    if log_enabled:
+    precompile_enabled = log_enabled and config.precompile_keccak_blocks > 0
+    if not log_enabled:
+        unsupported = (opcode == OP.FAR_CALL) | is_log
+    elif not precompile_enabled:
         unsupported = is_log & (sub_variant == LogOp.PRECOMPILE_CALL)
     else:
-        unsupported = (opcode == OP.FAR_CALL) | is_log
+        unsupported = torch.zeros_like(is_log)
     lane_error |= active & unsupported
 
     sum_val, carry = u256.add(src0, src1)
@@ -796,6 +973,13 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
         _put_rows(state.ev_val, ev_count, src1, do_event)
         _put_rows(state.ev_meta, ev_count, ev_meta_row, do_event)
         new_ev_count = ev_count + do_event.to(I64)
+
+    # -------------------------------------------------- precompile units
+    pp = None
+    if precompile_enabled:
+        pp = precompile_unit(state, config, src0, this_addr, do_precomp,
+                             heap_page, ts_log)
+        lane_error |= pp["lane_error"]
 
     # -------------------------------------------------------- near call
     nc_abi = src0[:, 0]
@@ -1097,6 +1281,22 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
     _put_word(state.aux_heap, (a_base + word0) & M32, new_w0, w_aux0)
     _put_word(state.aux_heap, (a_base + word1) & M32, new_w1,
               w_aux0 & is_unaligned)
+    if pp is not None and pp["any"]:
+        # the precompile's output word
+        _put_word(state.heap, (pp["w_slot"] * config.heap_words
+                               + pp["out_off"]) & M32, pp["out_val"],
+                  pp["write_h"])
+        _put_word(state.aux_heap, (pp["w_slot"] * config.aux_heap_words
+                                   + pp["out_off"]) & M32, pp["out_val"],
+                  pp["write_a"])
+    if pp is not None and pp["pq_rows"] is not None:
+        base, ps = pp["pq_base"], pp["pq_rows"][2].shape[1]
+        for arr, rows in zip((state.pq_meta, state.pq_value, state.pq_flags),
+                             pp["pq_rows"]):
+            arr[:, base:base + ps] = narrow(rows, torch.int32)
+        state.pq_count.copy_(narrow((wide(state.pq_count) + pp["pq_count"])
+                                    & M32, torch.int32))
+        state.pq_blocks += pp["pq_blocks"]
 
     # ============================================= memory witness slots
     if config.queue_capacity > 0 or config.rolling_commitment:
@@ -1185,7 +1385,9 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
         written_row = _sel(do_sread, current_val,
                            _sel(do_swrite | do_event, src1, z8))
         addr_row = _sel(fc_do_sread, _deployer5(src0), this_addr)
-        key_row = _sel(fc_do_sread, _cat_zero(fc["addr5"]), src0)
+        key_row = _sel(fc_do_sread, _cat_zero(fc["addr5"]),
+                       src0 if pp is None else _sel(do_precomp, pp["key"],
+                                                    src0))
         read_row = _sel(fc_do_sread, fc["hash_storage"], read_row)
         written_row = _sel(fc_do_sread, fc["hash_storage"], written_row)
         for arr, row in ((state.lq_meta, meta_row), (state.lq_addr, addr_row),

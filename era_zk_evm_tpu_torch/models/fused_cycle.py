@@ -3,15 +3,20 @@
 The counterpart of `era_zk_evm_tpu/models/fused_cycle.py::run_cycles_fused`
 for the ported slice, storage-enabled configs included (K1 then also reads
 and writes the storage, journal, event, code-bank, frame and log / decommit
-queue tensors).  `run_cycles` runs `n_cycles` in chunks of `k_inner`:
-each chunk is one K1 launch (`cycle_chunk`) and, with the rolling
-commitment on, one K2 launch (`rolling_fold`) over the chunk's slot block.
+queue tensors) and the keccak256 / sha256 precompile units.  `run_cycles`
+runs `n_cycles` in chunks of `k_inner`: each chunk is one K1 launch
+(`cycle_chunk`) and, with the rolling commitment on, one K2 launch
+(`rolling_fold`) over the chunk's slot block.  With a precompile queue, K1
+writes each cycle's round-witness rows into a chunk scratch block and
+`splice_precompile_rows` moves them into the queue at the batch-global
+block clock, in torch ops on the device, without a host sync.
 
 Each wrapper takes its kernel for CUDA tensors and its plain torch version
 for CPU tensors: `models/batched_vm.cycle_step` for K1,
 `witness/rolling.rolling_absorb` for K2.  On a CUDA tensor a wrapper
 launches its kernel or raises; there is no fallback.  `K1_LAUNCHES` and
-`K2_LAUNCHES` count kernel launches (never plain-version calls).
+`K2_LAUNCHES` count kernel launches (never plain-version calls);
+`K1_PRECOMPILE_LAUNCHES` counts the K1 launches of the precompile instance.
 """
 
 from __future__ import annotations
@@ -20,14 +25,25 @@ import ctypes
 
 import torch
 
-from ..config import CS_SCALAR_FIELDS, SLOTS_PER_CYCLE, VmConfig, check_slice
+from ..config import (
+    CS_SCALAR_FIELDS, SLOTS_PER_CYCLE, VmConfig, check_slice,
+    precompile_queue_slots,
+)
 from ..isa import params
 from ..witness.rolling import rolling_absorb
 from . import batched_vm
 from .state import BOOL_FIELDS, BatchedVmState
 
 K1_LAUNCHES = 0
+K1_PRECOMPILE_LAUNCHES = 0
 K2_LAUNCHES = 0
+
+
+def precompile_instance(config: VmConfig) -> bool:
+    """Whether K1 runs its precompile instance (kPrecomp): the units are on
+    when the LOG unit is and `precompile_keccak_blocks > 0`, as in the JAX
+    engines."""
+    return config.storage_slots > 0 and config.precompile_keccak_blocks > 0
 
 
 def _k1_fields(config: VmConfig) -> list[tuple[str, str, tuple]]:
@@ -106,11 +122,74 @@ def new_slot_block(config: VmConfig, k_cycles: int,
                                              k_cycles * SLOTS_PER_CYCLE))
 
 
+def _pq_rows_in_kernel(config: VmConfig) -> bool:
+    return precompile_instance(config) and config.precompile_queue_capacity > 0
+
+
+def _pq_block_shapes(config: VmConfig, k_cycles: int):
+    ps = sum(precompile_queue_slots(config))
+    B = config.batch
+    return ((k_cycles, ps, 4, B), (k_cycles, ps, 8, B), (k_cycles, ps, B),
+            (k_cycles, B), (k_cycles, B))
+
+
+def new_pq_block(config: VmConfig, k_cycles: int,
+                 device: torch.device | str) -> tuple | None:
+    """Scratch (meta, value, flags, emit, nslots) for one chunk's
+    round-witness rows, or None when K1 writes none.  K1 writes every
+    cycle's emit and nslots rows, and row blocks only where a lane emits:
+    the splice reads nothing else."""
+    if not _pq_rows_in_kernel(config):
+        return None
+    return tuple(torch.empty(s, dtype=torch.int32, device=device)
+                 for s in _pq_block_shapes(config, k_cycles))
+
+
+def splice_precompile_rows(state: BatchedVmState, config: VmConfig,
+                           pq_block: tuple, n: int) -> None:
+    """Move the round-witness rows of a chunk's first n cycles from
+    `pq_block` into the state's precompile queue, in place.
+
+    The queue's block clock is batch-global: a cycle in which any lane ran
+    a unit is flagged, and flagged cycles take consecutive blocks of PS
+    rows from `pq_blocks`.  As in the JAX engine, every cycle writes the
+    block at min(pos * PS, cap - PS) (all zero rows unless it is flagged and
+    fits), a cycle whose block would pass the capacity drops its rows, sets
+    `lane_error` on its emitting lanes and credits them no `pq_count`, and
+    the clock advances by the flagged cycles.  Cycles that share a block
+    position all write the rows of the last of them, so the scatter's
+    duplicates agree.  Torch ops on the state's device; nothing waits for
+    the host."""
+    meta, value, flags, emit, nslots = (x[:n] for x in pq_block)
+    B, ps = config.batch, meta.shape[1]
+    cap = config.precompile_queue_capacity
+    emitting = emit != 0                                   # [n, B]
+    flagged = emitting.any(1).to(torch.int64)              # [n]
+    pos = state.pq_blocks.min().to(torch.int64) + torch.cumsum(flagged, 0) \
+        - flagged
+    overflow = pos * ps > cap - ps
+    base = torch.clamp(pos * ps, max=cap - ps)
+    last = torch.searchsorted(base, base, right=True) - 1  # last cycle at base
+    keep = (emitting & ~overflow[:, None])[last]           # [n, B]
+    rows = (base[:, None] + torch.arange(ps, device=base.device)).reshape(-1)
+    state.pq_meta[:, rows] = (meta[last] * keep[:, None, None, :]) \
+        .permute(3, 0, 1, 2).reshape(B, n * ps, 4)
+    state.pq_value[:, rows] = (value[last] * keep[:, None, None, :]) \
+        .permute(3, 0, 1, 2).reshape(B, n * ps, 8)
+    state.pq_flags[:, rows] = (flags[last] * keep[:, None, :]) \
+        .permute(2, 0, 1).reshape(B, n * ps)
+    state.lane_error |= (emitting & overflow[:, None]).any(0)
+    state.pq_count += (nslots * ~overflow[:, None]).sum(0, dtype=torch.int32)
+    state.pq_blocks += flagged.sum().to(torch.int32)
+
+
 def k1_args(state: BatchedVmState, config: VmConfig, k_cycles: int, n: int,
-            block: tuple | None, step0: torch.Tensor):
+            block: tuple | None, step0: torch.Tensor,
+            pq_block: tuple | None = None):
     """The K1Args struct for one launch, after checking every tensor's
     device, dtype, shape and contiguity.  `step0` is a 0-dim int32 tensor
-    holding min(global_step), read by the kernel."""
+    holding min(global_step), read by the kernel; `pq_block` is the
+    round-witness scratch (`new_pq_block`) when K1 writes one."""
     from .._build import K1Args
 
     device = state.done.device
@@ -134,6 +213,22 @@ def k1_args(state: BatchedVmState, config: VmConfig, k_cycles: int, n: int,
         setattr(args, arg_name, _check(t, arg_name, shape, torch.int32,
                                        device))
     args.step0 = ctypes.c_void_p(step0.data_ptr())
+    if _pq_rows_in_kernel(config) != (pq_block is not None):
+        raise ValueError("the round-witness scratch block is needed exactly "
+                         "when K1 runs the precompile units with a queue")
+    if pq_block is not None:
+        if pq_block[0].shape[0] < n:
+            raise ValueError("round-witness block shorter than the chunk")
+        shapes = _pq_block_shapes(config, pq_block[0].shape[0])
+        for arg_name, t, shape in zip(
+                ("pq_meta_blk", "pq_value_blk", "pq_flags_blk", "pq_emit_blk",
+                 "pq_nslots_blk"), pq_block, shapes):
+            setattr(args, arg_name, _check(t, arg_name, shape, torch.int32,
+                                           device))
+    args.keccak_blocks = config.precompile_keccak_blocks
+    args.sha_rounds = config.precompile_sha_rounds
+    args.pq_slots_in = precompile_queue_slots(config)[0]
+    args.pq_capacity = config.precompile_queue_capacity
     args.batch = config.batch
     args.max_depth = config.max_depth
     args.code_words = config.code_words
@@ -158,15 +253,17 @@ def k1_args(state: BatchedVmState, config: VmConfig, k_cycles: int, n: int,
 
 
 def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
-                k_stop: int | None = None,
-                block: tuple | None = None) -> BatchedVmState:
+                k_stop: int | None = None, block: tuple | None = None,
+                pq_block: tuple | None = None) -> BatchedVmState:
     """K1: run min(k_cycles, k_stop) cycles of every lane, in place.
 
     Mode (a) writes each cycle's 8 memory-query slots into the persistent
     queue (`wq_*`); mode (b) writes them to rows `c * 8` of `block` (see
-    `new_slot_block`) for `rolling_fold`.
+    `new_slot_block`) for `rolling_fold`.  With the precompile units and
+    their queue, the round-witness rows go through `pq_block` (allocated
+    here when not given) and `splice_precompile_rows`.
     """
-    global K1_LAUNCHES
+    global K1_LAUNCHES, K1_PRECOMPILE_LAUNCHES
     check_slice(config)
     n = k_cycles if k_stop is None else min(k_cycles, k_stop)
     if config.rolling_commitment and block is None:
@@ -184,13 +281,18 @@ def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
 
     from .._build import load
 
+    if pq_block is None:
+        pq_block = new_pq_block(config, n, device)
     step0 = state.global_step.min()   # stays on the device: no host sync
-    args = k1_args(state, config, k_cycles, n, block, step0)
+    args = k1_args(state, config, k_cycles, n, block, step0, pq_block)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = load().eravm_k1_launch(ctypes.byref(args), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     K1_LAUNCHES += 1
+    K1_PRECOMPILE_LAUNCHES += precompile_instance(config)
+    if pq_block is not None:
+        splice_precompile_rows(state, config, pq_block, n)
     return state
 
 
@@ -231,17 +333,20 @@ def run_cycles(state: BatchedVmState, config: VmConfig, n_cycles: int,
 
     The drop-in counterpart of `run_cycles_fused`: on a CUDA state every
     chunk is a K1 launch (and a K2 launch in rolling mode); on a CPU state
-    the same chunks run the plain versions.
+    the same chunks run the plain versions.  Any `n_cycles` runs the same
+    kernel, so this also serves the scheduler's dynamic-length chunks.
     """
     check_slice(config)
-    block = None
+    device = state.done.device
+    block = pq_block = None
     if config.rolling_commitment:
-        block = new_slot_block(config, min(k_inner, n_cycles),
-                               state.done.device)
+        block = new_slot_block(config, min(k_inner, n_cycles), device)
+    if device.type == "cuda":
+        pq_block = new_pq_block(config, min(k_inner, n_cycles), device)
     done = 0
     while done < n_cycles:
         k = min(k_inner, n_cycles - done)
-        cycle_chunk(state, config, k, k, block)
+        cycle_chunk(state, config, k, k, block, pq_block)
         if block is not None:
             rolling_fold(state.wc_state, state.wc_count, block,
                          k * SLOTS_PER_CYCLE)

@@ -7,7 +7,8 @@ from __future__ import annotations
 
 from .state import BatchedVmState
 
-_QUEUE_FIELDS = (
+#: the witness-queue tensors and their clocks, which a rewind zeroes
+QUEUE_FIELDS = (
     "global_step",                                   # the block clock
     "wq_count", "wq_meta", "wq_value", "wq_flags",
     "lq_count", "lq_meta", "lq_addr", "lq_key", "lq_read", "lq_written",
@@ -23,6 +24,6 @@ def rewind_queues(state: BatchedVmState) -> BatchedVmState:
     where they lie, so a chained call reuses their memory.  Timestamps keep
     counting and the rolling sponge (`wc_*`) is kept.
     """
-    for name in _QUEUE_FIELDS:
+    for name in QUEUE_FIELDS:
         getattr(state, name).zero_()
     return state

@@ -12,7 +12,8 @@ a kernel that runs one thread per lane.
 `populate_code_bank` build the state in numpy exactly as the JAX package
 does, then move it to the device.  Every builder puts the state on the card
 (`torch.device("cuda")`) unless the caller asks for another device; without
-a card, a CUDA build raises.
+a card, a CUDA build raises.  Uploads to the card go through pinned memory
+and do not wait for the work already queued on the device.
 """
 
 from __future__ import annotations
@@ -185,6 +186,16 @@ def _empty_numpy(config: VmConfig) -> dict[str, np.ndarray]:
     return st
 
 
+def to_device(a: np.ndarray, device: torch.device | str) -> torch.Tensor:
+    """A tensor on `device` with a copy of `a`.  To the card the copy goes
+    through pinned memory without waiting for the work queued there (a
+    plain `.to` would synchronise the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone().to(device)
+
+
 def state_from_numpy(arrays: dict,
                      device: torch.device | str = DEFAULT_DEVICE
                      ) -> BatchedVmState:
@@ -198,7 +209,7 @@ def state_from_numpy(arrays: dict,
             a = a.astype(bool)
         elif a.dtype != np.int32:
             a = a.astype(np.uint32).view(np.int32)
-        out[name] = torch.from_numpy(a.copy()).to(device)
+        out[name] = to_device(a, device)
     return BatchedVmState(**out)
 
 
@@ -240,6 +251,20 @@ def make_entry_state(config: VmConfig, programs: list[list[int]],
     """Load one bytecode (code-word list) per lane and push a
     bootloader-style entry frame; the same arguments and result as
     `era_zk_evm_tpu.models.state.make_entry_state`."""
+    return state_from_numpy(entry_arrays(
+        config, programs, ergs, entry_address, heap_init, is_static,
+        base_page, calldata, context_u128), device)
+
+
+def entry_arrays(config: VmConfig, programs: list[list[int]],
+                 ergs: int = 1 << 27,
+                 entry_address: int | list[int] = 0x8001,
+                 heap_init: list[list[int]] | None = None,
+                 is_static: bool = False,
+                 base_page: int = 8,
+                 calldata: list[list[int] | None] | None = None,
+                 context_u128: int | list[int] = 0) -> dict[str, np.ndarray]:
+    """The numpy arrays of `make_entry_state`, by field name."""
     B = config.batch
     assert len(programs) == B
     st = _empty_numpy(config)
@@ -309,7 +334,7 @@ def make_entry_state(config: VmConfig, programs: list[list[int]],
     # root frame keeps VM_INITIAL_FRAME_ERGS - ergs
     sc[:, 0, CS["ergs_remaining"]] = params.VM_INITIAL_FRAME_ERGS - ergs
     st["depth"][:] = 1
-    return state_from_numpy(st, device)
+    return st
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -322,7 +347,7 @@ def _put(t: torch.Tensor, a: np.ndarray) -> None:
     """Overwrite tensor `t` in place with numpy data of the same bits."""
     if a.dtype != bool:
         a = np.ascontiguousarray(a).astype(np.uint32).view(np.int32)
-    t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    t.copy_(to_device(a, t.device))
 
 
 def populate_code_bank(state: BatchedVmState, config: VmConfig,
@@ -389,5 +414,5 @@ def populate_storage(state: BatchedVmState, config: VmConfig,
     _put(state.st_key, keys)
     _put(state.st_val, vals)
     _put(state.st_used, used)
-    state.st_count.copy_(torch.from_numpy(counts))
+    state.st_count.copy_(to_device(counts, state.st_count.device))
     return state

@@ -8,7 +8,8 @@ the delegate set :130-154, `PTR_FWD_*` :194-271, `REVERTDATA_CONTRACT` :273,
 the two edge callers :412-475), and the rollback, pubdata and bad-hash
 programs of `tests/test_fused_cycle.py:249-318`.  `tests/test_torch_log.py`
 holds every copy equal to its source.  `PRECOMPILE_OFF` is the port's own:
-a `log.precompile` with the precompile units off, which sets `lane_error`.
+a `log.precompile` under a config with the precompile units off, which sets
+`lane_error`.
 
 `RUNS` groups them into two 16-lane runs, each set's lanes with their own
 storage entries and code bank; `stage` assembles a run.
@@ -551,8 +552,10 @@ UNALIGNED_CALLEE = [(0x30011, """
     ret r0
 """)]
 
-# the port's own: a precompile call from kernel space with the precompile
-# units off, which sets lane_error (and still spends ergs and logs a row)
+# the port's own: a precompile call from kernel space under a config whose
+# precompile units are off (precompile_keccak_blocks == 0), which sets
+# lane_error and still spends ergs and logs a row; testing/block_programs.py
+# has the programs that run the units
 PRECOMPILE_OFF = """
     add 17, r0, r4
     add 40, r0, r1

@@ -11,6 +11,10 @@ The port of `era_zk_evm_tpu/witness/packed.py`:
     slot) order), then rewinds the queues in place; `fetch_dense_records`
     and `fetch_compacted_rows` bring the records to the host, and
     `split_records_by_lane` / `split_compacted_by_lane` cut them per lane;
+  * `drain_witness_queues_packed_async` is the same drain with the copies
+    to the host started and nothing waited for (`AsyncDrain`), for the
+    scheduler's deferred resolve; `log_join_columns` reads the net-state
+    join columns from packed log records;
   * `commit_packed_streams` computes per-stream keccak256 digests with a
     ragged sponge: each 136-byte block is XORed into the states in torch and
     the states permute in place through `ops.keccak.keccak_f1600_` (K3 on
@@ -175,6 +179,97 @@ def _u32(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().view(np.uint32)
 
 
+def _valid_rows(name: str, count: int, budget: int) -> int:
+    """The rows of a compacted drain to transfer: `count` rounded up to a
+    power of two and clipped to the budget; raises on overflow."""
+    if count > budget:
+        raise RuntimeError(
+            f"compacted drain overflow ({name}): {count} valid records "
+            f"vs a {budget}-row transfer budget; raise compact_frac")
+    n = 1
+    while n < max(count, 1):
+        n *= 2
+    return min(n, budget)
+
+
+class HostCopy:
+    """Tensors ({name: tuple of tensors}) on their way to the host: on the
+    card, non_blocking copies into pinned buffers behind one CUDA event;
+    on the CPU, the tensors themselves."""
+
+    def __init__(self, tensors: dict):
+        self.event = None
+        self.host = tensors
+        devices = {t.device.type for ts in tensors.values() for t in ts}
+        if devices == {"cuda"}:
+            self.host = {name: tuple(self._pinned(t) for t in ts)
+                         for name, ts in tensors.items()}
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    @staticmethod
+    def _pinned(t: torch.Tensor) -> torch.Tensor:
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return out.copy_(t, non_blocking=True)
+
+    def wait(self) -> dict:
+        """The host tensors, once their copies have landed."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host
+
+
+class AsyncDrain:
+    """A packed drain on its way to the host.  Dense: the records' copies
+    start at once.  Compacted: the per-lane and total counts' copies start
+    at once; `start_rows` then copies only the valid rows (once the counts
+    are there) and lets the device budget arrays go."""
+
+    def __init__(self, packed: dict, compact: bool):
+        self.compact = compact
+        self._rows, self._rows_copy = None, None
+        if compact:
+            self._rows = {name: rows for name, (rows, _, _) in packed.items()}
+            self._copy = HostCopy({name: (lc, c) for name, (_, lc, c)
+                                   in packed.items()})
+        else:
+            self._copy = HostCopy(packed)
+
+    def start_rows(self) -> None:
+        if not self.compact or self._rows_copy is not None:
+            return
+        counts = self._copy.wait()
+        self._rows_copy = HostCopy({
+            name: (rows[:_valid_rows(name, int(counts[name][1]),
+                                     rows.shape[0])],)
+            for name, rows in self._rows.items()})
+        self._rows = None
+
+    def result(self) -> dict:
+        """The drain on the host, as `fetch_dense_records` or
+        `fetch_compacted_rows` return it."""
+        if not self.compact:
+            return {name: (words.numpy().view(np.uint32), valid.numpy())
+                    for name, (words, valid) in self._copy.wait().items()}
+        self.start_rows()
+        rows, counts = self._rows_copy.wait(), self._copy.wait()
+        return {name: (rows[name][0].numpy().view(np.uint32),
+                       counts[name][0].numpy(), np.int32(int(counts[name][1])))
+                for name in rows}
+
+
+def drain_witness_queues_packed_async(state: BatchedVmState, config,
+                                      compact_frac: float | dict | None = None
+                                      ) -> tuple[BatchedVmState, AsyncDrain]:
+    """`drain_witness_queues_packed` without waiting for the host: the
+    serialization, compaction and rewind are queued on the device, the
+    copies to pinned host buffers started; nothing blocks.  Resolve with
+    `AsyncDrain.result()`, which waits for the copies and does not copy
+    again."""
+    state, packed = drain_witness_queues_packed(state, config, compact_frac)
+    return state, AsyncDrain(packed, compact_frac is not None)
+
+
 def fetch_dense_records(packed: dict) -> dict:
     """A dense drain on the host: {family: (words uint32[B, Q, W], valid
     bool[B, Q])}."""
@@ -192,15 +287,7 @@ def fetch_compacted_rows(packed: dict) -> dict:
     out = {}
     for name, (rows, lane_counts, count) in packed.items():
         c = int(count)
-        budget = rows.shape[0]
-        if c > budget:
-            raise RuntimeError(
-                f"compacted drain overflow ({name}): {c} valid records "
-                f"vs a {budget}-row transfer budget; raise compact_frac")
-        n = 1
-        while n < max(c, 1):
-            n *= 2
-        out[name] = (_u32(rows[:min(n, budget)]),
+        out[name] = (_u32(rows[:_valid_rows(name, c, rows.shape[0])]),
                      lane_counts.cpu().numpy(), np.int32(c))
     return out
 
@@ -360,3 +447,21 @@ def block_grand_product(products: list[int]) -> int:
     for gp in products:
         acc = acc * gp % GOLDILOCKS_P
     return acc
+
+
+def log_join_columns(words: np.ndarray):
+    """Vectorized (timestamp, address, shard) columns from packed log
+    records, the net-state join inputs (models/net_states), without query
+    objects."""
+    def bsv(col):
+        c = col.astype(np.uint32)
+        return ((c & 0xFF) << 24) | ((c & 0xFF00) << 8) \
+            | ((c >> 8) & 0xFF00) | (c >> 24)
+
+    ts = bsv(words[:, 0])
+    shard = (words[:, 1] >> 8) & 0xFF
+    address = np.zeros(words.shape[0], dtype=object)
+    for i in range(5):
+        address = address + (bsv(words[:, 3 + i]).astype(object)
+                             << (32 * (4 - i)))
+    return ts, address, shard

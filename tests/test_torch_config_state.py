@@ -73,7 +73,7 @@ def test_from_jax_config_round_trip():
 
 
 @pytest.mark.parametrize("kw", [
-    {"storage_slots": 4, "precompile_sha_rounds": 1},
+    {"precompile_sha_rounds": 1},                   # units without LOG
     {"storage_slots": 4, "precompile_queue_capacity": 8},
     {"storage_slots": 4, "precompile_ecrecover": True},
     {"precompile_keccak_blocks": 1},

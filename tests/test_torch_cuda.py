@@ -1,5 +1,5 @@
-"""K1 (both instances), K2 and K3 against their plain versions on a CUDA
-card.
+"""K1 (all three instances), K2 and K3 against their plain versions on a
+CUDA card, and execute_block on the card against the same call on the CPU.
 
 Imports no jax, so it also runs on the GPU machine, where the suite's
 conftest (which configures jax) cannot load:
@@ -15,7 +15,8 @@ from era_zk_evm_tpu_torch.config import VmConfig
 from era_zk_evm_tpu_torch.models import batched_vm, fused_cycle
 from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.ops import keccak
-from era_zk_evm_tpu_torch.testing import log_programs, programs
+from era_zk_evm_tpu_torch import block
+from era_zk_evm_tpu_torch.testing import block_programs, log_programs, programs
 from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb
 
 
@@ -117,3 +118,65 @@ def test_k3_matches_plain(cuda, iters):
     assert keccak.keccak_f1600_(inplace, iters) is inplace
     assert keccak.K3_LAUNCHES == before + 2
     assert torch.equal(inplace.cpu(), got.cpu())
+
+
+def _precompile_config(batch, chunk=32):
+    # tests/test_torch_precompile.py::precompile_config
+    return VmConfig(batch=batch, code_words=32, stack_words=256,
+                    stack_abs_words=64, stack_sp_base=960, heap_words=32,
+                    aux_heap_words=16, max_depth=8, queue_capacity=4 * chunk * 8,
+                    storage_slots=8, journal_slots=64, event_slots=16,
+                    log_queue_capacity=4 * chunk, heap_frames=2, code_pages=2,
+                    decommit_queue_capacity=4 * chunk,
+                    precompile_keccak_blocks=2, precompile_sha_rounds=2,
+                    precompile_queue_capacity=chunk * 11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_inner", [5, 32])
+def test_k1_precompile_matches_plain(cuda, k_inner):
+    # the kPrecomp instance and the round-witness splice on the precompile
+    # programs and the precompile mix, 96 cycles
+    lanes = list(block_programs.PRECOMPILE_LANES) + [
+        (e, src) for e, src, *_ in block_programs.precompile_mix(17, seed=3)]
+    config = _precompile_config(len(lanes))
+    ks = pstate.make_entry_state(
+        config, [programs.assemble(src) for _, src in lanes], ergs=1 << 20,
+        entry_address=[e for e, _ in lanes], device=cuda)
+    ps = pstate.clone_state(ks)
+    before = fused_cycle.K1_PRECOMPILE_LAUNCHES
+    fused_cycle.run_cycles(ks, config, 96, k_inner=k_inner)
+    assert fused_cycle.K1_PRECOMPILE_LAUNCHES - before == -(-96 // k_inner)
+    batched_vm.run_cycles(ps, config, 96)
+    a, b = pstate.state_to_numpy(ks), pstate.state_to_numpy(ps)
+    bad = [k for k in a if not (a[k] == b[k]).all()]
+    assert not bad, f"kernel/plain mismatch in fields: {bad}"
+    assert ks.pq_count.any()
+
+
+@pytest.mark.cuda
+def test_execute_block_on_the_card_matches_the_cpu(cuda):
+    txs = [block.TxSpec(program=programs.assemble(src), ergs=1 << 22,
+                        entry_address=entry, cost_hint=n)
+           for entry, src, n, _ in block_programs.precompile_mix(40, seed=3)]
+    kw = dict(chunk=32, order="cost_desc", refill_frac=0.25,
+              tail_chunk_mult=1, adaptive_chunk=True,
+              drain_compact_frac={"memory": 0.5, "log": 0.5, "decommit": 0.5,
+                                  "precompile": 0.5})
+    config = _precompile_config(8)
+    before = fused_cycle.K1_PRECOMPILE_LAUNCHES
+    got = block.execute_block(config, txs, device=cuda, **kw)
+    assert fused_cycle.K1_PRECOMPILE_LAUNCHES > before
+    want = block.execute_block(config, txs, device="cpu", **kw)
+    assert got.all_ok and want.all_ok
+    for a, b in zip(want.txs, got.txs):
+        assert (a.tx, a.status, a.cycles) == (b.tx, b.status, b.cycles)
+        assert (a.registers == b.registers).all()
+        assert sorted(a.streams) == sorted(b.streams)
+        for name in a.streams:
+            assert (a.streams[name] == b.streams[name]).all()
+        assert a.net_states == b.net_states
+    assert want.tx_commitments == got.tx_commitments
+    assert want.commitments == got.commitments
+    assert want.sorted_log_products == got.sorted_log_products
+    assert want.block_log_product == got.block_log_product

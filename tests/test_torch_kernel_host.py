@@ -3,12 +3,14 @@ against the port's plain torch versions, bit for bit.
 
 The wrappers never take this build (on CPU tensors they run the plain
 versions); it checks the kernel sources' lane logic where no card or nvcc
-exists: K1's memory-witness body and its storage-enabled (kLog) body, K2's
-fold and K3's chained permutation.  The kernels themselves are held against
+exists: K1's memory-witness body, its storage-enabled (kLog) body and its
+precompile (kPrecomp) body with the round-witness splice, K2's fold and
+K3's chained permutation.  The kernels themselves are held against
 the plain versions on the card by chip_smoke.py.
 """
 
 import ctypes
+import dataclasses
 import random
 
 import pytest
@@ -21,7 +23,7 @@ from era_zk_evm_tpu_torch.config import (
 from era_zk_evm_tpu_torch.models import fused_cycle
 from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.ops import keccak
-from era_zk_evm_tpu_torch.testing import log_programs, programs
+from era_zk_evm_tpu_torch.testing import block_programs, log_programs, programs
 from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb
 
 from test_batched_vm import (
@@ -29,6 +31,7 @@ from test_batched_vm import (
     PTR_PROGRAMS, STACK_PROGRAMS, UMA_PROGRAMS,
 )
 from test_fused_cycle import _log_config
+from test_torch_precompile import _shifted, precompile_config
 
 PROGRAMS = (BASIC_PROGRAMS + CONTROL_FLOW + STACK_PROGRAMS + UMA_PROGRAMS
             + CALL_PROGRAMS + CONTEXT_PROGRAMS + PTR_PROGRAMS
@@ -52,12 +55,15 @@ def _host_run(host, st, config, n_cycles, k_inner):
     """fused_cycle.run_cycles with the host build in place of the kernels."""
     block = (fused_cycle.new_slot_block(config, k_inner, "cpu")
              if config.rolling_commitment else None)
+    pq_block = fused_cycle.new_pq_block(config, k_inner, "cpu")
     done = 0
     while done < n_cycles:
         k = min(k_inner, n_cycles - done)
         step0 = st.global_step.min()
-        args = fused_cycle.k1_args(st, config, k, k, block, step0)
+        args = fused_cycle.k1_args(st, config, k, k, block, step0, pq_block)
         assert host.eravm_k1_host(ctypes.byref(args)) == 0
+        if pq_block is not None:
+            fused_cycle.splice_precompile_rows(st, config, pq_block, k)
         if block is not None:
             ptrs = [x.data_ptr() for x in block]
             assert host.eravm_k2_host(*ptrs, st.wc_state.data_ptr(),
@@ -133,6 +139,46 @@ def test_k1_log_host_build_matches_plain(host, run):
     _host_run(host, kern, config, 128, 40)
     _assert_same(plain, kern)
     assert kern.lq_count.any()
+
+
+def _precompile_lanes(case):
+    keccak = block_programs.params.KECCAK256_ROUND_FUNCTION_PRECOMPILE_ADDRESS
+    sha = block_programs.params.SHA256_ROUND_FUNCTION_PRECOMPILE_ADDRESS
+    if case == "programs":
+        return list(block_programs.PRECOMPILE_LANES)
+    if case == "mix":
+        return [(e, src) for e, src, *_ in block_programs.precompile_mix(16)]
+    # overflow: the mix's loops at 16 phases
+    return ([(keccak, _shifted(block_programs.keccak_mapping_program(32), k))
+             for k in range(9)]
+            + [(sha, _shifted(block_programs.sha_rounds_program(32, 2), k))
+               for k in range(7)])
+
+
+@pytest.mark.parametrize("case,n,k_inner,queue", [
+    ("programs", 32, 5, True), ("programs", 32, 32, False),
+    ("mix", 96, 24, True), ("overflow", 64, 16, True)])
+def test_k1_precompile_host_build_matches_plain(host, case, n, k_inner,
+                                                 queue):
+    # the kPrecomp body, its scratch rows spliced at the block clock after
+    # every chunk; without the queue, the units alone
+    config = from_jax_config(precompile_config())
+    if not queue:
+        config = dataclasses.replace(config, precompile_queue_capacity=0)
+    lanes = _precompile_lanes(case)
+    lanes += [lanes[-1]] * (config.batch - len(lanes))
+    words = [programs.assemble(src) for _, src in lanes]
+    plain = pstate.make_entry_state(config, words, ergs=1 << 20,
+                                    entry_address=[e for e, _ in lanes],
+                                    device="cpu")
+    kern = pstate.clone_state(plain)
+    fused_cycle.run_cycles(plain, config, n, k_inner=k_inner)
+    _host_run(host, kern, config, n, k_inner)
+    _assert_same(plain, kern)
+    # every lane logged a precompile call, but the one short of ergs
+    assert int((kern.lq_count > 0).sum()) >= config.batch - 1
+    assert bool(kern.pq_count.any()) == queue
+    assert bool(kern.lane_error.all()) == (case == "overflow")
 
 
 @pytest.mark.parametrize("iters", [1, 3])

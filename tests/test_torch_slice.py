@@ -70,8 +70,8 @@ def test_workload_copy_equals_bench():
 
 
 def test_port_imports_no_jax():
-    # the CPU paths of both slices, then sys.modules: no jax and no module
-    # of the JAX package
+    # the CPU paths of the slices, a precompile block through execute_block
+    # included, then sys.modules: no jax and no module of the JAX package
     code = (
         "import sys, torch\n"
         "from era_zk_evm_tpu_torch.config import VmConfig\n"
@@ -107,6 +107,21 @@ def test_port_imports_no_jax():
         "logs = packed.split_compacted_by_lane(rows[0], rows[1], int(rows[2]))\n"
         "wave.wave_commitments({'log': logs}, 'cpu')\n"
         "compaction.compact_log_state(st, cfg)\n"
+        "from era_zk_evm_tpu_torch import block\n"
+        "from era_zk_evm_tpu_torch.testing import block_programs as bp\n"
+        "cfg = VmConfig(batch=2, code_words=16, stack_words=256,\n"
+        "               stack_abs_words=64, stack_sp_base=960, heap_words=16,\n"
+        "               aux_heap_words=16, max_depth=8, queue_capacity=128,\n"
+        "               storage_slots=4, journal_slots=8, event_slots=8,\n"
+        "               log_queue_capacity=16, precompile_keccak_blocks=2,\n"
+        "               precompile_sha_rounds=2, precompile_queue_capacity=176)\n"
+        "txs = [block.TxSpec(program=assemble(bp.keccak_mapping_program(2)),\n"
+        "                    entry_address=0x8010),\n"
+        "       block.TxSpec(program=assemble(bp.sha_rounds_program(2, 2)),\n"
+        "                    entry_address=0x02)]\n"
+        "r = block.execute_block(cfg, txs, chunk=16, device='cpu')\n"
+        "assert r.all_ok and sorted(r.commitments) == [\n"
+        "    'log', 'memory', 'precompile']\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'era_zk_evm_tpu' or m.startswith('era_zk_evm_tpu.')]\n"
         "assert not bad, f'the port imported {bad}'\n"
