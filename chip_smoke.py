@@ -42,6 +42,14 @@ Phases, one line each; any failure raises and the exit code is nonzero:
   K1-precompile bench_storage's geometry with the units on, B = 32768, the
                 precompile mix: one 128-cycle call kernel vs plain over the
                 whole batch, timed, with its bound;
+  K1-ecrecover-small  K1's ecrecover instance (the secp256k1 unit in the
+                cycle, two round-witness out rows) against plain on the
+                ecrecover test programs and the signed-transfer mix, chunks
+                of 8 cycles, every field;
+  K1-ecrecover  the same geometry with ecrecover on, B = 32768, every lane a
+                signed transfer whose recovery falls in cycle 9: one
+                128-cycle call kernel vs plain over the whole batch, then
+                two more from the same entry state timed, with its bound;
   block-tiny    execute_block at bench_block's tiny-mix shape and knobs
                 (B = 4096, 8192 txs): a warm run, a timed run (txs/s,
                 utilization, the scheduler's profile) and a run under
@@ -49,6 +57,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 to a plain CPU run at B = 64;
   block-precompile  the same on the precompile mix with the units and the
                 round-witness queue on;
+  block-ecrecover  the same on the signed-transfer mix (ecrecover_mix) with
+                ecrecover on; its first 64 txs (one wave) checked;
   block-realistic  execute_block on bench_block's realistic mix (B = 4096,
                 chunk 128), txs/s, utilization, device idle and
                 vs_engine_ideal against one long tx per lane;
@@ -71,17 +81,21 @@ import torch
 
 from era_zk_evm_tpu_torch import _build
 from era_zk_evm_tpu_torch.block import TxSpec, execute_block
-from era_zk_evm_tpu_torch.config import BATCH_LAST_FIELDS, VmConfig
+from era_zk_evm_tpu_torch.config import (
+    BATCH_LAST_FIELDS, VmConfig, precompile_queue_slots,
+)
 from era_zk_evm_tpu_torch.isa import params
 from era_zk_evm_tpu_torch.isa.abi import code_hash_for_bytecode
 from era_zk_evm_tpu_torch.models import batched_vm, fused_cycle
 from era_zk_evm_tpu_torch.models.spill import rewind_queues
 from era_zk_evm_tpu_torch.models.state import (
-    clone_state, make_entry_state, populate_code_bank, populate_storage,
-    state_to_numpy,
+    FIELD_NAMES, clone_state, make_entry_state, populate_code_bank,
+    populate_storage,
 )
-from era_zk_evm_tpu_torch.ops import keccak
-from era_zk_evm_tpu_torch.testing import block_programs, log_programs
+from era_zk_evm_tpu_torch.ops import keccak, secp256k1
+from era_zk_evm_tpu_torch.testing import (
+    block_programs, ec_programs, log_programs,
+)
 from era_zk_evm_tpu_torch.testing.programs import (
     FAMILY_PROGRAMS, FARCALL_CALLEE_ADDRESS, STORAGE_WORKLOAD, WORKLOAD,
     assemble, farcall_callee, farcall_caller, tiny_mix_program,
@@ -120,8 +134,13 @@ KECCAK_OPS = 24 * 180
 #: rotate and a 3-input logic op as one: per round 17 (two Sigma at 4, ch
 #: and maj at 1, 7 adds), per scheduled word 11, and the 8 final adds
 SHA256_OPS = 64 * 17 + 48 * 11 + 8
-PP_SLOTS = 11                                 # round-witness rows per call
+#: int32 operations of one 256-bit modular multiplication, a lower count:
+#: 64 limb products at 4 each (multiply low and high, two carry-adds), the
+#: fold of the high half by 2**32 + 977 (16 products) and a final compare
+#: and subtraction (16)
+MODMUL_OPS = 64 * 4 + 16 * 4 + 16
 B_BLOCK, TAIL_MULT, CHECK_TXS, CHECK_BATCH = 4096, 4, 256, 64
+EC_CHECK_TXS = 64                 # block-ecrecover's CPU check: one wave
 #: bench_block's knobs (bench.py:653-660) at its tiny-mix chunk
 BLOCK_KNOBS = dict(chunk=64, k_inner=64, refill_frac=0.25, order="cost_desc",
                    tail_chunk_mult=TAIL_MULT, adaptive_chunk=True,
@@ -178,11 +197,23 @@ def farcall_config(batch: int, n_calls: int = 12) -> VmConfig:
                     event_slots=8, heap_frames=n_calls + 2, code_pages=2)
 
 
-def block_config(batch: int, chunk: int = 64,
-                 precompile: bool = False) -> VmConfig:
+def with_units(cfg: VmConfig, blocks: int, ecrecover: bool = False):
+    """`cfg` with the keccak256 / sha256 units (2 keccak blocks, 2 sha256
+    rounds), ecrecover if asked, and a round-witness queue of `blocks`
+    blocks of PS rows (PS from precompile_queue_slots: 11, or 12 with
+    ecrecover)."""
+    cfg = dataclasses.replace(cfg, precompile_keccak_blocks=2,
+                              precompile_sha_rounds=2,
+                              precompile_ecrecover=ecrecover)
+    return dataclasses.replace(cfg, precompile_queue_capacity=blocks * sum(
+        precompile_queue_slots(cfg)))
+
+
+def block_config(batch: int, chunk: int = 64, precompile: bool = False,
+                 ecrecover: bool = False) -> VmConfig:
     """bench.py bench_block's geometry (bench.py:574-579: queues sized to
-    chunk * tail_mult cycles); with `precompile`, the keccak256 / sha256
-    units and a round-witness queue of as many blocks."""
+    chunk * tail_mult cycles); with `precompile`, the units and a
+    round-witness queue of as many blocks."""
     cfg = VmConfig(batch=batch, code_words=16, stack_words=256,
                    sweep_gating=False, stack_abs_words=64, stack_sp_base=960,
                    heap_words=32, aux_heap_words=16, max_depth=8,
@@ -190,9 +221,7 @@ def block_config(batch: int, chunk: int = 64,
                    journal_slots=64, event_slots=64,
                    log_queue_capacity=chunk * TAIL_MULT)
     if precompile:
-        cfg = dataclasses.replace(
-            cfg, precompile_keccak_blocks=2, precompile_sha_rounds=2,
-            precompile_queue_capacity=chunk * TAIL_MULT * PP_SLOTS)
+        cfg = with_units(cfg, chunk * TAIL_MULT, ecrecover)
     return cfg
 
 
@@ -201,36 +230,51 @@ def wave_config(batch: int) -> VmConfig:
     return block_config(batch)
 
 
-def precompile_storage_config(batch: int) -> VmConfig:
-    """bench_storage's geometry with the units on and a round-witness queue
-    of K blocks."""
-    return dataclasses.replace(
-        storage_config(batch), precompile_keccak_blocks=2,
-        precompile_sha_rounds=2, precompile_queue_capacity=K * PP_SLOTS)
+def precompile_storage_config(batch: int, ecrecover: bool = False):
+    """bench_storage's geometry with the units on (and ecrecover, if asked)
+    and a round-witness queue of K blocks."""
+    return with_units(storage_config(batch), K, ecrecover)
 
 
 def precompile_small_config(batch: int) -> VmConfig:
     """tests/test_torch_precompile.py::precompile_config (chunk 32)."""
-    return VmConfig(batch=batch, code_words=32, stack_words=256,
-                    sweep_gating=False, stack_abs_words=64, stack_sp_base=960,
-                    heap_words=32, aux_heap_words=16, max_depth=8,
-                    queue_capacity=4 * 32 * 8, storage_slots=8,
-                    journal_slots=64, event_slots=16,
-                    log_queue_capacity=4 * 32, heap_frames=2, code_pages=2,
-                    decommit_queue_capacity=4 * 32,
-                    precompile_keccak_blocks=2, precompile_sha_rounds=2,
-                    precompile_queue_capacity=32 * PP_SLOTS)
+    return with_units(VmConfig(
+        batch=batch, code_words=32, stack_words=256, sweep_gating=False,
+        stack_abs_words=64, stack_sp_base=960, heap_words=32,
+        aux_heap_words=16, max_depth=8, queue_capacity=4 * 32 * 8,
+        storage_slots=8, journal_slots=64, event_slots=16,
+        log_queue_capacity=4 * 32, heap_frames=2, code_pages=2,
+        decommit_queue_capacity=4 * 32), 32)
+
+
+def ecrecover_small_config(batch: int) -> VmConfig:
+    """tests/test_torch_ecrecover.py::ec_config (chunk 32) at `batch`."""
+    return VmConfig(batch=batch, code_words=64, stack_words=2048,
+                    heap_words=64, max_depth=8, queue_capacity=96 * 8,
+                    storage_slots=16, journal_slots=32, event_slots=32,
+                    log_queue_capacity=96, heap_frames=2, code_pages=2,
+                    decommit_queue_capacity=96, precompile_keccak_blocks=3,
+                    precompile_sha_rounds=3, precompile_ecrecover=True,
+                    precompile_queue_capacity=32 * 16)
+
+
+def state_tensors(state) -> dict:
+    """The state's tensors by field name, to be compared where they lie."""
+    return {name: getattr(state, name) for name in FIELD_NAMES}
 
 
 def compare(a: dict, b: dict) -> tuple[list[str], int]:
-    """Fields that differ, and the largest absolute difference."""
+    """Fields that differ, and the largest absolute difference (u32 values);
+    tensors of one device, compared there."""
     bad, err = [], 0
     for name in a:
-        x, y = a[name].astype(np.int64), b[name].astype(np.int64)
+        x, y = a[name], b[name]
         if x.shape != y.shape:
             bad.append(name)
             continue
-        d = int(np.abs(x - y).max()) if x.size else 0
+        d = 0 if torch.equal(x, y) else int(
+            ((x.to(torch.int64) & 0xFFFFFFFF)
+             - (y.to(torch.int64) & 0xFFFFFFFF)).abs().max())
         if d:
             bad.append(name)
             err = max(err, d)
@@ -277,6 +321,41 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def pow_modmuls(e: int) -> int:
+    """Multiplications of x ** e by square-and-multiply from x."""
+    return e.bit_length() - 1 + e.bit_count() - 1
+
+
+def ecrecover_modmuls(digest: int, r: int, s: int) -> int:
+    """Modular multiplications that one recovery of a valid signature needs
+    in the kernel's own algorithm (csrc/secp256k1.cuh), at its least: r^3
+    (2), the square root's power, its check (1), the power for 1 / r, u1
+    and u2 (2), G + R (16), the ladder over u1 and u2 from their top bit (a
+    doubling at 7 per further bit, an addition at 16 per further bit set in
+    either scalar), the power for 1 / Z and the affine conversion (4).
+    Additions and subtractions are not counted."""
+    n, p = secp256k1.N_INT, secp256k1.P_INT
+    r_inv = pow(r, -1, n)
+    u1, u2 = -digest * r_inv % n, s * r_inv % n
+    ladder = 7 * (max(u1, u2).bit_length() - 1) \
+        + 16 * ((u1 | u2).bit_count() - 1)
+    return (2 + pow_modmuls((p + 1) // 4) + 1 + pow_modmuls(n - 2) + 2 + 16
+            + ladder + pow_modmuls(p - 2) + 4)
+
+
+def ecrecover_ops(signatures) -> int:
+    """int32 operations of the recoveries of `signatures` ((digest, v, r,
+    s) each): their multiplications and the keccak-f of each public key."""
+    muls = {}
+    total = 0
+    for digest, _, r, s in signatures:
+        key = (digest, r, s)
+        if key not in muls:
+            muls[key] = ecrecover_modmuls(digest, r, s)
+        total += muls[key] * MODMUL_OPS + KECCAK_OPS
+    return total
 
 
 def bound_ms(n_bytes: float, n_ops: float, sm_mhz: float) -> tuple:
@@ -368,10 +447,19 @@ def wave_programs(batch: int) -> list:
             for n in lengths]
 
 
+def as_txs(rows) -> list:
+    """TxSpecs of (entry address, program source, iteration count) rows,
+    each tx's iteration count as its cost hint."""
+    cache = {}
+    return [TxSpec(program=cache.setdefault(src, assemble(src)),
+                   ergs=FULL_ERGS, entry_address=entry, cost_hint=n)
+            for entry, src, n, *_ in rows]
+
+
 def mix_txs(mix: str, n_txs: int) -> list:
     """The block's transactions: bench_block's tiny or realistic mix
     (bench.py:628-650) or the precompile mix, iteration counts from
-    RandomState(11), each tx's iteration count as its cost hint."""
+    RandomState(11)."""
     if mix == "tiny":
         rows = [(0x8001, tiny_mix_program(int(n)), int(n))
                 for n in block_programs.tiny_mix_lengths(n_txs)]
@@ -379,11 +467,8 @@ def mix_txs(mix: str, n_txs: int) -> list:
         rows = [(0x8001, block_programs.realistic_program(int(n)), int(n))
                 for n in block_programs.realistic_lengths(n_txs)]
     else:
-        rows = [r[:3] for r in block_programs.precompile_mix(n_txs)]
-    cache = {}
-    return [TxSpec(program=cache.setdefault(src, assemble(src)),
-                   ergs=FULL_ERGS, entry_address=entry, cost_hint=n)
-            for entry, src, n in rows]
+        rows = block_programs.precompile_mix(n_txs)
+    return as_txs(rows)
 
 
 def profiled(fn) -> dict:
@@ -420,13 +505,14 @@ def block_phase(tag: str, config: VmConfig, txs: list, knobs: dict, dev,
         execute_block(config, txs, device=dev, **knobs)
     torch.cuda.synchronize()
     fused_cycle.K1_LAUNCHES = fused_cycle.K1_PRECOMPILE_LAUNCHES = 0
-    keccak.K3_LAUNCHES = 0
+    fused_cycle.K1_ECRECOVER_LAUNCHES = keccak.K3_LAUNCHES = 0
     t0 = time.perf_counter()
     blk = execute_block(config, txs, device=dev, **knobs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"K1": fused_cycle.K1_LAUNCHES,
                 "K1_precompile": fused_cycle.K1_PRECOMPILE_LAUNCHES,
+                "K1_ecrecover": fused_cycle.K1_ECRECOVER_LAUNCHES,
                 "K3": keccak.K3_LAUNCHES}
     if not blk.all_ok:
         bad = sum(t.status != "ok" for t in blk.txs)
@@ -436,17 +522,17 @@ def block_phase(tag: str, config: VmConfig, txs: list, knobs: dict, dev,
 
 
 def check_on_cpu(tag: str, config: VmConfig, txs: list, knobs: dict,
-                 blk) -> None:
-    """The first CHECK_TXS txs through the port on the CPU (plain
-    versions) at B = CHECK_BATCH: every tx's status, cycles, registers,
-    family digests and sorted-log product equal to the card's block.  The
-    policy knobs do not change a tx's results; the CPU run takes the ones
-    that waste the fewest lane-cycles (no tail escalation or adaptive
-    chunks, refill at an eighth of the lanes)."""
+                 blk, n_txs: int = CHECK_TXS) -> None:
+    """The first n_txs txs through the port on the CPU (plain versions) at
+    B = CHECK_BATCH: every tx's status, cycles, registers, family digests
+    and sorted-log product equal to the card's block.  The policy knobs do
+    not change a tx's results; the CPU run takes the ones that waste the
+    fewest lane-cycles (no tail escalation or adaptive chunks, refill at an
+    eighth of the lanes)."""
     cpu_knobs = dict(knobs, tail_chunk_mult=1, adaptive_chunk=False,
                      refill_frac=0.125)
     ref = execute_block(dataclasses.replace(config, batch=CHECK_BATCH),
-                        txs[:CHECK_TXS], device="cpu", **cpu_knobs)
+                        txs[:n_txs], device="cpu", **cpu_knobs)
     for i, (a, b) in enumerate(zip(ref.txs, blk.txs)):
         if (a.status, a.cycles) != (b.status, b.cycles) \
                 or not np.array_equal(a.registers, b.registers) \
@@ -502,7 +588,7 @@ def main() -> int:
         batched_vm.run_cycles(ps, cfg, 48)
         torch.cuda.synchronize()
         require_equal(f"K1 family programs rolling={rolling}",
-                      state_to_numpy(ks), state_to_numpy(ps))
+                      state_tensors(ks), state_tensors(ps))
         errs = ks.lane_error.cpu().tolist()
         expect = [name == "unsupported_log" for name in FAMILY_PROGRAMS]
         if errs != expect:
@@ -520,8 +606,8 @@ def main() -> int:
     ps = clone_state(entry_a)
     k1_ms = timed_ms(lambda: fused_cycle.cycle_chunk(ks, cfg_a, K))
     k1_plain_ms = timed_ms(lambda: batched_vm.run_cycles(ps, cfg_a, K))
-    k1_err = require_equal("K1 WORKLOAD B=32768", state_to_numpy(ks),
-                           state_to_numpy(ps))
+    k1_err = require_equal("K1 WORKLOAD B=32768", state_tensors(ks),
+                           state_tensors(ps))
     k1_nbytes = k1_bytes(entry_a, ks, cfg_a)
     k1_bound = bound_ms(k1_nbytes, B_FULL * K * K1_MIN_OPS, sm_mhz)
     phase("K1", batch=B_FULL, cycles=K, equal=True, ms=round(k1_ms, 3),
@@ -544,10 +630,8 @@ def main() -> int:
     k2_plain_ms = timed_ms(lambda: rolling_absorb(wb, cb, *block))
     k2_err = require_equal(
         "K2 B=32768",
-        {"wc_state": wa.cpu().numpy(), "wc_count": ca.cpu().numpy(),
-         "digest": finalize_rolling(wa, ca).cpu().numpy()},
-        {"wc_state": wb.cpu().numpy(), "wc_count": cb.cpu().numpy(),
-         "digest": finalize_rolling(wb, cb).cpu().numpy()})
+        {"wc_state": wa, "wc_count": ca, "digest": finalize_rolling(wa, ca)},
+        {"wc_state": wb, "wc_count": cb, "digest": finalize_rolling(wb, cb)})
     n_perms = int(((block[2] >> 2) & 1).sum()) // 2    # one per record pair
     k2_bound = bound_ms(sum(x.nbytes for x in block) + 2 * wa.nbytes
                         + 2 * ca.nbytes, n_perms * KECCAK_OPS, sm_mhz)
@@ -605,9 +689,9 @@ def main() -> int:
         for _ in range(n_calls):
             batched_vm.run_cycles(ref, ref_cfg, K)
             rewind_queues(ref)
-        got = lanes(state_to_numpy(st), n_ref)
+        got = {k: v.cpu() for k, v in lanes(state_tensors(st), n_ref).items()}
         require_equal(f"main path mode {mode} lanes 0..{n_ref - 1}", got,
-                      state_to_numpy(ref))
+                      state_tensors(ref))
         extra = {}
         if mode == "b":
             dig = finalize_rolling(st.wc_state, st.wc_count)
@@ -628,8 +712,8 @@ def main() -> int:
         fused_cycle.run_cycles(ks, cfg, K, k_inner=40)
         batched_vm.run_cycles(ps, cfg, K)
         torch.cuda.synchronize()
-        require_equal(f"K1 log/far-call run {run}", state_to_numpy(ks),
-                      state_to_numpy(ps))
+        require_equal(f"K1 log/far-call run {run}", state_tensors(ks),
+                      state_tensors(ps))
         # only the precompile call (its units are off) sets lane_error
         want_err = torch.zeros(log_programs.LANES, dtype=torch.bool)
         lo, hi = log_programs.lane_plan(run)[2].get("precompile_off", (0, 0))
@@ -649,8 +733,8 @@ def main() -> int:
     ks, ps = clone_state(entry_s), clone_state(entry_s)
     ks_ms = timed_ms(lambda: fused_cycle.cycle_chunk(ks, cfg_s, K))
     ks_plain_ms = timed_ms(lambda: batched_vm.run_cycles(ps, cfg_s, K))
-    ks_err = require_equal("K1-storage B=32768", state_to_numpy(ks),
-                           state_to_numpy(ps))
+    ks_err = require_equal("K1-storage B=32768", state_tensors(ks),
+                           state_tensors(ps))
     del ps, entry_s
     # bench_storage times a second call on the warm state
     before = clone_state(ks)
@@ -674,8 +758,8 @@ def main() -> int:
         ks, cfg_f, FARCALL_CYCLES, k_inner=FARCALL_CYCLES))
     kf_plain_ms = timed_ms(lambda: batched_vm.run_cycles(ps, cfg_f,
                                                          FARCALL_CYCLES))
-    kf_err = require_equal("K1-farcall B=16384", state_to_numpy(ks),
-                           state_to_numpy(ps))
+    kf_err = require_equal("K1-farcall B=16384", state_tensors(ks),
+                           state_tensors(ps))
     # the same with the log and decommit queues on: their rows compared
     # over the whole batch
     cfg_q, entry_q = farcall_entry(B_FARCALL, dev, queues=True)
@@ -683,7 +767,7 @@ def main() -> int:
     fused_cycle.run_cycles(kq, cfg_q, FARCALL_CYCLES, k_inner=FARCALL_CYCLES)
     batched_vm.run_cycles(pq, cfg_q, FARCALL_CYCLES)
     kf_err = max(kf_err, require_equal("K1-farcall with queues B=16384",
-                                       state_to_numpy(kq), state_to_numpy(pq)))
+                                       state_tensors(kq), state_tensors(pq)))
     queue_rows = (int(kq.lq_count.sum()), int(kq.dq_count.sum()))
     if min(queue_rows) == 0:
         raise AssertionError(f"K1-farcall with queues: rows {queue_rows}")
@@ -724,8 +808,8 @@ def main() -> int:
     fused_cycle.run_cycles(ks, cfg_ps, 96, k_inner=8)
     batched_vm.run_cycles(ps, cfg_ps, 96)
     torch.cuda.synchronize()
-    kps_err = require_equal("K1 precompile programs", state_to_numpy(ks),
-                            state_to_numpy(ps))
+    kps_err = require_equal("K1 precompile programs", state_tensors(ks),
+                            state_tensors(ps))
     phase("K1-precompile-small", lanes=len(pp_lanes), cycles=96, k_inner=8,
           equal=True, pq_rows=int(ks.pq_count.sum()),
           pq_blocks=int(ks.pq_blocks[0]),
@@ -751,8 +835,8 @@ def main() -> int:
         sp, cfg_p, pq_block, K))
     del sp
     kp_plain_ms = timed_ms(lambda: batched_vm.run_cycles(ps, cfg_p, K))
-    kp_err = require_equal("K1-precompile B=32768", state_to_numpy(ks),
-                           state_to_numpy(ps))
+    kp_err = require_equal("K1-precompile B=32768", state_tensors(ks),
+                           state_tensors(ps))
     del ps
     errors = int(ks.lane_error.sum())
     if errors:
@@ -776,6 +860,73 @@ def main() -> int:
           cycles_per_sec=B_FULL * K / (kp_ms / 1e3))
     del ks, entry_p, pq_block
 
+    # -- K1's ecrecover instance against plain --------------------------
+    ec_lanes = ec_programs.EC_LANES + [
+        (e, src) for e, src, *_ in ec_programs.ecrecover_mix(17, seed=3)]
+    cfg_es = ecrecover_small_config(len(ec_lanes))
+    ks = make_entry_state(cfg_es, [assemble(src) for _, src in ec_lanes],
+                          ergs=1 << 20,
+                          entry_address=[e for e, _ in ec_lanes], device=dev)
+    ps = clone_state(ks)
+    fused_cycle.run_cycles(ks, cfg_es, 96, k_inner=8)
+    batched_vm.run_cycles(ps, cfg_es, 96)
+    torch.cuda.synchronize()
+    kes_err = require_equal("K1 ecrecover programs", state_tensors(ks),
+                            state_tensors(ps))
+    # only the program whose output window passes the frame sets lane_error
+    if int(ks.lane_error.sum()) != 1 or int(ks.pq_count.sum()) == 0:
+        raise AssertionError(f"K1-ecrecover-small: lane_error "
+                             f"{ks.lane_error.tolist()}")
+    phase("K1-ecrecover-small", lanes=len(ec_lanes), cycles=96, k_inner=8,
+          equal=True, pq_rows=int(ks.pq_count.sum()),
+          pq_blocks=int(ks.pq_blocks[0]),
+          lane_errors=int(ks.lane_error.sum()))
+    del ks, ps
+
+    # every lane a signed transfer of block-ecrecover's mix (its recovery in
+    # cycle 9), the mix's programs cycled over the batch
+    ec_mix = ec_programs.ecrecover_mix(2 * B_BLOCK)
+    ec_txs = as_txs(ec_mix)
+    cfg_e = precompile_storage_config(B_FULL, ecrecover=True)
+    entry_e = make_entry_state(
+        cfg_e, [ec_txs[i % len(ec_txs)].program for i in range(B_FULL)],
+        ergs=FULL_ERGS, entry_address=ec_programs.EC, device=dev)
+    pq_block = fused_cycle.new_pq_block(cfg_e, K, dev)
+    warm = clone_state(entry_e)       # loads the module, warms the splice
+    fused_cycle.cycle_chunk(warm, cfg_e, K, pq_block=pq_block)
+    del warm
+    ks, ps = clone_state(entry_e), clone_state(entry_e)
+    ke_first_ms = timed_ms(lambda: fused_cycle.cycle_chunk(
+        ks, cfg_e, K, pq_block=pq_block))
+    ke_plain_ms = timed_ms(lambda: batched_vm.run_cycles(ps, cfg_e, K))
+    ke_err = require_equal("K1-ecrecover B=32768", state_tensors(ks),
+                           state_tensors(ps))
+    del ps
+    errors = int(ks.lane_error.sum())
+    n_ec = int((ks.pq_count == 6).sum())   # lanes with one call's 4 + 2 rows
+    if errors or n_ec != B_FULL:
+        raise AssertionError(f"K1-ecrecover: {errors} lane_error lanes, "
+                             f"{n_ec} recoveries")
+    ke_nbytes = k1_bytes(entry_e, ks, cfg_e)
+    del ks
+    ke_times = []
+    for _ in range(2):             # again from the entry state, timed
+        kt = clone_state(entry_e)
+        ke_times.append(timed_ms(lambda: fused_cycle.cycle_chunk(
+            kt, cfg_e, K, pq_block=pq_block)))
+        del kt
+    ke_ms = min(ke_times)
+    ke_bound = bound_ms(ke_nbytes, B_FULL * K * K1_MIN_OPS + ecrecover_ops(
+        ec_mix[i % len(ec_mix)][4] for i in range(B_FULL)), sm_mhz)
+    phase("K1-ecrecover", batch=B_FULL, cycles=K, equal=True,
+          ms_first=round(ke_first_ms, 3),
+          ms=";".join(f"{t:.3f}" for t in ke_times),
+          plain_ms=round(ke_plain_ms, 3), bound_ms=round(ke_bound[0], 4),
+          bound_by=ke_bound[1], bound_bytes=ke_nbytes, recoveries=n_ec,
+          ecrecovers_per_sec=n_ec / (ke_ms / 1e3), lane_errors=errors,
+          cycles_per_sec=B_FULL * K / (ke_ms / 1e3))
+    del entry_e, pq_block
+
     # -- K3 against plain ------------------------------------------------
     gen = torch.Generator().manual_seed(3)
     k3_err, k3_ms, k3_plain_ms = 0, None, None
@@ -789,8 +940,8 @@ def main() -> int:
         plain_ms = timed_ms(lambda: box.setdefault(
             "p", keccak.keccak_f1600_plain(states, iters)))
         k3_err = max(k3_err, require_equal(
-            f"K3 N={n} iters={iters}", {"states": box["k"].cpu().numpy()},
-            {"states": box["p"].cpu().numpy()}))
+            f"K3 N={n} iters={iters}", {"states": box["k"]},
+            {"states": box["p"]}))
         if iters == 1:
             k3_n, k3_ms, k3_plain_ms = n, ms, plain_ms
     k3_bound = bound_ms(2 * k3_n * 200, k3_n * KECCAK_OPS, sm_mhz)
@@ -820,8 +971,8 @@ def main() -> int:
         ks, cfg_w, WAVE_SEGMENT, k_inner=WAVE_SEGMENT))
     kw_plain_ms = timed_ms(lambda: batched_vm.run_cycles(ps, cfg_w,
                                                          WAVE_SEGMENT))
-    kw_err = require_equal("K1 wave segment B=4096", state_to_numpy(ks),
-                           state_to_numpy(ps))
+    kw_err = require_equal("K1 wave segment B=4096", state_tensors(ks),
+                           state_tensors(ps))
     if int(ks.lq_count.sum()) == 0:
         raise AssertionError("K1 wave segment: no log rows")
     phase("K1-wave-segment", batch=B_WAVE, cycles=WAVE_SEGMENT, equal=True,
@@ -875,25 +1026,32 @@ def main() -> int:
 
     # -- the block pipeline: execute_block, the product path ------------
     blocks = {}
-    for tag, mix, precompile in (("block-tiny", "tiny", False),
-                                 ("block-precompile", "precompile", True)):
-        cfg_k = block_config(B_BLOCK, precompile=precompile)
+    for tag, mix, unit in (("block-tiny", "tiny", None),
+                           ("block-precompile", "precompile",
+                            "K1_precompile"),
+                           ("block-ecrecover", "ecrecover", "K1_ecrecover")):
+        cfg_k = block_config(B_BLOCK, precompile=unit is not None,
+                             ecrecover=mix == "ecrecover")
         knobs = dict(BLOCK_KNOBS)
-        if precompile:
+        if unit:
             knobs["drain_compact_frac"] = dict(knobs["drain_compact_frac"],
                                                precompile=0.25)
-        txs = mix_txs(mix, 2 * B_BLOCK)
+        txs = ec_txs if mix == "ecrecover" else mix_txs(mix, 2 * B_BLOCK)
         blk, wall, launches, prof = block_phase(tag, cfg_k, txs, knobs, dev)
-        need = ("K1", "K3") + (("K1_precompile",) if precompile else ())
+        need = ("K1", "K3") + ((unit,) if unit else ())
         if any(launches[k] == 0 for k in need):
             raise AssertionError(f"{tag}: launches {launches}")
-        check_on_cpu(tag, cfg_k, txs, knobs, blk)
+        n_check = EC_CHECK_TXS if mix == "ecrecover" else CHECK_TXS
+        check_on_cpu(tag, cfg_k, txs, knobs, blk, n_check)
         blocks[tag] = launches
         extra = {}
-        if precompile:
+        if unit:
             extra["precompile_records"] = sum(
                 r.streams["precompile"].shape[0] for r in blk.txs)
-        phase(tag, batch=B_BLOCK, equal_to_cpu_txs=CHECK_TXS,
+        if mix == "ecrecover":
+            extra["rejected_txs"] = sum(
+                not r.net_states["final_storage"] for r in blk.txs)
+        phase(tag, batch=B_BLOCK, equal_to_cpu_txs=n_check,
               **block_fields(blk, wall, len(txs)),
               **{f"launches_{k}": v for k, v in launches.items()},
               **prof, **extra, log_fold=blk.commitments["log"].hex()[:16],
@@ -941,7 +1099,9 @@ def main() -> int:
           K1_block_tiny=blocks["block-tiny"]["K1"],
           K3_block_tiny=blocks["block-tiny"]["K3"],
           K1_precompile_block=blocks["block-precompile"]["K1_precompile"],
-          K3_block_precompile=blocks["block-precompile"]["K3"])
+          K3_block_precompile=blocks["block-precompile"]["K3"],
+          K1_ecrecover=blocks["block-ecrecover"]["K1_ecrecover"],
+          K3_block_ecrecover=blocks["block-ecrecover"]["K3"])
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "era_zk_evm_tpu" or m.startswith("era_zk_evm_tpu.")]
     if bad:
@@ -950,7 +1110,8 @@ def main() -> int:
 
     def kernel(name, source, replaces, launches, err, ms, plain_ms, bound):
         return {"name": name, "route": "cuda",
-                "source": f"era_zk_evm_tpu_torch/csrc/{source}",
+                "source": ", ".join(f"era_zk_evm_tpu_torch/csrc/{f}"
+                                    for f in source.split()),
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1],
@@ -970,6 +1131,12 @@ def main() -> int:
                " (precompile unit :1395-1600)",
                blocks["block-precompile"]["K1_precompile"],
                max(kps_err, kp_err), kp_ms, kp_plain_ms, kp_bound),
+        kernel("K1 cycle_kernel, slice (e) ecrecover",
+               "cycle_kernel_ec.cu cycle_kernel.cu secp256k1.cuh",
+               "era_zk_evm_tpu/models/fused_cycle.py:2794 (ec_first_blk "
+               ":2863-2894, detour _run_cycles_fused_ec :3752)",
+               blocks["block-ecrecover"]["K1_ecrecover"],
+               max(kes_err, ke_err), ke_ms, ke_plain_ms, ke_bound),
         kernel("K2 rolling_fold", "rolling_fold.cu",
                "era_zk_evm_tpu/models/fused_cycle.py:3205", main_k2, k2_err,
                k2_ms, k2_plain_ms, k2_bound),

@@ -2,9 +2,10 @@
 
 The sources are `csrc/*.cu` and `csrc/*.cuh` of this package, plus one
 header generated from the port's `isa` package (decode constants, opcode and
-operand-mode values, ergs prices, callstack field indices) and from the
-keccak constants of `ops/keccak.py`, so no ISA constant is written by hand
-in the kernels.  The shared library goes to
+operand-mode values, ergs prices, callstack field indices, precompile
+addresses) and from the constants of `ops/keccak.py`, `ops/sha256.py` and
+`ops/secp256k1.py`, so no such constant is written by hand in the kernels.
+The shared library goes to
 `era_zk_evm_tpu_torch/_build/<kind>-<hash>/`, keyed by a hash of the
 sources, the flags and the generated header; a build or load failure
 raises.  nvcc compiles each source into an object file, all at once in
@@ -30,7 +31,8 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HOST_FLAGS = ["-std=c++17", "-O1", "-fPIC"]
-SOURCES = ("cycle_kernel.cu", "rolling_fold.cu", "keccak_f.cu")
+SOURCES = ("cycle_kernel.cu", "cycle_kernel_ec.cu", "rolling_fold.cu",
+           "keccak_f.cu")
 
 
 def generate_header() -> str:
@@ -43,6 +45,7 @@ def generate_header() -> str:
         ShiftOp, UMAOp, decode_consts,
     )
     from .isa.abi import PrecompileCallABI
+    from .ops import secp256k1 as secp
     from .ops.keccak import KECCAK_RC, KECCAK_ROTATIONS
     from .ops.sha256 import SHA256_IV, SHA256_K
 
@@ -76,7 +79,8 @@ def generate_header() -> str:
                  "NEW_FRAME_MEMORY_STIPEND",
                  "NEW_MEMORY_PAGES_PER_FAR_CALL",
                  "KECCAK256_ROUND_FUNCTION_PRECOMPILE_ADDRESS",
-                 "SHA256_ROUND_FUNCTION_PRECOMPILE_ADDRESS"):
+                 "SHA256_ROUND_FUNCTION_PRECOMPILE_ADDRESS",
+                 "ECRECOVER_INNER_FUNCTION_PRECOMPILE_ADDRESS"):
         define(name, getattr(params, name))
     # the precompile-call ABI: the u32 limb of src0 that holds each field
     for name, field in (("IN_OFF", "input_memory_offset"),
@@ -104,7 +108,14 @@ def generate_header() -> str:
     out.append(f"EVM_TABLE uint64_t KECCAK_RC[{len(KECCAK_RC)}] = {{{rc}}};")
     rot = ", ".join(str(r) for r in KECCAK_ROTATIONS)
     out.append(f"EVM_TABLE int KECCAK_ROT[25] = {{{rot}}};")
-    for name, arr in (("SHA256_K", SHA256_K), ("SHA256_IV", SHA256_IV)):
+    p, n = secp.P_INT, secp.N_INT
+    tables = [("SHA256_K", SHA256_K), ("SHA256_IV", SHA256_IV)] + [
+        (name, secp.to_limbs(value)) for name, value in (
+            ("SECP_P", p), ("SECP_N", n), ("SECP_FOLD_P", 2**256 - p),
+            ("SECP_FOLD_N", 2**256 - n), ("SECP_GX", secp.GX_INT),
+            ("SECP_GY", secp.GY_INT), ("SECP_SQRT_EXP", (p + 1) // 4),
+            ("SECP_P_MINUS_2", p - 2), ("SECP_N_MINUS_2", n - 2))]
+    for name, arr in tables:
         vals = ", ".join(f"0x{v:08x}u" for v in arr)
         out.append(f"EVM_TABLE uint32_t {name}[{len(arr)}] = {{{vals}}};")
     return "\n".join(out) + "\n"
@@ -217,7 +228,7 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         lib.eravm_k1_launch.argtypes = [ctypes.POINTER(K1Args),
-                                        ctypes.c_void_p]
+                                        ctypes.c_int, ctypes.c_void_p]
         lib.eravm_k1_launch.restype = ctypes.c_int
         lib.eravm_k2_launch.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -234,7 +245,7 @@ def load_host() -> ctypes.CDLL:
     global _HOST_LIB
     if _HOST_LIB is None:
         lib = ctypes.CDLL(str(build_host()))
-        lib.eravm_k1_host.argtypes = [ctypes.POINTER(K1Args)]
+        lib.eravm_k1_host.argtypes = [ctypes.POINTER(K1Args), ctypes.c_int]
         lib.eravm_k1_host.restype = ctypes.c_int
         lib.eravm_k2_host.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_int]
@@ -242,5 +253,8 @@ def load_host() -> ctypes.CDLL:
         lib.eravm_k3_host.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_int]
         lib.eravm_k3_host.restype = ctypes.c_int
+        lib.eravm_ecrecover_host.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int]
+        lib.eravm_ecrecover_host.restype = ctypes.c_int
         _HOST_LIB = lib
     return _HOST_LIB

@@ -101,29 +101,28 @@ def check_slice(config: VmConfig) -> None:
     FAR_CALL and the precompiles, with the memory queue or the rolling
     commitment) and, with `storage_slots > 0`, the LOG family and FAR_CALL
     with their storage, journal and event slots, the log and decommit
-    witness queues, several heap frames and code pages, and the keccak256
-    and sha256 precompile units with their round-witness queue.  LOG and
-    FAR_CALL set `lane_error` when `storage_slots == 0`, and
+    witness queues, several heap frames and code pages, and the keccak256,
+    sha256 and ecrecover precompile units with their round-witness queue.
+    LOG and FAR_CALL set `lane_error` when `storage_slots == 0`, and
     `log.precompile` does while `precompile_keccak_blocks == 0`, exactly as
     the JAX engines do (they turn the units on by the keccak block count
-    alone; sha256 then runs at least one round).
+    alone; sha256 then runs at least one round, and an ecrecover config
+    with sha256 rounds but no keccak blocks runs no unit at all).
 
-    The couplings of the JAX `fused_cycle.supported()` hold: the units need
-    the LOG unit (`storage_slots > 0`), and the precompile queue needs the
-    units.  Still outside: ecrecover, the TPU-only `limb_major_arenas`
-    layout, and the rolling commitment together with a memory queue.
+    The couplings of the JAX `fused_cycle.supported()` hold: ecrecover, the
+    other units and the precompile queue each need the units and the LOG
+    unit (`storage_slots > 0`).  Still outside: the TPU-only
+    `limb_major_arenas` layout, and the rolling commitment together with a
+    memory queue.
     """
     units = config.precompile_keccak_blocks > 0 \
         or config.precompile_sha_rounds > 0
-    if config.precompile_ecrecover:
-        raise NotImplementedError("precompile_ecrecover (K1 slice e)")
     if units and config.storage_slots == 0:
         raise NotImplementedError(
             "the precompile units need the LOG unit (storage_slots > 0)")
-    if config.precompile_queue_capacity and not (units
-                                                 and config.storage_slots):
-        raise NotImplementedError(
-            "the precompile queue needs the precompile units")
+    for name in ("precompile_ecrecover", "precompile_queue_capacity"):
+        if getattr(config, name) and not (units and config.storage_slots):
+            raise NotImplementedError(f"{name} needs the precompile units")
     if config.limb_major_arenas:
         raise NotImplementedError("limb_major_arenas (a TPU-only layout)")
     # the exclusivity rule of fused_cycle.supported(): both modes consume

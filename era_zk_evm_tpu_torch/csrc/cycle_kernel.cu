@@ -1,7 +1,7 @@
 // K1: the K-cycle EraVM interpreter, one thread per lane (CUDA C++, sm_90a).
 //
 // Replaces the TPU kernel era_zk_evm_tpu/models/fused_cycle.py::_build_kernel
-// (:2794, wrapped by _build_call, driven by _run_chunk) for four of its
+// (:2794, wrapped by _build_call, driven by _run_chunk) in all five of its
 // slices.  (a) the memory-witness slice: NOP ADD SUB MUL DIV JUMP CONTEXT
 // SHIFT BINOP PTR NEAR_CALL RET UMA, with register, stack and code
 // addressing, heap and aux heap, the memory witness queue (mode a) or a chunk
@@ -14,9 +14,14 @@
 // units (the TPU kernel's precompile unit, fused_cycle.py:1395-1600), compiled
 // in only for storage_slots > 0 and precompile_keccak_blocks > 0 (template
 // <kLog, kPrecomp>, as the JAX engines' pp_enabled), with the rows of the
-// round-witness queue.  Without kLog, LOG and FAR_CALL set lane_error, as the
-// JAX engine does with storage_slots == 0; without kPrecomp, log.precompile
-// does.  Ecrecover (slice e) is not ported.
+// round-witness queue.  (e) ecrecover (secp256k1.cuh), compiled in only with
+// the units and precompile_ecrecover (template <kLog, kPrecomp, kEc>): the
+// TPU kernel only detects ecrecover cycles (ec_first_blk) and its wrapper
+// runs each on the jnp engine (_run_cycles_fused_ec, :3752); here the lane
+// recovers the signature in the cycle, writes the ok word and the address and
+// two round-witness out rows.  Without kLog, LOG and FAR_CALL set lane_error,
+// as the JAX engine does with storage_slots == 0; without kPrecomp,
+// log.precompile does.
 // Its plain version is era_zk_evm_tpu_torch/models/batched_vm.py::cycle_step;
 // both follow era_zk_evm_tpu/models/batched_vm.py::cycle_step section by
 // section, and the smoke run holds them equal bit for bit.
@@ -65,11 +70,17 @@
 // scratch rows into the queue after the launch (models/fused_cycle.py,
 // splice_precompile_rows), as the TPU kernel's wrapper does (:3529-3588).
 // The units are bound by their operations (a keccak-f per 136-byte block,
-// a sha256 compression per 64-byte round) and by the divergence between
-// keccak lanes, sha256 lanes and the rest of a warp.
+// a sha256 compression per 64-byte round, some 6,500 modular multiplications
+// per ecrecover) and by the divergence between unit lanes and the rest of a
+// warp.  The kEc instance is a fourth one so that the other three keep their
+// code and register allocation; cycle_kernel_ec.cu compiles it, in an nvcc
+// process of its own beside this file's, and the launch chooses it by an
+// argument (a field more in K1Args would grow the param copy in kPrecomp's
+// frame).
 
 #include "common.cuh"
 #include "keccak.cuh"
+#include "secp256k1.cuh"
 #include "sha256.cuh"
 #include "u256.cuh"
 
@@ -139,7 +150,8 @@ struct K1Args {
     int emit_mode;          // 0 no slots, 1 persistent queue, 2 chunk block
     int k_cycles, k_stop;
     int keccak_blocks, sha_rounds;  // the units' limits (MK, MS)
-    int pq_slots_in;        // PS_IN; a call's row block is PS_IN + 1 rows
+    int pq_slots_in;        // PS_IN; a call's row block is PS_IN + PS_OUT
+                            // rows, PS_OUT 2 in the kEc instance, else 1
     int pq_capacity;        // 0: no round-witness queue
 };
 
@@ -329,9 +341,11 @@ HD U256 sha_unit(const K1Args &a, int b, bool on_h, uint32_t slot,
 }
 
 // The precompile unit of one lane's precompile call in cycle c: the
-// keccak256 or sha256 of its input, its round-witness rows in the chunk's
-// scratch block (with emit flag and slot count), then its output word.
-// Returns whether the call sets lane_error.
+// keccak256 or sha256 of its input or, with kEc, the ecrecover of its four
+// input words, its round-witness rows in the chunk's scratch block (with emit
+// flag and slot count), then its output word (ecrecover: the ok word and the
+// address).  Returns whether the call sets lane_error.
+template <bool kEc>
 HD_NOINLINE bool precompile_unit(const K1Args &a, int b, int c,
                                  const uint32_t abi[8], uint32_t addr16,
                                  uint32_t heap_page, uint32_t ts_log,
@@ -339,7 +353,8 @@ HD_NOINLINE bool precompile_unit(const K1Args &a, int b, int c,
     *emit = *nslots = 0;
     const bool is_keccak = addr16 == KECCAK256_ROUND_FUNCTION_PRECOMPILE_ADDRESS;
     const bool is_sha = addr16 == SHA256_ROUND_FUNCTION_PRECOMPILE_ADDRESS;
-    if (!is_keccak && !is_sha) return false;
+    const bool is_ec = kEc && addr16 == ECRECOVER_INNER_FUNCTION_PRECOMPILE_ADDRESS;
+    if (!is_keccak && !is_sha && !is_ec) return false;
     const uint32_t in_off = abi[PP_ABI_IN_OFF], in_len = abi[PP_ABI_IN_LEN];
     const uint32_t out_off = abi[PP_ABI_OUT_OFF], rounds = abi[PP_ABI_ROUNDS];
     const uint32_t page_r = abi[PP_ABI_PAGE_R] ? abi[PP_ABI_PAGE_R] : heap_page;
@@ -350,10 +365,17 @@ HD_NOINLINE bool precompile_unit(const K1Args &a, int b, int c,
     page_slot(a, b, page_w, &w_on_h, &w_on_a, &w_slot);
     bool err = !(r_on_h || r_on_a) || !(w_on_h || w_on_a);
     const uint32_t kc_blocks = in_len / 136u + 1u;
-    U256 out;
+    U256 out, out2 = u256_zero();
     if (is_keccak) {
         err |= kc_blocks > (uint32_t)a.keccak_blocks;
         out = keccak_unit(a, b, r_on_h, r_slot, in_off, in_len, kc_blocks);
+    } else if (is_ec) {
+        // digest, v (the low bit of word 1), r, s at input words 0..3
+        const U256 digest = frame_word(a, b, r_on_h, r_slot, in_off);
+        const uint32_t v = frame_word(a, b, r_on_h, r_slot, in_off + 1).w[0] & 1;
+        out = u256_from32(ecrecover_unit(
+            digest, v, frame_word(a, b, r_on_h, r_slot, in_off + 2),
+            frame_word(a, b, r_on_h, r_slot, in_off + 3), &out2));
     } else {
         err |= rounds > (uint32_t)(a.sha_rounds > 1 ? a.sha_rounds : 1);
         out = sha_unit(a, b, r_on_h, r_slot, in_off, rounds);
@@ -361,49 +383,62 @@ HD_NOINLINE bool precompile_unit(const K1Args &a, int b, int c,
 
     if (a.pq_capacity > 0) {
         // mem_in rows: consecutive words from the call's first word; then
-        // the mem_out row, which carries the round count
+        // the mem_out row, which carries the round count, and with kEc a
+        // second mem_out row (the address; an ecrecover call's only)
         const uint64_t B = a.batch;
         const uint32_t ps_in = a.pq_slots_in;
+        const uint32_t ps_out = kEc ? 2u : 1u;
         const uint32_t first = is_keccak ? in_off >> 5 : in_off;
         const uint32_t kq_words = in_len == 0 ? 0u
             : ((in_off + in_len - 1) >> 5) - (in_off >> 5) + 1;
-        const uint32_t n_words = is_keccak ? kq_words : 2 * rounds;
+        const uint32_t n_words = is_keccak ? kq_words : (is_ec ? 4u : 2 * rounds);
         err |= n_words > ps_in;
-        for (uint32_t i = 0; i <= ps_in; i++) {
-            const bool in_row = i < ps_in, v = in_row ? i < n_words : true;
+        const uint32_t last = ps_in + ps_out - 1;
+        for (uint32_t i = 0; i <= last; i++) {
+            const bool in_row = i < ps_in, second = kEc && i > ps_in;
+            const bool v = in_row ? i < n_words : (second ? is_ec : true);
             const uint32_t idx = first + i;
             const U256 val = !v ? u256_zero()
-                : (in_row ? frame_word(a, b, r_on_h, r_slot, idx) : out);
+                : (in_row ? frame_word(a, b, r_on_h, r_slot, idx)
+                          : (second ? out2 : out));
             const uint32_t meta[4] = {
                 in_row ? ts_log : ts_log + 1, in_row ? 3u : 1u,
-                in_row ? page_r : page_w, in_row ? idx : out_off};
-            const uint64_t row = (uint64_t)c * (ps_in + 1) + i;
+                in_row ? page_r : page_w,
+                in_row ? idx : out_off + (second ? 1u : 0u)};
+            const uint64_t row = (uint64_t)c * (ps_in + ps_out) + i;
             for (int q = 0; q < 4; q++)
                 a.pq_meta_blk[(row * 4 + q) * B + b] = v ? (int32_t)meta[q] : 0;
             for (int l = 0; l < 8; l++)
                 a.pq_value_blk[(row * 8 + l) * B + b] = (int32_t)val.w[l];
+            const uint32_t rounds_q = is_keccak ? kc_blocks : (is_ec ? 1u : rounds);
             a.pq_flags_blk[row * B + b] = !v ? 0
-                : (in_row ? 4 : (int32_t)(5u | ((is_keccak ? kc_blocks : rounds) << 3)));
+                : (in_row ? 4 : (int32_t)(second ? 5u : 5u | (rounds_q << 3)));
         }
         *emit = 1;
-        *nslots = n_words + 1;
+        *nslots = n_words + 1 + is_ec;
     }
 
-    // the output word, after the mem_in reads
+    // the output word(s), after the mem_in reads; u32 index arithmetic, so
+    // an ecrecover window whose second word wraps past 2**32 is in bounds
     const uint32_t W = w_on_h ? a.heap_words : a.aux_heap_words;
-    const bool hw_ok = out_off < W;
+    const bool hw_ok = out_off + (uint32_t)is_ec < W;
     err |= !hw_ok;
     if (hw_ok && (w_on_h || w_on_a)) {
         const uint64_t n = (uint64_t)a.heap_frames * W;
         int32_t *arena = (w_on_h ? a.heap : a.aux_heap) + (uint64_t)b * n * 8;
-        store_word(arena, n, (uint64_t)w_slot * W + out_off, out);
+        if (is_ec) {
+            store_word(arena, n, (uint32_t)(w_slot * W + out_off), out);
+            store_word(arena, n, (uint32_t)(w_slot * W + out_off + 1), out2);
+        } else {
+            store_word(arena, n, (uint64_t)w_slot * W + out_off, out);
+        }
     }
     return err;
 }
 
 // one cycle of one live lane (done lanes never get here); fills the
 // cycle's 8 witness slots and, with kLog, its log and decommit rows
-template <bool kLog, bool kPrecomp>
+template <bool kLog, bool kPrecomp, bool kEc>
 HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
                    LogRow &lr, DecRow &dr) {
     const int D = a.max_depth;
@@ -904,8 +939,8 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     }
     const uint32_t heap_page = base_page + 2, aux_page = base_page + 3;
     if (kPrecomp && do_precomp &&
-        precompile_unit(a, b, c, src0.w, this_addr[0] & 0xFFFF, heap_page,
-                        ts_log, &L.pq_emit, &L.pq_nslots))
+        precompile_unit<kEc>(a, b, c, src0.w, this_addr[0] & 0xFFFF,
+                             heap_page, ts_log, &L.pq_emit, &L.pq_nslots))
         L.lane_error = true;
 
     // ---------------------------------------------------- near call
@@ -1447,7 +1482,7 @@ HD void emit_decommit_row(const K1Args &a, int b, int64_t step,
     L.dq_count += v;
 }
 
-template <bool kLog, bool kPrecomp>
+template <bool kLog, bool kPrecomp, bool kEc = false>
 HD void k1_run_lane(const K1Args &a, int b) {
     Lane L;
     for (int r = 0; r < 15; r++) {
@@ -1496,7 +1531,7 @@ HD void k1_run_lane(const K1Args &a, int b) {
             lr.valid = dr.valid = false;
             L.pq_emit = L.pq_nslots = 0;
         } else {
-            lane_cycle<kLog, kPrecomp>(a, b, c, L, slots, lr, dr);
+            lane_cycle<kLog, kPrecomp, kEc>(a, b, c, L, slots, lr, dr);
         }
         if (kPrecomp && a.pq_capacity > 0) {
             a.pq_emit_blk[(uint64_t)c * a.batch + b] = (int32_t)L.pq_emit;
@@ -1549,23 +1584,31 @@ HD void k1_run_lane(const K1Args &a, int b) {
 }
 
 #ifdef __CUDACC__
-template <bool kLog, bool kPrecomp>
+template <bool kLog, bool kPrecomp, bool kEc>
 __global__ void __launch_bounds__(128) k1_kernel(const K1Args a) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b < a.batch) k1_run_lane<kLog, kPrecomp>(a, b);
+    if (b < a.batch) k1_run_lane<kLog, kPrecomp, kEc>(a, b);
 }
 
-// the instance the config needs (models/fused_cycle.py k1_instance)
-extern "C" int eravm_k1_launch(const K1Args *args, void *stream) {
+#ifndef K1_EC_INSTANCE
+extern "C" int eravm_k1_ec_launch(const K1Args *args, void *stream);
+
+// the instance the config needs (models/fused_cycle.py: precompile_instance,
+// ecrecover_instance)
+extern "C" int eravm_k1_launch(const K1Args *args, int ecrecover,
+                               void *stream) {
     const int threads = 128;
     const int blocks = (args->batch + threads - 1) / threads;
     cudaStream_t s = (cudaStream_t)stream;
+    if (args->storage_slots > 0 && args->keccak_blocks > 0 && ecrecover)
+        return eravm_k1_ec_launch(args, stream);
     if (args->storage_slots > 0 && args->keccak_blocks > 0)
-        k1_kernel<true, true><<<blocks, threads, 0, s>>>(*args);
+        k1_kernel<true, true, false><<<blocks, threads, 0, s>>>(*args);
     else if (args->storage_slots > 0)
-        k1_kernel<true, false><<<blocks, threads, 0, s>>>(*args);
+        k1_kernel<true, false, false><<<blocks, threads, 0, s>>>(*args);
     else
-        k1_kernel<false, false><<<blocks, threads, 0, s>>>(*args);
+        k1_kernel<false, false, false><<<blocks, threads, 0, s>>>(*args);
     return (int)cudaGetLastError();
 }
-#endif
+#endif  // K1_EC_INSTANCE
+#endif  // __CUDACC__

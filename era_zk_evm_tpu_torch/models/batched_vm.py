@@ -10,9 +10,11 @@ journal and its rollback on a panicked pop) and FAR_CALL (code-hash storage
 read, decommit from the code bank, far frames with their heap pages), with
 the log and decommit witness queues; and, with `precompile_keccak_blocks >
 0` as well, the keccak256 and sha256 precompile units with the
-round-witness queue at its batch-global block clock.  Ecrecover is left
-out.  `log.precompile` sets `lane_error` while the units are off, as the
-JAX engine does, and so do LOG and FAR_CALL when `storage_slots == 0`.
+round-witness queue at its batch-global block clock, and with
+`precompile_ecrecover` the ecrecover unit (`ops/secp256k1.py`, run on the
+calling lanes only, in the cycles that have one).  `log.precompile` sets
+`lane_error` while the units are off, as the JAX engine does, and so do LOG
+and FAR_CALL when `storage_slots == 0`.
 
 Every value is computed in int64 holding a u32 (or a bool), and the state
 fields are written back as int32.  `cycle_step` updates the state in place
@@ -37,6 +39,7 @@ from ..config import (
 )
 from ..ops import u256
 from ..ops.keccak import keccak_f1600_lanes
+from ..ops.secp256k1 import ecrecover_batched
 from ..ops.sha256 import sha256_compress_batched, sha256_iv
 from ..ops.u256 import M32, narrow, wide
 from ..witness.rolling import rolling_absorb
@@ -338,14 +341,31 @@ def _sha_unit(state, config, on, r_on_h, r_slot, in_off, rounds):
     return wide(st.flip(1))
 
 
+def _ec_unit(state, config, on, r_on_h, r_slot, in_off):
+    """ecrecover of each `on` lane's four input words (digest, v as the low
+    bit of word 1, r, s), on those lanes only: the ok word and the address
+    (int64 limbs, zero on the other lanes)."""
+    idx = on.nonzero().squeeze(1)
+    digest, v_word, r, s = (
+        _frame_word(state, config, r_on_h, r_slot, (in_off + i) & M32)[idx]
+        for i in range(4))
+    ok, addr = ecrecover_batched(digest, v_word[:, 0] & 1, r, s)
+    ok_word = torch.zeros((config.batch, 8), dtype=I64, device=on.device)
+    ok_word[idx, 0] = ok.to(I64)
+    full = torch.zeros_like(ok_word)
+    full[idx] = addr
+    return ok_word, full
+
+
 def precompile_unit(state, config, src0, this_addr, do_precomp, heap_page,
                     ts_log) -> dict:
-    """The keccak256 / sha256 precompile unit of one cycle (log.rs:252-328
-    and the reference's precompile processor), before any write: ABI
-    decode, the page-slot lookups, the sponge or the rounds, the output word
-    and the lane's row block of the round-witness queue.  The heavy parts
-    run only when some lane calls a unit.  Returns the values the rest of
-    the cycle reads, by name; `pq_rows` is None without a queue."""
+    """The keccak256 / sha256 / ecrecover precompile unit of one cycle
+    (log.rs:252-328 and the reference's precompile processor), before any
+    write: ABI decode, the page-slot lookups, the sponge, the rounds or the
+    recovery, the output word (ecrecover: two) and the lane's row block of
+    the round-witness queue.  The heavy parts run only when some lane calls
+    a unit.  Returns the values the rest of the cycle reads, by name;
+    `pq_rows` is None without a queue."""
     B, dev = config.batch, src0.device
     lane_error = torch.zeros_like(do_precomp)
     in_off, in_len, out_off = src0[:, 0], src0[:, 1], src0[:, 2]
@@ -357,7 +377,10 @@ def precompile_unit(state, config, src0, this_addr, do_precomp, heap_page,
         addr16 == params.KECCAK256_ROUND_FUNCTION_PRECOMPILE_ADDRESS)
     is_sha = do_precomp & (
         addr16 == params.SHA256_ROUND_FUNCTION_PRECOMPILE_ADDRESS)
-    pp_any = is_keccak | is_sha
+    is_ec = do_precomp & (
+        addr16 == params.ECRECOVER_INNER_FUNCTION_PRECOMPILE_ADDRESS) \
+        & config.precompile_ecrecover
+    pp_any = is_keccak | is_sha | is_ec
     key = src0.clone()
     key[:, 4], key[:, 5] = page_r, page_w
     out = dict(lane_error=lane_error, key=key, any=bool(pp_any.any()),
@@ -367,7 +390,7 @@ def precompile_unit(state, config, src0, this_addr, do_precomp, heap_page,
     r_on_h, r_on_a, r_slot = _page_slot(state, config, page_r)
     w_on_h, w_on_a, w_slot = _page_slot(state, config, page_w)
     z8 = torch.zeros((B, 8), dtype=I64, device=dev)
-    out_val = z8
+    out_val = out_val2 = z8
     if out["any"]:
         lane_error |= pp_any & ~(r_on_h | r_on_a)
         lane_error |= pp_any & ~(w_on_h | w_on_a)
@@ -380,12 +403,16 @@ def precompile_unit(state, config, src0, this_addr, do_precomp, heap_page,
         if bool(is_sha.any()):
             out_val = _sel(is_sha, _sha_unit(state, config, is_sha, r_on_h,
                                              r_slot, in_off, rounds), out_val)
-        hw_ok = out_off < torch.where(w_on_h, config.heap_words,
-                                      config.aux_heap_words)
+        if bool(is_ec.any()):
+            ok_word, out_val2 = _ec_unit(state, config, is_ec, r_on_h,
+                                         r_slot, in_off)
+            out_val = _sel(is_ec, ok_word, out_val)
+        hw_ok = ((out_off + is_ec) & M32) < torch.where(
+            w_on_h, config.heap_words, config.aux_heap_words)
         lane_error |= pp_any & ~hw_ok
-        out.update(out_val=out_val, out_off=out_off, w_slot=w_slot,
-                   write_h=pp_any & w_on_h & hw_ok,
-                   write_a=pp_any & w_on_a & hw_ok)
+        out.update(out_val=out_val, out_val2=out_val2, out_off=out_off,
+                   w_slot=w_slot, write_h=pp_any & w_on_h & hw_ok,
+                   write_a=pp_any & w_on_a & hw_ok, is_ec=is_ec)
 
     cap = config.precompile_queue_capacity
     if cap:
@@ -420,14 +447,18 @@ def precompile_unit(state, config, src0, this_addr, do_precomp, heap_page,
                 value[:, i] = _frame_word(state, config, r_on_h, r_slot,
                                           idx) * v[:, None]
                 flags[:, i] = 4 * v
-            meta[:, ps_in] = torch.stack(
-                [(ts_log + 1) & M32, torch.ones_like(ts_log), page_w,
-                 out_off], dim=1) * emit[:, None]
-            value[:, ps_in] = out_val * emit[:, None]
-            flags[:, ps_in] = (5 | ((rounds_q << 3) & M32)) * emit
+            for j, (v, val) in enumerate(((emit, out_val),
+                                          (emit & is_ec, out_val2))[:ps_out]):
+                meta[:, ps_in + j] = torch.stack(
+                    [(ts_log + 1) & M32, torch.ones_like(ts_log), page_w,
+                     (out_off + j) & M32], dim=1) * v[:, None]
+                value[:, ps_in + j] = val * v[:, None]
+                # the round count rides on the first out row
+                rq = 0 if j else (rounds_q << 3) & M32
+                flags[:, ps_in + j] = (5 | rq) * v
         out.update(pq_rows=(meta, value, flags),
                    pq_base=min(blocks0 * ps, cap - ps),
-                   pq_count=torch.where(emit, n_words + 1, 0),
+                   pq_count=torch.where(emit, n_words + 1 + is_ec, 0),
                    pq_blocks=int(out["any"]))
     return out
 
@@ -1282,13 +1313,15 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
     _put_word(state.aux_heap, (a_base + word1) & M32, new_w1,
               w_aux0 & is_unaligned)
     if pp is not None and pp["any"]:
-        # the precompile's output word
-        _put_word(state.heap, (pp["w_slot"] * config.heap_words
-                               + pp["out_off"]) & M32, pp["out_val"],
-                  pp["write_h"])
-        _put_word(state.aux_heap, (pp["w_slot"] * config.aux_heap_words
-                                   + pp["out_off"]) & M32, pp["out_val"],
-                  pp["write_a"])
+        # the precompile's output word, and an ecrecover call's second
+        for j, val in enumerate((pp["out_val"], pp["out_val2"])):
+            on = pp["is_ec"] if j else torch.ones_like(pp["is_ec"])
+            _put_word(state.heap, (pp["w_slot"] * config.heap_words
+                                   + pp["out_off"] + j) & M32, val,
+                      pp["write_h"] & on)
+            _put_word(state.aux_heap, (pp["w_slot"] * config.aux_heap_words
+                                       + pp["out_off"] + j) & M32, val,
+                      pp["write_a"] & on)
     if pp is not None and pp["pq_rows"] is not None:
         base, ps = pp["pq_base"], pp["pq_rows"][2].shape[1]
         for arr, rows in zip((state.pq_meta, state.pq_value, state.pq_flags),

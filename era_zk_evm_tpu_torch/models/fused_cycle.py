@@ -3,7 +3,10 @@
 The counterpart of `era_zk_evm_tpu/models/fused_cycle.py::run_cycles_fused`
 for the ported slice, storage-enabled configs included (K1 then also reads
 and writes the storage, journal, event, code-bank, frame and log / decommit
-queue tensors) and the keccak256 / sha256 precompile units.  `run_cycles`
+queue tensors) and the keccak256 / sha256 / ecrecover precompile units.
+Where the JAX package detours each ecrecover cycle through its jnp engine
+(`_run_cycles_fused_ec`), K1's ecrecover instance runs it in the launch, so
+`run_cycles(n)` is one launch per chunk for every config.  `run_cycles`
 runs `n_cycles` in chunks of `k_inner`: each chunk is one K1 launch
 (`cycle_chunk`) and, with the rolling commitment on, one K2 launch
 (`rolling_fold`) over the chunk's slot block.  With a precompile queue, K1
@@ -16,7 +19,8 @@ for CPU tensors: `models/batched_vm.cycle_step` for K1,
 `witness/rolling.rolling_absorb` for K2.  On a CUDA tensor a wrapper
 launches its kernel or raises; there is no fallback.  `K1_LAUNCHES` and
 `K2_LAUNCHES` count kernel launches (never plain-version calls);
-`K1_PRECOMPILE_LAUNCHES` counts the K1 launches of the precompile instance.
+`K1_PRECOMPILE_LAUNCHES` and `K1_ECRECOVER_LAUNCHES` count the K1 launches
+of the precompile instance (kPrecomp) and of the ecrecover instance (kEc).
 """
 
 from __future__ import annotations
@@ -36,14 +40,21 @@ from .state import BOOL_FIELDS, BatchedVmState
 
 K1_LAUNCHES = 0
 K1_PRECOMPILE_LAUNCHES = 0
+K1_ECRECOVER_LAUNCHES = 0
 K2_LAUNCHES = 0
 
 
 def precompile_instance(config: VmConfig) -> bool:
-    """Whether K1 runs its precompile instance (kPrecomp): the units are on
+    """Whether K1 runs a precompile instance (kPrecomp): the units are on
     when the LOG unit is and `precompile_keccak_blocks > 0`, as in the JAX
     engines."""
     return config.storage_slots > 0 and config.precompile_keccak_blocks > 0
+
+
+def ecrecover_instance(config: VmConfig) -> bool:
+    """Whether K1 runs its fourth instance (kEc), the precompile instance
+    with the ecrecover unit."""
+    return precompile_instance(config) and config.precompile_ecrecover
 
 
 def _k1_fields(config: VmConfig) -> list[tuple[str, str, tuple]]:
@@ -263,7 +274,7 @@ def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
     their queue, the round-witness rows go through `pq_block` (allocated
     here when not given) and `splice_precompile_rows`.
     """
-    global K1_LAUNCHES, K1_PRECOMPILE_LAUNCHES
+    global K1_LAUNCHES, K1_PRECOMPILE_LAUNCHES, K1_ECRECOVER_LAUNCHES
     check_slice(config)
     n = k_cycles if k_stop is None else min(k_cycles, k_stop)
     if config.rolling_commitment and block is None:
@@ -286,11 +297,14 @@ def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
     step0 = state.global_step.min()   # stays on the device: no host sync
     args = k1_args(state, config, k_cycles, n, block, step0, pq_block)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = load().eravm_k1_launch(ctypes.byref(args), ctypes.c_void_p(stream))
+    ec = ecrecover_instance(config)
+    rc = load().eravm_k1_launch(ctypes.byref(args), ec,
+                                ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     K1_LAUNCHES += 1
-    K1_PRECOMPILE_LAUNCHES += precompile_instance(config)
+    K1_PRECOMPILE_LAUNCHES += precompile_instance(config) and not ec
+    K1_ECRECOVER_LAUNCHES += ec
     if pq_block is not None:
         splice_precompile_rows(state, config, pq_block, n)
     return state

@@ -158,3 +158,20 @@ def keccak_f1600(states: torch.Tensor, iters: int = 1) -> torch.Tensor:
     if states.device.type == "cpu":
         return keccak_f1600_plain(states, iters)
     return keccak_f1600_(states.contiguous().clone(), iters)
+
+
+def keccak256(data: bytes) -> bytes:
+    """keccak256 of a byte string (the 0x01 padding of the original keccak,
+    not SHA3), on the CPU with the plain permutation."""
+    rate = 136
+    padded = bytearray(data) + b"\x01" + bytes(-(len(data) + 1) % rate)
+    padded[-1] |= 0x80
+    lanes = torch.zeros((25, 1), dtype=torch.int64)
+    for start in range(0, len(padded), rate):
+        block = padded[start:start + rate]
+        lanes[:17, 0] ^= torch.tensor(
+            [int.from_bytes(block[8 * i:8 * i + 8], "little", signed=True)
+             for i in range(17)], dtype=torch.int64)
+        lanes = keccak_f1600_lanes(lanes)
+    return b"".join(int(x).to_bytes(8, "little", signed=True)
+                    for x in lanes[:4, 0])

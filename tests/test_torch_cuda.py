@@ -1,5 +1,6 @@
-"""K1 (all three instances), K2 and K3 against their plain versions on a
-CUDA card, and execute_block on the card against the same call on the CPU.
+"""K1 (all four instances), K2 and K3 against their plain versions on a
+CUDA card, and execute_block on the card against the same call on the CPU
+(the keccak256 / sha256 mix and the signed-transfer mix).
 
 Imports no jax, so it also runs on the GPU machine, where the suite's
 conftest (which configures jax) cannot load:
@@ -16,7 +17,9 @@ from era_zk_evm_tpu_torch.models import batched_vm, fused_cycle
 from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.ops import keccak
 from era_zk_evm_tpu_torch import block
-from era_zk_evm_tpu_torch.testing import block_programs, log_programs, programs
+from era_zk_evm_tpu_torch.testing import (
+    block_programs, ec_programs, log_programs, programs,
+)
 from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb
 
 
@@ -154,19 +157,43 @@ def test_k1_precompile_matches_plain(cuda, k_inner):
     assert ks.pq_count.any()
 
 
+def _ec_config(batch, chunk=32):
+    # tests/test_torch_ecrecover.py::ec_config at `batch` lanes
+    return VmConfig(batch=batch, code_words=64, stack_words=2048,
+                    heap_words=64, max_depth=8, queue_capacity=96 * 8,
+                    storage_slots=16, journal_slots=32, event_slots=32,
+                    log_queue_capacity=96, heap_frames=2, code_pages=2,
+                    decommit_queue_capacity=96, precompile_keccak_blocks=3,
+                    precompile_sha_rounds=3, precompile_ecrecover=True,
+                    precompile_queue_capacity=chunk * 16)
+
+
 @pytest.mark.cuda
-def test_execute_block_on_the_card_matches_the_cpu(cuda):
-    txs = [block.TxSpec(program=programs.assemble(src), ergs=1 << 22,
-                        entry_address=entry, cost_hint=n)
-           for entry, src, n, _ in block_programs.precompile_mix(40, seed=3)]
-    kw = dict(chunk=32, order="cost_desc", refill_frac=0.25,
-              tail_chunk_mult=1, adaptive_chunk=True,
-              drain_compact_frac={"memory": 0.5, "log": 0.5, "decommit": 0.5,
-                                  "precompile": 0.5})
-    config = _precompile_config(8)
-    before = fused_cycle.K1_PRECOMPILE_LAUNCHES
+@pytest.mark.parametrize("k_inner", [8, 32])
+def test_k1_ecrecover_matches_plain(cuda, k_inner):
+    # the kEc instance on the ecrecover programs and the signed-transfer
+    # mix, 64 cycles, against the plain cycle step on the card
+    lanes = ec_programs.EC_LANES + [
+        (e, src) for e, src, *_ in ec_programs.ecrecover_mix(17, seed=3)]
+    config = _ec_config(len(lanes))
+    ks = pstate.make_entry_state(
+        config, [programs.assemble(src) for _, src in lanes], ergs=1 << 20,
+        entry_address=[e for e, _ in lanes], device=cuda)
+    ps = pstate.clone_state(ks)
+    before = fused_cycle.K1_ECRECOVER_LAUNCHES
+    fused_cycle.run_cycles(ks, config, 64, k_inner=k_inner)
+    assert fused_cycle.K1_ECRECOVER_LAUNCHES - before == -(-64 // k_inner)
+    batched_vm.run_cycles(ps, config, 64)
+    a, b = pstate.state_to_numpy(ks), pstate.state_to_numpy(ps)
+    bad = [k for k in a if not (a[k] == b[k]).all()]
+    assert not bad, f"kernel/plain mismatch in fields: {bad}"
+    assert ks.pq_count.any()
+
+
+def _block_on_card_and_cpu(cuda, config, txs, kw, counter):
+    before = getattr(fused_cycle, counter)
     got = block.execute_block(config, txs, device=cuda, **kw)
-    assert fused_cycle.K1_PRECOMPILE_LAUNCHES > before
+    assert getattr(fused_cycle, counter) > before
     want = block.execute_block(config, txs, device="cpu", **kw)
     assert got.all_ok and want.all_ok
     for a, b in zip(want.txs, got.txs):
@@ -180,3 +207,31 @@ def test_execute_block_on_the_card_matches_the_cpu(cuda):
     assert want.commitments == got.commitments
     assert want.sorted_log_products == got.sorted_log_products
     assert want.block_log_product == got.block_log_product
+
+
+@pytest.mark.cuda
+def test_execute_block_on_the_card_matches_the_cpu(cuda):
+    txs = [block.TxSpec(program=programs.assemble(src), ergs=1 << 22,
+                        entry_address=entry, cost_hint=n)
+           for entry, src, n, _ in block_programs.precompile_mix(40, seed=3)]
+    kw = dict(chunk=32, order="cost_desc", refill_frac=0.25,
+              tail_chunk_mult=1, adaptive_chunk=True,
+              drain_compact_frac={"memory": 0.5, "log": 0.5, "decommit": 0.5,
+                                  "precompile": 0.5})
+    _block_on_card_and_cpu(cuda, _precompile_config(8), txs, kw,
+                           "K1_PRECOMPILE_LAUNCHES")
+
+
+@pytest.mark.cuda
+def test_execute_block_ecrecover_on_the_card_matches_the_cpu(cuda):
+    # 16 signed transfers on 8 lanes, refilled at half the lanes (so the
+    # plain CPU run recovers in few distinct cycles)
+    txs = [block.TxSpec(program=programs.assemble(src), ergs=1 << 22,
+                        entry_address=entry, cost_hint=n)
+           for entry, src, n, *_ in ec_programs.ecrecover_mix(16, seed=3)]
+    kw = dict(chunk=32, order="cost_desc", refill_frac=0.5,
+              tail_chunk_mult=1, adaptive_chunk=True,
+              drain_compact_frac={"memory": 0.5, "log": 0.5, "decommit": 0.5,
+                                  "precompile": 0.5})
+    _block_on_card_and_cpu(cuda, _ec_config(8), txs, kw,
+                           "K1_ECRECOVER_LAUNCHES")

@@ -3,9 +3,10 @@ against the port's plain torch versions, bit for bit.
 
 The wrappers never take this build (on CPU tensors they run the plain
 versions); it checks the kernel sources' lane logic where no card or nvcc
-exists: K1's memory-witness body, its storage-enabled (kLog) body and its
-precompile (kPrecomp) body with the round-witness splice, K2's fold and
-K3's chained permutation.  The kernels themselves are held against
+exists: K1's memory-witness body, its storage-enabled (kLog) body, its
+precompile (kPrecomp) body with the round-witness splice and its ecrecover
+(kEc) body, the ecrecover unit alone, K2's fold and K3's chained
+permutation.  The kernels themselves are held against
 the plain versions on the card by chip_smoke.py.
 """
 
@@ -23,7 +24,10 @@ from era_zk_evm_tpu_torch.config import (
 from era_zk_evm_tpu_torch.models import fused_cycle
 from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.ops import keccak
-from era_zk_evm_tpu_torch.testing import block_programs, log_programs, programs
+from era_zk_evm_tpu_torch.ops import secp256k1
+from era_zk_evm_tpu_torch.testing import (
+    block_programs, ec_programs, log_programs, programs,
+)
 from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb
 
 from test_batched_vm import (
@@ -31,7 +35,9 @@ from test_batched_vm import (
     PTR_PROGRAMS, STACK_PROGRAMS, UMA_PROGRAMS,
 )
 from test_fused_cycle import _log_config
+from test_torch_ecrecover import LANE_PROGRAMS, ec_config
 from test_torch_precompile import _shifted, precompile_config
+from test_torch_secp256k1 import _edge_cases, _random_cases
 
 PROGRAMS = (BASIC_PROGRAMS + CONTROL_FLOW + STACK_PROGRAMS + UMA_PROGRAMS
             + CALL_PROGRAMS + CONTEXT_PROGRAMS + PTR_PROGRAMS
@@ -61,7 +67,8 @@ def _host_run(host, st, config, n_cycles, k_inner):
         k = min(k_inner, n_cycles - done)
         step0 = st.global_step.min()
         args = fused_cycle.k1_args(st, config, k, k, block, step0, pq_block)
-        assert host.eravm_k1_host(ctypes.byref(args)) == 0
+        assert host.eravm_k1_host(
+            ctypes.byref(args), fused_cycle.ecrecover_instance(config)) == 0
         if pq_block is not None:
             fused_cycle.splice_precompile_rows(st, config, pq_block, k)
         if block is not None:
@@ -189,3 +196,43 @@ def test_k3_host_build_matches_plain(host, iters):
     got = states.clone()
     assert host.eravm_k3_host(got.data_ptr(), got.shape[0], iters) == 0
     assert torch.equal(got, keccak.keccak_f1600(states, iters))
+
+
+def test_ecrecover_unit_host_build_matches_plain(host):
+    # csrc/secp256k1.cuh's ecrecover_unit against ops/secp256k1.py on random
+    # signatures and every edge case
+    cases = _random_cases(16, 31) + _edge_cases()
+    digest, r, s = (torch.tensor(
+        [secp256k1.to_limbs(c[i]) for c in cases], dtype=torch.int64)
+        .to(torch.int32) for i in (0, 2, 3))
+    v = torch.tensor([c[1] for c in cases], dtype=torch.int32)
+    ok = torch.zeros(len(cases), dtype=torch.int32)
+    addr = torch.zeros((len(cases), 8), dtype=torch.int32)
+    assert host.eravm_ecrecover_host(
+        digest.data_ptr(), v.data_ptr(), r.data_ptr(), s.data_ptr(),
+        ok.data_ptr(), addr.data_ptr(), len(cases)) == 0
+    want_ok, want_addr = secp256k1.ecrecover_batched(digest, v, r, s)
+    assert torch.equal(ok != 0, want_ok)
+    assert torch.equal(addr.to(torch.int64) & 0xFFFFFFFF, want_addr)
+    assert 16 <= int(ok.sum()) < len(cases)
+
+
+@pytest.mark.parametrize("case,queue", [("programs", True),
+                                        ("programs", False), ("mix", True)])
+def test_k1_ecrecover_host_build_matches_plain(host, case, queue):
+    # the kEc body on the ecrecover programs (chunks of 8 cycles, the
+    # round-witness rows spliced after each) and on the signed-transfer mix
+    config = from_jax_config(ec_config())
+    if not queue:
+        config = dataclasses.replace(config, precompile_queue_capacity=0)
+    lanes = LANE_PROGRAMS if case == "programs" else [
+        (e, src) for e, src, *_ in ec_programs.ecrecover_mix(config.batch)]
+    plain = pstate.make_entry_state(
+        config, [programs.assemble(src) for _, src in lanes], ergs=1 << 20,
+        entry_address=[e for e, _ in lanes], device="cpu")
+    kern = pstate.clone_state(plain)
+    fused_cycle.run_cycles(plain, config, 64, k_inner=8)
+    _host_run(host, kern, config, 64, 8)
+    _assert_same(plain, kern)
+    assert bool(kern.pq_count.any()) == queue
+    assert int(kern.lane_error.sum()) == (case == "programs")

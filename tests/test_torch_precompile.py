@@ -135,17 +135,23 @@ _RUNS_AN_ENGINE = ("diff_run", "self.", "run_cycles", "make_entry_state",
                    "assert")
 
 
-def _method_programs(func) -> list[str]:
+def _method_programs(func, self_obj=None) -> list[str]:
     """The program sources written as string literals in a test method, in
     source order, evaluated with the method's own local definitions (its
-    statements are replayed up to the engine runs, which are skipped)."""
+    statements are replayed up to the engine runs, which are skipped).
+    With `self_obj`, statements that call the test class's helpers run
+    too, on that instance."""
     module = inspect.getmodule(func)
     tree = ast.parse(textwrap.dedent(inspect.getsource(func)))
     body = tree.body[0].body
     ns = dict(vars(module))
+    skip = _RUNS_AN_ENGINE
+    if self_obj is not None:
+        ns["self"] = self_obj
+        skip = tuple(w for w in skip if w != "self.")
     for stmt in body:
         src = ast.unparse(stmt)
-        if any(word in src for word in _RUNS_AN_ENGINE):
+        if any(word in src for word in skip):
             continue
         try:
             exec(compile(ast.Module([stmt], []), "<test>", "exec"), ns)
