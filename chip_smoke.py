@@ -26,6 +26,17 @@ Phases, one line each; any failure raises and the exit code is nonzero:
   K3            chained keccak-f against plain at N = 131072 x 1 and
                 65536 x 4; times at bench_keccak's and
                 bench_keccak_u32pair's shapes;
+  P1 ... P7     the tool probes (era_zk_evm_tpu_torch/tools/): each kernel
+                against its plain version on the card, small and at the
+                tools' shapes where the plain version is quick; then the
+                tools' entry points (`main`) with the launch counts, and
+                CUDA-event times at the JAX tools' default shapes (P1
+                131072 x 128, tile 2048; P2 / P5 G8 = 128 and 4096; P3 8
+                rows, inner 512, iters 65536 on 132 x 2048 columns, with
+                its loop's SASS instructions a step; P4 4096 rounds; P6 W =
+                TB = 256 and TB = 32768, REPS 512, the tool's index and a
+                random one, in the tool's batch-last arena and in K1's
+                lane-major one; P7 B = 32768, 16 slots, every variant);
   K1-wave-segment  the witness wave's first 256-cycle segment, B = 4096,
                 kernel vs plain over the whole batch;
   witness-wave  the log family's witness path at bench_block's tiny-mix
@@ -72,6 +83,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -101,6 +116,7 @@ from era_zk_evm_tpu_torch.testing.programs import (
     assemble, farcall_callee, farcall_caller, tiny_mix_program,
 )
 from era_zk_evm_tpu_torch.testing.wave import run_wave, wave_commitments
+from era_zk_evm_tpu_torch.tools import bisect_fold, probe_keccak, probe_uniform
 from era_zk_evm_tpu_torch.witness.rolling import (
     finalize_rolling, rolling_absorb,
 )
@@ -149,6 +165,33 @@ BLOCK_KNOBS = dict(chunk=64, k_inner=64, refill_frac=0.25, order="cost_desc",
 #: phase (a timed and a profiled run) stays near a minute on the card
 REALISTIC_CHUNK, REALISTIC_TXS = 128, 2 * 4096
 SECTOR = 32                                   # bytes of one DRAM sector
+#: the probes' shapes: the JAX tools' defaults (tools/probe_keccak.py main,
+#: probe_vpu_rate, probe_round_rate; tools/probe_mosaic_uniform.py;
+#: tools/bisect_fold.py), and card-filling sizes where the tool's is a
+#: block or two
+P_BATCH, P_ITERS, P_TILE = 131072, 128, 2048
+P_G8 = (128, 4096)
+P3_ROWS, P3_INNER, P3_ITERS = 8, 512, 65536
+P3_COLS = 132 * 2048           # columns: 2048 threads on each of 132 SMs
+P3_ROW_ITERS = 64              # the kernels line's P3 shape: plain runs it
+P4_ITERS, P4_TILE, P4_COLS = 4096, 1024, 132 * 512
+P6_W, P6_TBS, P6_REPS = 256, (256, 32768), 512
+#: int32 operations of one bit-sliced keccak round of 32 states (a u32
+#: column), 3-input logic ops counted as one: the parities 640 (two 3-input
+#: XORs each), theta 1600 (a 3-input XOR a plane), chi 1600 (a LOP3 a
+#: plane); iota and the renamings rho and pi left out
+BITSLICE_ROUND_OPS = 640 + 1600 + 1600
+#: int32 operations of one P3 row-step on the card: rotl1 is one funnel
+#: shift, a ^ (~b & c) one LOP3
+P3_CARD_OPS = {"xor": 1, "mix": 2, "andnot": 1}
+#: each probe's launch count: (module, counter)
+PROBE_COUNTS = {"P1": (probe_keccak, "P1_LAUNCHES"),
+                "P2": (probe_keccak, "P2_LAUNCHES"),
+                "P3": (probe_keccak, "P3_LAUNCHES"),
+                "P4": (probe_keccak, "P4_LAUNCHES"),
+                "P5": (probe_keccak, "P5_LAUNCHES"),
+                "P6": (probe_uniform, "P6_LAUNCHES"),
+                "P7": (bisect_fold, "P7_LAUNCHES")}
 
 
 def bench_config(batch: int, rolling: bool) -> VmConfig:
@@ -552,6 +595,315 @@ def block_fields(blk, wall: float, n_txs: int) -> dict:
             "all_ok": blk.all_ok,
             "families": ",".join(sorted(blk.commitments)),
             **{f"host_{k}": v for k, v in blk.stats["profile"].items()}}
+
+
+def p3_sass_per_step(lib_path) -> dict:
+    """SASS instructions a step of P3's main loop at 8 rows, by op, read
+    with cuobjdump from the built library: (all, the logic ones: LOP3 and
+    the funnel shift SHF) in the first loop, the unrolled one, over the
+    steps a trip (eravm_p3_unroll); {} where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    unroll = _build.load().eravm_p3_unroll()
+    out = {}
+    for op, code in (("xor", 0), ("mix", 1), ("andnot", 2)):
+        m = re.search(rf"Function : \S*p3_kernelILi{code}ELi8E\S*\n(.*?)"
+                      r"(?=\n\s*Function :|\Z)", sass, re.S)
+        if not m:
+            continue
+        offsets, logic, labels, branches, pending = [], [], {}, [], []
+        for line in m.group(1).splitlines():
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            if label:
+                pending.append(label.group(1))
+                continue
+            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if not ins:
+                continue
+            off = int(ins.group(1), 16)
+            labels.update((name, off) for name in pending)
+            pending = []
+            offsets.append(off)
+            words = ins.group(2).split()          # [@predicate] opcode ...
+            opcode = words[1] if words[0].startswith("@") else words[0]
+            if opcode.split(".")[0] in ("LOP3", "LOP", "SHF"):
+                logic.append(off)
+            br = re.search(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)",
+                           ins.group(2))
+            if br:
+                branches.append((off, br.group(1)))
+        loops = []
+        for off, target in branches:
+            t = int(target, 16) if target.startswith("0x") \
+                else labels.get(target)
+            if t is not None and t < off:
+                loops.append((sum(t <= o <= off for o in offsets),
+                               sum(t <= o <= off for o in logic)))
+        if loops:   # the unrolled loop comes first, its remainder after
+            n_all, n_logic = loops[0]
+            out[op] = (n_all / unroll, n_logic / unroll)
+    return out
+
+
+def p7_permutations(flags: torch.Tensor, count: torch.Tensor,
+                    variant: str) -> int:
+    """Permutations the fold P7 runs on these inputs."""
+    c, n = count.clone(), 0
+    for flg in flags:
+        valid = (flg & 4) != 0
+        wrap = ((flg >> 2) & c & 1) != 0
+        n += int((valid if variant == "old" else wrap).sum())
+        c = c + valid.to(torch.int32)
+    return n
+
+
+def probe_phases(dev, sm_mhz: float, lib_path) -> dict:
+    """The tool probes P1-P7: each kernel against its plain version on the
+    card; times at the tools' shapes; then the tools' entry points, the
+    probes' main path, with the launch counts zeroed just before.  Returns
+    {probe: (launches, max abs err, ms, plain ms, bound)} for the kernels
+    line."""
+    pk, pu, bf = probe_keccak, probe_uniform, bisect_fold
+    gen = torch.Generator().manual_seed(21)
+
+    def rand(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    def best_ms(fn, reps=3):
+        fn()
+        return min(timed_ms(fn) for _ in range(reps))
+
+    def check(what, got, want):
+        return require_equal(what, {"out": got}, {"out": want})
+
+    rows = {}
+    # -- P1 ----------------------------------------------------------------
+    st = rand(P_BATCH, 25, 2)
+    err = 0
+    for tile, unroll in ((64, 1), (512, 2), (P_TILE, 4)):
+        small = st[:4096]
+        err = max(err, check(f"P1 tile={tile} unroll={unroll}",
+                             pk.keccak_rows2d(small, 4, tile, unroll),
+                             keccak.keccak_f1600_plain(small, 4)))
+    box = {}
+    ms = best_ms(lambda: box.__setitem__("k", pk.keccak_rows2d(
+        st, P_ITERS, P_TILE)))
+    plain_ms = timed_ms(lambda: box.__setitem__(
+        "p", keccak.keccak_f1600_plain(st, P_ITERS)))
+    err = max(err, check("P1 131072 x 128", box["k"], box["p"]))
+    # the probe tools' other rows2d instance, at the same shape
+    err = max(err, check("P1 131072 x 128 tile=512 unroll=2",
+                         pk.keccak_rows2d(st, P_ITERS, 512, 2), box["p"]))
+    k3_ms = best_ms(lambda: keccak.keccak_f1600(st, P_ITERS))
+    rows["P1"] = [err, ms, plain_ms, bound_ms(
+        2 * P_BATCH * 200, P_BATCH * P_ITERS * KECCAK_OPS, sm_mhz)]
+    phase("P1", batch=P_BATCH, iters=P_ITERS, tile=P_TILE, equal=True,
+          ms=round(ms, 3), plain_ms=round(plain_ms, 1),
+          bound_ms=round(rows["P1"][3][0], 3), k3_same_shape_ms=round(k3_ms, 3),
+          perms_per_sec=P_BATCH * P_ITERS / (ms / 1e3))
+    del st, box
+
+    # -- P2 / P5 -----------------------------------------------------------
+    # the planes of random states, so that each output is held against its
+    # plain version and, through planes_to_states, against K3
+    times = {}
+    for g8 in P_G8:
+        states = rand(256 * g8, 25, 2)
+        planes = pk.states_to_planes(states)
+        cols = 8 * g8
+        bound = bound_ms(2 * 6400 * cols,
+                         cols * 24 * P_ITERS * BITSLICE_ROUND_OPS, sm_mhz)
+        if g8 == P_G8[0]:       # checked at the timed shape
+            box = {}
+            plain_ms = timed_ms(lambda: box.__setitem__(
+                "p", pk.keccak_bitslice_plain(planes, P_ITERS)))
+            k3 = keccak.keccak_f1600(states, P_ITERS)
+        else:                   # checked at one permutation, then timed
+            want = pk.keccak_bitslice_plain(planes, 1)
+            k3 = keccak.keccak_f1600(states, 1)
+        for name, f in (("P2", pk.keccak_bitslice),
+                        ("P5", pk.keccak_bitslice_fused)):
+            if g8 == P_G8[0]:
+                ms = best_ms(lambda: box.__setitem__("k", f(planes, P_ITERS)),
+                             reps=1)
+                err = max(check(f"{name} G8={g8}", box["k"], box["p"]),
+                          check(f"{name} G8={g8} against K3",
+                                pk.planes_to_states(box["k"]), k3))
+                rows[name] = [err, ms, plain_ms, bound]
+            else:
+                got = f(planes, 1)
+                err = max(rows[name][0],
+                          check(f"{name} G8={g8}", got, want),
+                          check(f"{name} G8={g8} against K3",
+                                pk.planes_to_states(got), k3))
+                del got
+                ms = timed_ms(lambda: f(planes, P_ITERS))
+                rows[name][0] = err
+            times[(name, g8)] = (ms, bound[0])
+        del planes, states, k3
+    phase("P2-P5", iters=P_ITERS, equal=True, **{
+        f"{n}_g{g}_ms": round(t[0], 3) for (n, g), t in times.items()}, **{
+        f"{n}_g{g}_perms_per_sec": 256 * g * P_ITERS / (t[0] / 1e3)
+        for (n, g), t in times.items()}, **{
+        f"g{g}_bound_ms": round(t[1], 4) for (n, g), t in times.items()},
+        plain_g128_ms=round(rows["P2"][2], 1))
+
+    # -- P3 ----------------------------------------------------------------
+    sass = p3_sass_per_step(lib_path)
+    peak = INT32_LANES * sm_mhz * 1e6
+    steps = P3_ITERS * (P3_INNER // P3_ROWS)
+    fields = {}
+    for op in ("xor", "mix", "andnot"):
+        x = rand(P3_ROWS, P3_COLS)
+        box = {}
+        ms = best_ms(lambda: box.__setitem__("k", pk.alu_chain(
+            x, op, P3_INNER, P3_ROW_ITERS)))
+        plain_ms = timed_ms(lambda: box.__setitem__("p", pk.alu_chain_plain(
+            x, op, P3_INNER, P3_ROW_ITERS)))
+        err = check(f"P3 {op}", box["k"], box["p"])
+        # the probe tools' shape: 1024 columns as [8, 8, 128]
+        narrow = x[:, :1024].reshape(P3_ROWS, 8, 128)
+        err = max(err, check(
+            f"P3 {op} 1024 columns",
+            pk.alu_chain(narrow, op, P3_INNER, P3_ROW_ITERS),
+            pk.alu_chain_plain(narrow, op, P3_INNER, P3_ROW_ITERS)))
+        row_steps = P3_ROW_ITERS * (P3_INNER // P3_ROWS)
+        bound = bound_ms(2 * 4 * P3_ROWS * P3_COLS, row_steps * P3_ROWS
+                         * P3_COLS * P3_CARD_OPS[op], sm_mhz)
+        if op == "andnot":
+            rows["P3"] = [err, ms, plain_ms, bound]
+        full_s = timed_ms(lambda: pk.alu_chain(x, op, P3_INNER,
+                                               P3_ITERS)) / 1e3
+        fields[f"{op}_ms"] = round(full_s * 1e3, 3)
+        fields[f"{op}_ops_per_sec"] = steps * P3_ROWS \
+            * pk.OPS_PER_STEP[op] * P3_COLS / full_s
+        fields[f"{op}_card_ops_vs_peak"] = round(
+            steps * P3_ROWS * P3_CARD_OPS[op] * P3_COLS / full_s / peak, 4)
+        if op in sass:
+            n_all, n_logic = sass[op]
+            fields[f"{op}_sass_per_step"] = n_all
+            fields[f"{op}_logic_per_step"] = n_logic
+            fields[f"{op}_instr_per_sec"] = n_all * steps * P3_COLS / full_s
+            fields[f"{op}_logic_per_sec"] = \
+                n_logic * steps * P3_COLS / full_s
+            fields[f"{op}_logic_vs_peak"] = round(
+                n_logic * steps * P3_COLS / full_s / peak, 4)
+        else:
+            fields[f"{op}_sass_per_step"] = "not measured"
+        del x
+    phase("P3", rows=P3_ROWS, inner=P3_INNER, iters=P3_ITERS,
+          columns=P3_COLS, equal=True, int32_peak_per_sec=peak, **fields)
+
+    # -- P4 ----------------------------------------------------------------
+    x = rand(P4_TILE, 25, 2)
+    box = {}
+    ms = best_ms(lambda: box.__setitem__("k", pk.round_chain(x, P4_ITERS)))
+    plain_ms = timed_ms(lambda: box.__setitem__(
+        "p", pk.round_chain_plain(x, P4_ITERS)))
+    err = check("P4", box["k"], box["p"])
+    rows["P4"] = [err, ms, plain_ms, bound_ms(
+        2 * P4_TILE * 200, P4_TILE * P4_ITERS * KECCAK_OPS // 24, sm_mhz)]
+    big = rand(P4_COLS, 25, 2)
+    big_ms = best_ms(lambda: pk.round_chain(big, P4_ITERS), reps=1)
+    big_bound = bound_ms(2 * P4_COLS * 200,
+                         P4_COLS * P4_ITERS * KECCAK_OPS // 24, sm_mhz)
+    phase("P4", iters=P4_ITERS, tile=P4_TILE, equal=True, ms=round(ms, 3),
+          plain_ms=round(plain_ms, 1), bound_ms=round(rows["P4"][3][0], 4),
+          perm_equiv_per_sec=P4_TILE * P4_ITERS / 24 / (ms / 1e3),
+          states_full=P4_COLS, ms_full=round(big_ms, 3),
+          bound_ms_full=round(big_bound[0], 3),
+          perm_equiv_per_sec_full=P4_COLS * P4_ITERS / 24 / (big_ms / 1e3))
+    del x, big, box
+
+    # -- P6 ----------------------------------------------------------------
+    # the tool's batch-last arena [8, W, TB] and K1's lane-major [TB, 8, W];
+    # bound: the gathered elements, the index and the output once, and one
+    # operation an output (REPS a power of two: the sum is a shift)
+    fields, err = {}, 0
+    for tb in P6_TBS:
+        bound = bound_ms(4 * 17 * tb, 8 * tb, sm_mhz)
+        fields[f"tb{tb}_bound_ms"] = bound[0]
+        for random_index in (False, True):
+            box = {}
+            for lane_major in (False, True):
+                arena, idx = pu.tool_inputs(P6_W, tb, dev, random_index,
+                                            lane_major)
+                if not lane_major:
+                    plain_ms = timed_ms(lambda: box.__setitem__(
+                        "p", pu.uniform_gather_plain(arena, idx, P6_REPS)))
+                for mode in (0, 1):
+                    ms = best_ms(lambda: box.__setitem__(
+                        "k", pu.uniform_gather(arena, idx, P6_REPS, mode,
+                                               lane_major)))
+                    tag = (f"tb{tb}_{'lane_major' if lane_major else 'batch_last'}"
+                           f"_{'random' if random_index else 'uniform'}")
+                    err = max(err, check(f"P6 {tag} mode={mode}", box["k"],
+                                         box["p"]))
+                    fields[f"{tag}_mode{mode}_ms"] = ms
+                    if tb == P6_TBS[0] and not random_index \
+                            and not lane_major and mode == 1:
+                        rows["P6"] = [err, ms, plain_ms, bound]
+                del arena, idx
+            del box
+    rows["P6"][0] = err
+    phase("P6", w=P6_W, reps=P6_REPS, equal=True, **fields)
+
+    # -- P7 ----------------------------------------------------------------
+    flags, st = bf.tool_inputs(bf.B, dev)
+    rflags = torch.randint(0, 8, (bf.KQ, bf.B), generator=gen,
+                           dtype=torch.int32).to(dev)
+    rst = rand(51, bf.B)
+    rst[50] = torch.randint(0, 4, (bf.B,), generator=gen,
+                            dtype=torch.int32).to(dev)
+    fields, err = {}, 0
+    for v in ("old", "wrapb", "sel", "two"):
+        err = max(err, check(f"P7 {v} random", bf.fold(rflags, rst, v),
+                             bf.fold_plain(rflags, rst, v)))
+        box = {}
+        ms = best_ms(lambda: box.__setitem__("k", bf.fold(flags, st, v)))
+        plain_ms = timed_ms(lambda: box.__setitem__(
+            "p", bf.fold_plain(flags, st, v)))
+        err = max(err, check(f"P7 {v}", box["k"], box["p"]))
+        perms = p7_permutations(flags, st[50], v)
+        bound = bound_ms(4 * bf.B * (bf.KQ + 2 * 51), perms * KECCAK_OPS,
+                         sm_mhz)
+        fields[f"{v}_ms"] = round(ms, 4)
+        fields[f"{v}_bound_ms"] = round(bound[0], 4)
+        fields[f"{v}_permutations"] = perms
+        if v == "two":
+            rows["P7"] = [err, ms, plain_ms, bound]
+    rows["P7"][0] = err
+    phase("P7", batch=bf.B, slots=bf.KQ, equal=True,
+          plain_two_ms=round(rows["P7"][2], 3), **fields)
+    del flags, st, rflags, rst
+
+    # -- the probes' main path: the tools' entry points -----------------------
+    for mod, name in PROBE_COUNTS.values():
+        setattr(mod, name, 0)
+    t0 = time.time()
+    rates = pk.main(["base", "rows2d", "rows2d_t512_u2", "roundrate",
+                     "vpu_xor", "vpu_mix", "vpu_andnot", "bitslice",
+                     "bitslice_fused"])
+    gathers = [pu.main([]), pu.main(["--tb", str(P6_TBS[1]), "--random"]),
+               pu.main(["--tb", str(P6_TBS[1]), "--lane-major"])]
+    folds = bf.main([])
+    launches = {p: getattr(mod, name) for p, (mod, name) in
+                PROBE_COUNTS.items()}
+    values = list(rates.values()) + [v for g in gathers for v in g.values()] \
+        + list(folds.values())
+    if any(n == 0 for n in launches.values()) or len(rates) != 9 \
+            or not all(math.isfinite(v) and v > 0 for v in values):
+        raise AssertionError(f"probe tools: launches {launches}, rates "
+                             f"{rates}, gathers {gathers}, folds {folds}")
+    phase("probe-tools", seconds=round(time.time() - t0, 1),
+          **{f"launches_{p}": n for p, n in launches.items()},
+          **{f"{v}_per_sec": r for v, r in rates.items()})
+    return {p: [launches[p]] + rows[p] for p in PROBE_COUNTS}
 
 
 def main() -> int:
@@ -960,6 +1312,9 @@ def main() -> int:
           **{f"{k}_perms_per_sec": v[1] for k, v in rates.items()},
           **{f"{k}_bound_ms": round(v[2], 3) for k, v in rates.items()})
 
+    # -- the tool probes P1-P7 ------------------------------------------
+    probes = probe_phases(dev, sm_mhz, lib_path)
+
     # -- the witness wave at full size: the log family's main path ------
     cfg_w = wave_config(B_WAVE)
     wave_words = wave_programs(B_WAVE)
@@ -1145,7 +1500,22 @@ def main() -> int:
                "keccak.py:371", blocks["block-tiny"]["K3"], k3_err, k3_ms,
                k3_plain_ms,
                k3_bound),
-    ]}))
+    ] + [kernel(f"{p} {name}", source, replaces, *probes[p])
+         for p, name, source, replaces in (
+        ("P1", "keccak_rows2d", "probe_keccak.cu keccak.cuh",
+         "tools/probe_keccak.py:68"),
+        ("P2", "keccak_bitslice", "probe_keccak.cu",
+         "tools/probe_keccak.py:200"),
+        ("P3", "alu_chain (andnot)", "probe_rate.cu",
+         "tools/probe_keccak.py:274"),
+        ("P4", "round_chain", "probe_rate.cu keccak.cuh",
+         "tools/probe_keccak.py:324"),
+        ("P5", "keccak_bitslice_fused", "probe_keccak.cu",
+         "tools/probe_keccak.py:361"),
+        ("P6", "uniform_gather", "probe_uniform.cu",
+         "tools/probe_mosaic_uniform.py:59 (kernel :32)"),
+        ("P7", "fold (variant two)", "bisect_fold.cu",
+         "tools/bisect_fold.py:30"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HOST_FLAGS = ["-std=c++17", "-O1", "-fPIC"]
 SOURCES = ("cycle_kernel.cu", "cycle_kernel_ec.cu", "rolling_fold.cu",
-           "keccak_f.cu")
+           "keccak_f.cu", "probe_keccak.cu", "probe_rate.cu",
+           "probe_uniform.cu", "bisect_fold.cu")
 
 
 def generate_header() -> str:
@@ -221,6 +222,22 @@ class K1Args(ctypes.Structure):
     )]
 
 
+#: the probes' C entries, eravm_<probe>_launch and eravm_<probe>_host: their
+#: arguments ("p" a pointer, "i" an int) before the launchers' stream
+_PROBE_LAUNCH = {"p1": "piiii", "p2": "ppiii", "p3": "piiii", "p4": "pii",
+                 "p6": "pppiiiii", "p7": "ppiii"}
+_PROBE_HOST = {"p1": "piii", "p2": "ppiii", "p3": "piiii", "p4": "pii",
+               "p6": "pppiiii", "p7": "ppiii"}
+
+
+def _bind_probes(lib: ctypes.CDLL, kind: str, specs: dict) -> None:
+    for name, spec in specs.items():
+        fn = getattr(lib, f"eravm_{name}_{kind}")
+        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
+                       for c in spec] + [ctypes.c_void_p] * (kind == "launch")
+        fn.restype = ctypes.c_int
+
+
 def load() -> ctypes.CDLL:
     """Build if needed and load the CUDA kernels' library (once per
     process)."""
@@ -236,6 +253,9 @@ def load() -> ctypes.CDLL:
         lib.eravm_k3_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_int, ctypes.c_void_p]
         lib.eravm_k3_launch.restype = ctypes.c_int
+        _bind_probes(lib, "launch", _PROBE_LAUNCH)
+        lib.eravm_p3_unroll.argtypes = []
+        lib.eravm_p3_unroll.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -256,5 +276,6 @@ def load_host() -> ctypes.CDLL:
         lib.eravm_ecrecover_host.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int]
         lib.eravm_ecrecover_host.restype = ctypes.c_int
+        _bind_probes(lib, "host", _PROBE_HOST)
         _HOST_LIB = lib
     return _HOST_LIB

@@ -74,13 +74,14 @@ def from_lanes(lanes: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo.T, hi.T], dim=-1)
 
 
-def keccak_f1600_lanes(a: torch.Tensor) -> torch.Tensor:
-    """One permutation over int64[25, B] lanes."""
+def keccak_rounds_lanes(a: torch.Tensor, rcs) -> torch.Tensor:
+    """One round over int64[25, B] lanes for each round constant of `rcs`
+    (int64 bit patterns), in order."""
     dev = a.device
     one = torch.ones((5, 1), dtype=torch.int64, device=dev)
     rot = torch.tensor(_ROT_SRC, dtype=torch.int64, device=dev)[:, None]
     pi = torch.tensor(_PI_SRC, dtype=torch.int64, device=dev)
-    for rc in _RC:
+    for rc in rcs:
         # theta
         s = a.view(5, 5, -1)
         c = s[0] ^ s[1] ^ s[2] ^ s[3] ^ s[4]                  # [5(x), B]
@@ -93,6 +94,11 @@ def keccak_f1600_lanes(a: torch.Tensor) -> torch.Tensor:
         # iota
         a[0] ^= rc
     return a
+
+
+def keccak_f1600_lanes(a: torch.Tensor) -> torch.Tensor:
+    """One permutation over int64[25, B] lanes."""
+    return keccak_rounds_lanes(a, _RC)
 
 
 def keccak_f1600_array(state: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ from era_zk_evm_tpu_torch.isa.assembler import assemble_to_code_words
 from era_zk_evm_tpu_torch.testing import block_programs as bp
 
 from test_torch_scheduler import assert_same_results
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 
 def assert_same_block(ref, got):

@@ -17,6 +17,7 @@ from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.models.compaction import compact_log_state
 
 from test_compaction import PROG_OK, PROG_PANIC, _config
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 LOOP = """
     add 16, r0, r13

@@ -14,6 +14,7 @@ from era_zk_evm_tpu_torch.models import state as pstate
 
 from test_batched_vm import BASIC_PROGRAMS, UMA_PROGRAMS
 from test_fused_cycle import _config
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 
 def _bench_config(batch, **kw):

@@ -1,6 +1,6 @@
-"""K1 (all four instances), K2 and K3 against their plain versions on a
-CUDA card, and execute_block on the card against the same call on the CPU
-(the keccak256 / sha256 mix and the signed-transfer mix).
+"""K1 (all four instances), K2, K3 and the probes P1-P7 against their plain
+versions on a CUDA card, and execute_block on the card against the same call
+on the CPU (the keccak256 / sha256 mix and the signed-transfer mix).
 
 Imports no jax, so it also runs on the GPU machine, where the suite's
 conftest (which configures jax) cannot load:
@@ -17,6 +17,7 @@ from era_zk_evm_tpu_torch.models import batched_vm, fused_cycle
 from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.ops import keccak
 from era_zk_evm_tpu_torch import block
+from era_zk_evm_tpu_torch.tools import bisect_fold, probe_keccak, probe_uniform
 from era_zk_evm_tpu_torch.testing import (
     block_programs, ec_programs, log_programs, programs,
 )
@@ -235,3 +236,76 @@ def test_execute_block_ecrecover_on_the_card_matches_the_cpu(cuda):
                                   "precompile": 0.5})
     _block_on_card_and_cpu(cuda, _ec_config(8), txs, kw,
                            "K1_ECRECOVER_LAUNCHES")
+
+
+def _random_i32(seed, shape):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                         dtype=torch.int32)
+
+
+def _on_card_and_cpu(cuda, fn, count, *inputs):
+    """fn on the card (one launch of the probe whose count is named) and on
+    the CPU (its plain version), equal."""
+    before = getattr(*count)
+    got = fn(*(x.to(cuda) for x in inputs))
+    assert getattr(*count) == before + 1
+    assert torch.equal(got.cpu(), fn(*inputs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,unroll", [(64, 1), (512, 2), (2048, 4)])
+def test_p1_matches_plain(cuda, tile, unroll):
+    _on_card_and_cpu(cuda, lambda s: probe_keccak.keccak_rows2d(
+        s, 4, tile, unroll), (probe_keccak, "P1_LAUNCHES"),
+        _random_i32(1, (4096, 25, 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_p2_p5_match_plain(cuda, fused):
+    f = (probe_keccak.keccak_bitslice_fused if fused
+         else probe_keccak.keccak_bitslice)
+    _on_card_and_cpu(cuda, lambda p: f(p, 2),
+                     (probe_keccak, "P5_LAUNCHES" if fused else "P2_LAUNCHES"),
+                     _random_i32(2, (1600, 8, 5)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["xor", "mix", "andnot"])
+def test_p3_matches_plain(cuda, op):
+    _on_card_and_cpu(cuda, lambda s: probe_keccak.alu_chain(s, op, 48, 5),
+                     (probe_keccak, "P3_LAUNCHES"),
+                     _random_i32(3, (8, 8, 100)))
+
+
+@pytest.mark.cuda
+def test_p4_matches_plain(cuda):
+    _on_card_and_cpu(cuda, lambda s: probe_keccak.round_chain(s, 50),
+                     (probe_keccak, "P4_LAUNCHES"),
+                     _random_i32(4, (300, 25, 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("random_index", [False, True])
+@pytest.mark.parametrize("lane_major", [False, True])
+def test_p6_matches_plain(cuda, mode, random_index, lane_major):
+    arena, idx = probe_uniform.tool_inputs(64, 1000, "cpu", random_index,
+                                           lane_major)
+    idx[7] = 64                                   # past the arena: reads 0
+    _on_card_and_cpu(cuda, lambda a, i: probe_uniform.uniform_gather(
+        a, i, 9, mode, lane_major), (probe_uniform, "P6_LAUNCHES"), arena,
+        idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["old", "wrapb", "sel", "two"])
+def test_p7_matches_plain(cuda, variant):
+    gen = torch.Generator().manual_seed(7)
+    flags = torch.randint(0, 8, (bisect_fold.KQ, 700), generator=gen,
+                          dtype=torch.int32)
+    st = _random_i32(8, (51, 700))
+    st[50] = torch.randint(0, 4, (700,), generator=gen, dtype=torch.int32)
+    _on_card_and_cpu(cuda, lambda f, s: bisect_fold.fold(f, s, variant),
+                     (bisect_fold, "P7_LAUNCHES"), flags, st)

@@ -24,6 +24,7 @@ from test_batched_vm import (
     PTR_PROGRAMS, STACK_PROGRAMS, UMA_PROGRAMS,
 )
 from test_fused_cycle import N_CYCLES, _config
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 USER_MODE_MASKING = """
     add 2000, r0, r9

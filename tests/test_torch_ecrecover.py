@@ -5,19 +5,23 @@ The port side runs on CPU tensors (its dispatcher takes the plain torch
 cycle step, whose unit is `ops/secp256k1.ecrecover_batched`).  One config
 serves every run, so XLA compiles one cycle program with ecrecover (minutes
 on XLA:CPU) and reuses it for the block: `ec_config()`,
-`tests/test_batched_precompiles._config(24, 96)` with ecrecover on and a
-round-witness queue of CHUNK blocks of 16 rows (14 in, 2 out).  A cycle in
-which some lane recovers costs the JAX engine tens of seconds on the CPU,
-so the recoveries share cycles: four in the program run (the mid-chunk
-program recovers three times), two in the block (a wave and its refill).
+`tests/test_batched_precompiles._config(24, 96)` with ecrecover on, the
+keccak256 and sha256 units at their least (one block, one round: no program
+here hashes, and each further block or round is unrolled into the program
+XLA compiles) and a round-witness queue of CHUNK blocks of 8 rows (6 in, 2
+out).  A cycle in which some lane recovers costs the JAX engine tens of
+seconds on the CPU, so the recoveries share cycles: four in the program run
+(every program recovers at cycle 9 but the mid-chunk one, at 10, 17 and
+28), two in the block (a wave and its refill).
   * every program of `testing/ec_programs.py` (the JAX tests' recoveries,
     the mid-chunk one, and the edge cases) and the nine signatures of
     `tests/test_secp256k1_kernel.py::test_recover_random_signatures`, one
-    lane each, two CHUNK-cycle calls that the port runs in chunks of 8
-    cycles; every field equal, and the written words equal to the golden
-    scalar recovery.  The nine lanes hold the port's `ecrecover_batched`
+    lane each, one CHUNK-cycle call (the programs end by cycle 35) that
+    the port runs in chunks of 8 cycles; every field equal, and the written
+    words equal to the golden scalar recovery.  The nine lanes hold the port's `ecrecover_batched`
     against JAX `ecrecover_batched`, each called by its engine's unit;
-  * `ecrecover_mix` as a block of 32 txs on 24 lanes, with fixed and with
+  * `ecrecover_mix` as a block of 25 txs on 24 lanes (one refill, one
+    rejected signature), with fixed and with
     adaptive chunks, against the JAX pipeline's fixed chunks: the JAX
     dynamic chunk refuses ecrecover configs, and a chunk's length cannot
     change a tx's results.
@@ -53,7 +57,9 @@ from test_torch_log import _words
 from test_torch_precompile import _assert_same, _jax_numpy, _method_programs
 from test_torch_secp256k1 import _nine_cases, one_intra_op_thread  # noqa: F401
 
-CHUNK, ERGS = 32, 1 << 20
+#: the block's chunk and the programs' one call: the programs end by cycle
+#: 35, and one chunk length keeps XLA at one compiled cycle program
+CHUNK, ERGS = 40, 1 << 20
 BLOCK_KW = dict(chunk=CHUNK, order="cost_desc", refill_frac=0.5)
 #: the nine signatures' lanes: each recovers at cycle 9 with the others,
 #: its v the low bit of the word (so the bad v = 2 recovers with v = 0)
@@ -65,8 +71,10 @@ FIRST_NINE = len(ep.EC_LANES)
 
 def ec_config():
     return dataclasses.replace(test_batched_precompiles._config(LANES, 96),
+                               precompile_keccak_blocks=1,
+                               precompile_sha_rounds=1,
                                precompile_ecrecover=True,
-                               precompile_queue_capacity=CHUNK * 16)
+                               precompile_queue_capacity=CHUNK * 8)
 
 
 def _heap_word(arrays, lane, word):
@@ -76,14 +84,13 @@ def _heap_word(arrays, lane, word):
 
 @pytest.fixture(scope="module")
 def jax_runs():
-    """The JAX engine on the programs (two CHUNK-cycle calls) and the JAX
+    """The JAX engine on the programs (one CHUNK-cycle call) and the JAX
     pipeline on the block."""
     config = ec_config()
     words = [assemble_to_code_words(src) for _, src in LANE_PROGRAMS]
     ref = make_entry_state(config, words, ergs=ERGS,
                            entry_address=[e for e, _ in LANE_PROGRAMS])
-    for _ in range(2):
-        ref = run_cycles(ref, config, CHUNK)
+    ref = run_cycles(ref, config, CHUNK)
     block_ref = jax_execute_block(config, [
         JTxSpec(**dataclasses.asdict(t)) for t in _mix_txs()], engine="jnp",
         **BLOCK_KW)
@@ -96,8 +103,7 @@ def programs_run(jax_runs):
     st = pstate.make_entry_state(
         config, [assemble_to_code_words(src) for _, src in LANE_PROGRAMS],
         ergs=ERGS, entry_address=[e for e, _ in LANE_PROGRAMS], device="cpu")
-    for _ in range(2):
-        fused_cycle.run_cycles(st, config, CHUNK, k_inner=8)
+    fused_cycle.run_cycles(st, config, CHUNK, k_inner=8)
     return jax_runs[0], pstate.state_to_numpy(st)
 
 
@@ -125,9 +131,10 @@ def test_nine_cases_match_jax_through_the_vm(programs_run):
 
 
 def _mix():
-    # the txs of up to 16 iterations: a tx of 32 takes 33 journal entries,
-    # and the config has 32
-    return [t for t in ep.ecrecover_mix(2 * LANES) if t[2] <= 16][:LANES + 8]
+    # the txs of up to 16 iterations (a tx of 32 takes 33 journal entries,
+    # and the config has 32): one more than the lanes, so that one lane is
+    # refilled, and the first corrupted tx among them
+    return [t for t in ep.ecrecover_mix(2 * LANES) if t[2] <= 16][:LANES + 1]
 
 
 def _mix_txs():
@@ -181,8 +188,8 @@ def test_state_round_trip_on_an_ecrecover_config():
     _assert_same(ref, got)
     back = pstate.state_to_numpy(pstate.state_from_numpy(ref, "cpu"))
     _assert_same(ref, back)
-    assert precompile_queue_slots(from_jax_config(config)) == (14, 2)
-    assert got["pq_meta"].shape == (LANES, CHUNK * 16, 4)
+    assert precompile_queue_slots(from_jax_config(config)) == (6, 2)
+    assert got["pq_meta"].shape == (LANES, CHUNK * 8, 4)
 
 
 @pytest.mark.parametrize("kw", [

@@ -26,6 +26,7 @@ from era_zk_evm_tpu_torch.isa import encoding as penc
 from era_zk_evm_tpu_torch.isa import opcodes as pops
 from era_zk_evm_tpu_torch.isa import params as pparams
 from era_zk_evm_tpu_torch.ops import keccak as pkeccak
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

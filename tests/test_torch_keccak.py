@@ -14,6 +14,7 @@ import torch
 from era_zk_evm_tpu.golden.precompiles import keccak_f1600 as golden_f1600
 from era_zk_evm_tpu.ops.keccak import keccak_f1600_array
 from era_zk_evm_tpu_torch.ops import keccak
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 N = 64
 

@@ -5,8 +5,9 @@ The wrappers never take this build (on CPU tensors they run the plain
 versions); it checks the kernel sources' lane logic where no card or nvcc
 exists: K1's memory-witness body, its storage-enabled (kLog) body, its
 precompile (kPrecomp) body with the round-witness splice and its ecrecover
-(kEc) body, the ecrecover unit alone, K2's fold and K3's chained
-permutation.  The kernels themselves are held against
+(kEc) body, the ecrecover unit alone, K2's fold, K3's chained
+permutation and the probes P1-P7 (csrc/probe_keccak.cu, probe_rate.cu,
+probe_uniform.cu, bisect_fold.cu).  The kernels themselves are held against
 the plain versions on the card by chip_smoke.py.
 """
 
@@ -25,6 +26,7 @@ from era_zk_evm_tpu_torch.models import fused_cycle
 from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.ops import keccak
 from era_zk_evm_tpu_torch.ops import secp256k1
+from era_zk_evm_tpu_torch.tools import bisect_fold, probe_keccak, probe_uniform
 from era_zk_evm_tpu_torch.testing import (
     block_programs, ec_programs, log_programs, programs,
 )
@@ -38,6 +40,7 @@ from test_fused_cycle import _log_config
 from test_torch_ecrecover import LANE_PROGRAMS, ec_config
 from test_torch_precompile import _shifted, precompile_config
 from test_torch_secp256k1 import _edge_cases, _random_cases
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 PROGRAMS = (BASIC_PROGRAMS + CONTROL_FLOW + STACK_PROGRAMS + UMA_PROGRAMS
             + CALL_PROGRAMS + CONTEXT_PROGRAMS + PTR_PROGRAMS
@@ -231,8 +234,78 @@ def test_k1_ecrecover_host_build_matches_plain(host, case, queue):
         config, [programs.assemble(src) for _, src in lanes], ergs=1 << 20,
         entry_address=[e for e, _ in lanes], device="cpu")
     kern = pstate.clone_state(plain)
-    fused_cycle.run_cycles(plain, config, 64, k_inner=8)
-    _host_run(host, kern, config, 64, 8)
+    # the programs end by cycle 35; the transfers run on
+    cycles = 40 if case == "programs" else 64
+    fused_cycle.run_cycles(plain, config, cycles, k_inner=8)
+    _host_run(host, kern, config, cycles, 8)
     _assert_same(plain, kern)
     assert bool(kern.pq_count.any()) == queue
     assert int(kern.lane_error.sum()) == (case == "programs")
+
+
+def _random_i32(seed, shape):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                         dtype=torch.int32)
+
+
+@pytest.mark.parametrize("unroll", [1, 2, 4])
+def test_p1_host_build_matches_plain(host, unroll):
+    states = _random_i32(unroll, (24, 25, 2))
+    rows = states.reshape(24, 50).T.contiguous()
+    assert host.eravm_p1_host(rows.data_ptr(), 24, 4, unroll) == 0
+    assert torch.equal(rows.T.reshape(24, 25, 2),
+                       probe_keccak.keccak_rows2d(states, 4, 8, unroll))
+
+
+@pytest.mark.parametrize("fused", [0, 1])
+def test_p2_p5_host_build_matches_plain(host, fused):
+    planes = _random_i32(11, (1600, 8, 1))
+    state, scratch = planes.clone(), torch.empty_like(planes)
+    assert host.eravm_p2_host(state.data_ptr(), scratch.data_ptr(), 8, 1,
+                              fused) == 0
+    assert torch.equal(state, probe_keccak.keccak_bitslice_plain(planes, 1))
+
+
+@pytest.mark.parametrize("op", ["xor", "mix", "andnot"])
+def test_p3_host_build_matches_plain(host, op):
+    # 3 x (40 // 8) steps: a remainder after the unrolled trips
+    st = _random_i32(8, (8, 24))
+    got = st.clone()
+    assert host.eravm_p3_host(got.data_ptr(), 8, 24, 15,
+                              ["xor", "mix", "andnot"].index(op)) == 0
+    assert torch.equal(got, probe_keccak.alu_chain_plain(st, op, 40, 3))
+
+
+def test_p4_host_build_matches_plain(host):
+    states = _random_i32(12, (9, 25, 2))
+    got = states.clone()
+    assert host.eravm_p4_host(got.data_ptr(), 9, 7) == 0
+    assert torch.equal(got, probe_keccak.round_chain_plain(states, 7))
+
+
+@pytest.mark.parametrize("lane_major", [False, True])
+@pytest.mark.parametrize("random_index", [False, True])
+def test_p6_host_build_matches_plain(host, random_index, lane_major):
+    arena, idx = probe_uniform.tool_inputs(48, 40, "cpu", random_index,
+                                           lane_major)
+    idx[5] = 48                                   # past the arena: reads 0
+    out = torch.empty((8, 40), dtype=torch.int32)
+    assert host.eravm_p6_host(arena.data_ptr(), idx.data_ptr(),
+                              out.data_ptr(), 48, 40, 5, lane_major) == 0
+    assert torch.equal(out, probe_uniform.uniform_gather_plain(
+        arena, idx, 5, lane_major))
+
+
+@pytest.mark.parametrize("variant", ["old", "wrapb", "sel", "two"])
+def test_p7_host_build_matches_plain(host, variant):
+    gen = torch.Generator().manual_seed(13)
+    flags = torch.randint(0, 8, (bisect_fold.KQ, 33), generator=gen,
+                          dtype=torch.int32)
+    st = _random_i32(14, (51, 33))
+    st[50] = torch.randint(0, 4, (33,), generator=gen, dtype=torch.int32)
+    got = st.clone()
+    assert host.eravm_p7_host(flags.data_ptr(), got.data_ptr(), 33,
+                              bisect_fold.KQ,
+                              bisect_fold.VARIANTS[variant]) == 0
+    assert torch.equal(got, bisect_fold.fold_plain(flags, st, variant))

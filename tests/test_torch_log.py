@@ -38,6 +38,7 @@ from era_zk_evm_tpu_torch.testing import log_programs as lp
 from era_zk_evm_tpu_torch.testing import programs
 
 from test_fused_cycle import _config, _log_config
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 LANES, N_CYCLES, ERGS = lp.LANES, 128, 1 << 20

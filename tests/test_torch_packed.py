@@ -24,6 +24,7 @@ from era_zk_evm_tpu_torch.testing.wave import run_wave, wave_commitments
 from era_zk_evm_tpu_torch.witness import packed
 
 from test_packed import _rich_state
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 FAMILIES = ("memory", "log", "decommit", "precompile")
 #: bench.py bench_block's drain budget fractions

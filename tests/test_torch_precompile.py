@@ -37,6 +37,7 @@ from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.testing import block_programs as bp
 
 from test_torch_log import _words
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 LANES, CHUNK, ERGS = 16, 32, 1 << 20
 PAD = (bp.params.KECCAK256_ROUND_FUNCTION_PRECOMPILE_ADDRESS, "ret r0")

@@ -25,6 +25,7 @@ from era_zk_evm_tpu_torch.witness.rolling import (
 
 from test_batched_vm import STACK_PROGRAMS, UMA_PROGRAMS
 from test_fused_cycle import N_CYCLES, _config
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 PROGRAMS = [UMA_PROGRAMS[1], STACK_PROGRAMS[0]]
 ERGS = 1 << 20

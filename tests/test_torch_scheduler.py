@@ -33,6 +33,7 @@ from era_zk_evm_tpu_torch.models import fused_cycle, net_states, scheduler
 from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.testing import block_programs as bp
 from era_zk_evm_tpu_torch.witness import packed
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 CHUNK = 16
 

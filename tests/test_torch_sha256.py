@@ -11,6 +11,7 @@ import torch
 from era_zk_evm_tpu.golden import precompiles as golden
 from era_zk_evm_tpu.ops import sha256 as jsha
 from era_zk_evm_tpu_torch.ops import sha256 as psha
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 
 def test_constants_equal_the_golden_ones():

@@ -21,6 +21,7 @@ from era_zk_evm_tpu_torch.models import fused_cycle
 from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.models.spill import rewind_queues
 from era_zk_evm_tpu_torch.testing import programs
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 LANES, K, ERGS = 8, 128, (1 << 31) - 1
@@ -71,7 +72,8 @@ def test_workload_copy_equals_bench():
 
 def test_port_imports_no_jax():
     # the CPU paths of the slices, a precompile block through execute_block
-    # included, then sys.modules: no jax and no module of the JAX package
+    # and the tool probes included, then sys.modules: no jax and no module
+    # of the JAX package
     code = (
         "import sys, torch\n"
         "from era_zk_evm_tpu_torch.config import VmConfig\n"
@@ -122,6 +124,14 @@ def test_port_imports_no_jax():
         "r = block.execute_block(cfg, txs, chunk=16, device='cpu')\n"
         "assert r.all_ok and sorted(r.commitments) == [\n"
         "    'log', 'memory', 'precompile']\n"
+        "from era_zk_evm_tpu_torch.tools import (\n"
+        "    bisect_fold, probe_keccak, probe_uniform)\n"
+        "probe_keccak.main(['--cpu', '--batch', '256', '--iters', '1',\n"
+        "                   'rows2d_t8', 'roundrate_t8', 'vpu_andnot_t16',\n"
+        "                   'bitslice_g1'])\n"
+        "probe_uniform.main(['--cpu', '--w', '48', '--tb', '8',\n"
+        "                    '--reps', '2'])\n"
+        "bisect_fold.main(['--cpu', '--batch', '8'])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'era_zk_evm_tpu' or m.startswith('era_zk_evm_tpu.')]\n"
         "assert not bad, f'the port imported {bad}'\n"

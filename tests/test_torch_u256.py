@@ -12,6 +12,7 @@ import torch
 from era_zk_evm_tpu.ops import u256 as ju
 from era_zk_evm_tpu.utils import batch_to_limbs
 from era_zk_evm_tpu_torch.ops import u256 as pu
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 MAX = (1 << 256) - 1
 _rng = random.Random(0x7A256)
