@@ -5,11 +5,16 @@
 
 Phases, one line each; any failure raises and the exit code is nonzero:
   device        a CUDA card is required; prints its name and power limit;
-  build         compiles K1, K2 and K3 from the sources in this tree;
+  build         compiles K1, K2 and K3 from the sources in this tree; the
+                ptxas lines and K1's block size at B = 4096 and 32768 (its
+                grid must span the card's SMs);
   K1-small      K1 against its plain torch version on the family programs
                 (both memory-witness modes), every state field equal;
   K1            WORKLOAD at B = 32768, one 128-cycle call, kernel vs plain;
   K2            the rolling fold at B = 32768, kernel vs plain;
+  K1-rolling-queue  the rolling commitment beside the memory queue, B =
+                32768: two 64-cycle K1 + K2 chunks against the plain
+                engine, every field and the digests;
   main-a/main-b the memory-witness main path at full size (bench geometry,
                 B = 32768, WORKLOAD): 8 chained 128-cycle calls with a queue
                 rewind between them, both modes; lanes 0..7 equal to a plain
@@ -23,6 +28,9 @@ Phases, one line each; any failure raises and the exit code is nonzero:
   K1-farcall    bench_farcall's geometry, B = 16384, caller and callee with
                 storage and code bank populated: 144 cycles kernel vs plain,
                 again with the log and decommit queues on;
+  K1-fuzz       tests/test_torch_fuzz.py's two campaigns (random
+                programs; random far-call scenarios with their contracts),
+                each cycled over B = 4096 lanes, 160 cycles kernel vs plain;
   K3            chained keccak-f against plain at N = 131072 x 1 and
                 65536 x 4; times at bench_keccak's and
                 bench_keccak_u32pair's shapes;
@@ -34,9 +42,12 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 131072 x 128, tile 2048; P2 / P5 G8 = 128 and 4096; P3 8
                 rows, inner 512, iters 65536 on 132 x 2048 columns, with
                 its loop's SASS instructions a step; P4 4096 rounds; P6 W =
-                TB = 256 and TB = 32768, REPS 512, the tool's index and a
-                random one, in the tool's batch-last arena and in K1's
-                lane-major one; P7 B = 32768, 16 slots, every variant);
+                256, TB = 256, 4096 and 32768, REPS 512, the tool's index
+                and a random one, elements in the tool's batch-last arena
+                and a lane-major one, and whole 256-bit words in the
+                lane-major word arena (8 x 32-bit and 2 x 128-bit loads)
+                and the lane-last one K1 reads; P7 B = 32768, 16 slots,
+                every variant);
   K1-wave-segment  the witness wave's first 256-cycle segment, B = 4096,
                 kernel vs plain over the whole batch;
   witness-wave  the log family's witness path at bench_block's tiny-mix
@@ -96,20 +107,18 @@ import torch
 
 from era_zk_evm_tpu_torch import _build
 from era_zk_evm_tpu_torch.block import TxSpec, execute_block
-from era_zk_evm_tpu_torch.config import (
-    BATCH_LAST_FIELDS, VmConfig, precompile_queue_slots,
-)
+from era_zk_evm_tpu_torch.config import VmConfig, precompile_queue_slots
 from era_zk_evm_tpu_torch.isa import params
 from era_zk_evm_tpu_torch.isa.abi import code_hash_for_bytecode
 from era_zk_evm_tpu_torch.models import batched_vm, fused_cycle
 from era_zk_evm_tpu_torch.models.spill import rewind_queues
 from era_zk_evm_tpu_torch.models.state import (
-    FIELD_NAMES, clone_state, make_entry_state, populate_code_bank,
-    populate_storage,
+    FIELD_NAMES, LANE_AXIS, clone_state, make_entry_state, populate_code_bank,
+    populate_storage, reference_view,
 )
 from era_zk_evm_tpu_torch.ops import keccak, secp256k1
 from era_zk_evm_tpu_torch.testing import (
-    block_programs, ec_programs, log_programs,
+    block_programs, ec_programs, fuzz_programs, log_programs,
 )
 from era_zk_evm_tpu_torch.testing.programs import (
     FAMILY_PROGRAMS, FARCALL_CALLEE_ADDRESS, STORAGE_WORKLOAD, WORKLOAD,
@@ -175,7 +184,7 @@ P3_ROWS, P3_INNER, P3_ITERS = 8, 512, 65536
 P3_COLS = 132 * 2048           # columns: 2048 threads on each of 132 SMs
 P3_ROW_ITERS = 64              # the kernels line's P3 shape: plain runs it
 P4_ITERS, P4_TILE, P4_COLS = 4096, 1024, 132 * 512
-P6_W, P6_TBS, P6_REPS = 256, (256, 32768), 512
+P6_W, P6_TBS, P6_REPS = 256, (256, 4096, 32768), 512
 #: int32 operations of one bit-sliced keccak round of 32 states (a u32
 #: column), 3-input logic ops counted as one: the parities 640 (two 3-input
 #: XORs each), theta 1600 (a 3-input XOR a plane), chi 1600 (a LOP3 a
@@ -333,9 +342,9 @@ def require_equal(what: str, a: dict, b: dict) -> int:
 
 
 def lanes(arrays: dict, n: int) -> dict:
-    """The first n lanes of every field (batch-last fields on their last
-    axis)."""
-    return {k: (v[..., :n] if k in BATCH_LAST_FIELDS else v[:n])
+    """The first n lanes of every stored field (on its lane axis,
+    state.LANE_AXIS)."""
+    return {k: (v[..., :n] if LANE_AXIS[k] == -1 else v[:n])
             for k, v in arrays.items()}
 
 
@@ -434,7 +443,11 @@ def k1_bytes(before, after, config: VmConfig) -> int:
     into `after`: each input it only reads, once; of the state it writes,
     each 32-byte sector the call changed, read once and written once (a
     witness queue row only written).  State it reads and leaves as it was
-    is not counted, so every kernel moves at least this much."""
+    is not counted, so every kernel moves at least this much.  The sectors
+    are those of the reference layout (`state.reference_view`), whatever
+    layout the state is stored in, so that one piece of work has one floor
+    for every layout of the kernel."""
+    before, after = reference_view(before), reference_view(after)
     fields = [field for _, field, _ in fused_cycle._k1_fields(config)]
     if config.queue_capacity:
         fields += ["wq_meta", "wq_value", "wq_flags"]
@@ -533,9 +546,11 @@ def profiled(fn) -> dict:
     if busy <= 0:
         raise AssertionError("torch.profiler recorded no device time")
     top = sorted(ops, key=lambda kv: -kv[1])[:5]
+    k1_ms = sum(t for k, t in ops if "k1_kernel" in k) / 1e3
     return {"profiled_wall_s": round(wall, 4),
             "device_busy_s": round(busy, 4),
             "idle_share": round(1 - busy / wall, 4),
+            "k1_device_ms": round(k1_ms, 3),
             "top": ";".join(f"{k[:40]}:{t / 1e3:.2f}ms" for k, t in top)}
 
 
@@ -849,6 +864,18 @@ def probe_phases(dev, sm_mhz: float, lib_path) -> dict:
                             and not lane_major and mode == 1:
                         rows["P6"] = [err, ms, plain_ms, bound]
                 del arena, idx
+            # K1's word reads: a whole 256-bit word a lane, in the port's
+            # old lane-major word arena (8 x 32-bit or 2 x 128-bit loads)
+            # and in its lane-last one
+            for layout in pu.WORD_LAYOUTS:
+                arena, idx = pu.tool_inputs(P6_W, tb, dev, random_index,
+                                            word_layout=layout)
+                ms = best_ms(lambda: box.__setitem__(
+                    "k", pu.word_gather(arena, idx, P6_REPS, layout)))
+                tag = f"tb{tb}_{layout}_{'random' if random_index else 'uniform'}"
+                err = max(err, check(f"P6 {tag}", box["k"], box["p"]))
+                fields[f"{tag}_ms"] = ms
+                del arena, idx
             del box
     rows["P6"][0] = err
     phase("P6", w=P6_W, reps=P6_REPS, equal=True, **fields)
@@ -926,8 +953,14 @@ def main() -> int:
     log = (lib_path.parent / "build.log").read_text()
     regs = [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln]
+    threads = {b: fused_cycle.k1_threads(b) for b in (B_BLOCK, B_FULL)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if -(-B_BLOCK // threads[B_BLOCK]) < min(sms, B_BLOCK // 32):
+        raise AssertionError(f"K1 at B={B_BLOCK}: {threads[B_BLOCK]}-thread "
+                             f"blocks leave SMs of {sms} idle")
     phase("build", seconds=round(time.time() - t0, 2),
-          lib=lib_path.parent.name, ptxas=" | ".join(regs))
+          lib=lib_path.parent.name, ptxas=" | ".join(regs), sms=sms,
+          k1_threads=threads)
 
     # -- K1 against plain, memory-witness slice -------------------------
     progs = list(FAMILY_PROGRAMS.values())
@@ -991,6 +1024,28 @@ def main() -> int:
           plain_ms=round(k2_plain_ms, 3), bound_ms=round(k2_bound[0], 3),
           bound_by=k2_bound[1], records=int(ca[0]))
     del st, block, wa, wb
+
+    # -- the rolling commitment beside the memory queue (K1 + K2) ----------
+    cfg_rq = dataclasses.replace(cfg_b, queue_capacity=K * 8)
+    ks = make_entry_state(cfg_rq, [wl] * B_FULL, ergs=FULL_ERGS, device=dev)
+    ps = clone_state(ks)
+    fused_cycle.run_cycles(ks, cfg_rq, K, k_inner=K // 2)
+    batched_vm.run_cycles(ps, cfg_rq, K)
+    rq_err = require_equal(
+        "K1 + K2 rolling with the queue B=32768",
+        {**state_tensors(ks), "digest": finalize_rolling(ks.wc_state,
+                                                         ks.wc_count)},
+        {**state_tensors(ps), "digest": finalize_rolling(ps.wc_state,
+                                                         ps.wc_count)})
+    errors = int(ks.lane_error.sum())
+    if errors or int(ks.wq_count.min()) == 0 or int(ks.wc_count.min()) == 0:
+        raise AssertionError(f"rolling with the queue: {errors} lane_error "
+                             "lanes, or no slots queued or absorbed")
+    k2_err = max(k2_err, rq_err)
+    phase("K1-rolling-queue", batch=B_FULL, cycles=K, k_inner=K // 2,
+          equal=True, queued=int(ks.wq_count[0]),
+          absorbed=int(ks.wc_count[0]), lane_errors=errors)
+    del ks, ps
 
     # -- the memory-witness main path at full size ----------------------
     plain_rate = {}
@@ -1148,6 +1203,30 @@ def main() -> int:
           far_calls_per_lane=calls, done_lanes=int(ks.done.sum()),
           lane_errors=errors, queued_log_decommit_rows=queue_rows)
     del ks, entry_f
+
+    # -- the fuzz campaigns (tests/test_torch_fuzz.py's programs) ---------
+    # kernel against plain, each campaign's programs cycled over B_BLOCK
+    # lanes; the CPU tests hold the plain engine to the native oracle
+    fz_err, fz_fields = 0, {}
+    for name in ("random", "far_call"):
+        cfg_z, ks = fuzz_programs.entry_state(name, B_BLOCK, dev)
+        ps = clone_state(ks)
+        fused_cycle.run_cycles(ks, cfg_z, fuzz_programs.MAX_CYCLES,
+                               k_inner=40)
+        batched_vm.run_cycles(ps, cfg_z, fuzz_programs.MAX_CYCLES)
+        fz_err = max(fz_err, require_equal(f"K1 fuzz {name} B={B_BLOCK}",
+                                           state_tensors(ks),
+                                           state_tensors(ps)))
+        errors, done = int(ks.lane_error.sum()), int(ks.done.sum())
+        if errors or done != B_BLOCK:
+            raise AssertionError(f"fuzz {name}: {errors} lane_error lanes, "
+                                 f"{done} done")
+        fz_fields[f"{name}_log_rows"] = int(ks.lq_count.sum())
+        fz_fields[f"{name}_decommits"] = int(ks.dq_count.sum())
+        del ks, ps
+    kf_err = max(kf_err, fz_err)
+    phase("K1-fuzz", batch=B_BLOCK, cycles=fuzz_programs.MAX_CYCLES,
+          equal=True, **fz_fields)
 
     # -- K1's precompile instance against plain -------------------------
     pp_lanes = list(block_programs.PRECOMPILE_LANES) + [

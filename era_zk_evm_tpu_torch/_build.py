@@ -210,24 +210,25 @@ class K1Args(ctypes.Structure):
         "lq_read", "lq_written", "lq_count", "dq_hash", "dq_meta", "dq_count",
         "cb_hash", "default_aa_hash", "frame_count", "page_counter", "done",
         "lane_error", "global_step", "wq_count", "q_meta", "q_value",
-        "q_flags", "step0", "pq_meta_blk", "pq_value_blk", "pq_flags_blk",
-        "pq_emit_blk", "pq_nslots_blk",
+        "q_flags", "blk_meta", "blk_value", "blk_flags", "step0",
+        "pq_meta_blk", "pq_value_blk", "pq_flags_blk", "pq_emit_blk",
+        "pq_nslots_blk",
     )] + [(name, ctypes.c_int) for name in (
         "batch", "max_depth", "code_words", "code_pages", "stack_words",
         "stack_abs_words", "stack_sp_base", "heap_words", "aux_heap_words",
         "heap_frames", "queue_capacity", "storage_slots", "journal_slots",
         "event_slots", "log_queue_capacity", "decommit_queue_capacity",
-        "emit_mode", "k_cycles", "k_stop", "keccak_blocks", "sha_rounds",
-        "pq_slots_in", "pq_capacity",
+        "emit_queue", "emit_block", "k_cycles", "k_stop", "keccak_blocks",
+        "sha_rounds", "pq_slots_in", "pq_capacity",
     )]
 
 
 #: the probes' C entries, eravm_<probe>_launch and eravm_<probe>_host: their
 #: arguments ("p" a pointer, "i" an int) before the launchers' stream
 _PROBE_LAUNCH = {"p1": "piiii", "p2": "ppiii", "p3": "piiii", "p4": "pii",
-                 "p6": "pppiiiii", "p7": "ppiii"}
+                 "p6": "pppiiiii", "p6w": "pppiiii", "p7": "ppiii"}
 _PROBE_HOST = {"p1": "piii", "p2": "ppiii", "p3": "piiii", "p4": "pii",
-               "p6": "pppiiii", "p7": "ppiii"}
+               "p6": "pppiiii", "p6w": "pppiiii", "p7": "ppiii"}
 
 
 def _bind_probes(lib: ctypes.CDLL, kind: str, specs: dict) -> None:
@@ -247,6 +248,8 @@ def load() -> ctypes.CDLL:
         lib.eravm_k1_launch.argtypes = [ctypes.POINTER(K1Args),
                                         ctypes.c_int, ctypes.c_void_p]
         lib.eravm_k1_launch.restype = ctypes.c_int
+        lib.eravm_k1_threads.argtypes = [ctypes.c_int]
+        lib.eravm_k1_threads.restype = ctypes.c_int
         lib.eravm_k2_launch.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.eravm_k2_launch.restype = ctypes.c_int

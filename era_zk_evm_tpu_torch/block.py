@@ -104,7 +104,7 @@ def execute_block(config: VmConfig, txs: list[TxSpec], engine: str = "auto",
     results, stats = run_block_refill(config, txs, run_fn, chunk,
                                       refill=refill,
                                       fresh_builder=fresh_builder,
-                                      collect=streams, device=device,
+                                      collect="packed", device=device,
                                       **sched_kwargs)
     families = _families(config)
     tx_commitments: list[dict] = [dict() for _ in results]

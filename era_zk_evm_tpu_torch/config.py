@@ -111,9 +111,9 @@ def check_slice(config: VmConfig) -> None:
 
     The couplings of the JAX `fused_cycle.supported()` hold: ecrecover, the
     other units and the precompile queue each need the units and the LOG
-    unit (`storage_slots > 0`).  Still outside: the TPU-only
-    `limb_major_arenas` layout, and the rolling commitment together with a
-    memory queue.
+    unit (`storage_slots > 0`).  The rolling commitment may run beside the
+    memory queue, as in the JAX jnp engine (its fused engine refuses that
+    pair).  Still outside: the TPU-only `limb_major_arenas` layout.
     """
     units = config.precompile_keccak_blocks > 0 \
         or config.precompile_sha_rounds > 0
@@ -125,8 +125,3 @@ def check_slice(config: VmConfig) -> None:
             raise NotImplementedError(f"{name} needs the precompile units")
     if config.limb_major_arenas:
         raise NotImplementedError("limb_major_arenas (a TPU-only layout)")
-    # the exclusivity rule of fused_cycle.supported(): both modes consume
-    # the same per-cycle slot stream
-    if config.rolling_commitment and config.queue_capacity:
-        raise NotImplementedError(
-            "rolling_commitment and queue_capacity are exclusive")

@@ -4,8 +4,8 @@
 // (:2794, wrapped by _build_call, driven by _run_chunk) in all five of its
 // slices.  (a) the memory-witness slice: NOP ADD SUB MUL DIV JUMP CONTEXT
 // SHIFT BINOP PTR NEAR_CALL RET UMA, with register, stack and code
-// addressing, heap and aux heap, the memory witness queue (mode a) or a chunk
-// slot block for the rolling fold K2 (mode b).  (b) LOG and (c) FAR_CALL,
+// addressing, heap and aux heap, the memory witness queue (mode a) and / or a
+// chunk slot block for the rolling fold K2 (mode b).  (b) LOG and (c) FAR_CALL,
 // compiled in only for storage_slots > 0 (template <bool kLog>, as the JAX
 // engine's static log_enabled): storage reads and writes with pubdata ergs,
 // events, the journal and its rollback on a panicked pop, far calls with the
@@ -30,31 +30,44 @@
 // per-lane index through one-hot sweeps over whole arenas (_onehot_l,
 // _gather_l, _scatter_l), packs state batch-last (_pack/_unpack) and gates
 // work with pl.when.  None of that is carried over: a thread owns one lane,
-// loads by index and branches.  The register file, flags and lane scalars
-// live in registers / local memory for the whole launch; the callstack frame
-// is read from and written to global memory each cycle.  k_stop is always
-// honoured.  Each cycle writes its 8 memory-query slots straight into the
-// persistent queue at min(step * 8, cap - 8) (mode a) or into row c * 8 of
-// the chunk block (mode b); both are batch-last, so those stores coalesce.
+// loads by index and branches.  The register file lives in shared memory for
+// the whole launch (its dynamic register index would otherwise be a
+// local-memory round trip), flags and lane scalars in registers; the
+// callstack frame is read from and written to global memory each cycle.
+// k_stop is always honoured.  Each cycle writes its 8 memory-query slots
+// straight into the persistent queue at min(step * 8, cap - 8) (mode a)
+// and, with the rolling commitment, into row c * 8 of the chunk block
+// (mode b); both are batch-last, so those stores coalesce.
 // With kLog, the storage lookup is a per-lane loop over the S slots of
-// st_key[B, S, 14]; journal and event entries are per-lane appends; a
-// panicked pop replays the lane's journal newest-first down to the frame's
-// snapshot (the batch-wide while_loop of the JAX engine becomes a per-lane
-// loop); a far call binds its code by a per-lane search of cb_hash[B, P, 8]
-// and takes pages from page_counter; each cycle writes one log row and one
-// decommit row, all-zero when the lane emitted nothing, straight into the
-// lane-major lq_*[B, LQ, .] and dq_*[B, DQ, .] at min(step, cap - 1).
+// st_key; journal and event entries are per-lane appends; a panicked pop
+// replays the lane's journal newest-first down to the frame's snapshot (the
+// batch-wide while_loop of the JAX engine becomes a per-lane loop); a far
+// call binds its code by a per-lane search of cb_hash and takes pages from
+// page_counter; each cycle writes one log row and one decommit row, all-zero
+// when the lane emitted nothing, into lq_* and dq_* at min(step, cap - 1).
 //
-// What bounds it on an H100: the arenas are lane-major ([B, SW * 8] stack,
-// [B, W, 8] heap/code), so a warp's 32 word loads hit 32 different 32-byte
-// sectors in different rows — uncoalesced traffic, one sector per lane per
-// access — and the per-lane register file and slot arrays sit in local
-// memory (ptxas: 254 registers, a 936-byte stack frame, no spills), which
-// caps occupancy at 8 warps per SM.  The kLog instance adds per-lane loops
-// over lane-major storage, journal, event and code-bank arrays (uncoalesced
-// again) and more local memory for the log row it builds each cycle.
-// Making the arenas coalesced (or staging them in shared memory) is later
-// work.
+// Memory layout.  Every per-lane array indexed by something other than the
+// lane (code, stack and its tags, heap, aux heap, their frame pages, the
+// callstack, storage slots, journal, events, code bank, log and decommit
+// queues) is lane-last in the port's state: [n, 8, B] for a word arena,
+// element k of lane b at k * B + b (ll()).  A warp whose lanes read one
+// index — the bench workloads run one program in every lane in lockstep,
+// the storage and code-bank searches walk every slot, and the queue rows go
+// at one position a cycle — then reads 8 runs of 128 contiguous bytes for a
+// word, where a lane-major [B, n, 8] arena costs a 32-byte sector a lane
+// per limb (P6's word reads: 0.35 against 2.40 us a gather at 32768 lanes;
+// PERF.md).  The register file, flags, lane scalars and the previous code
+// word are read once a launch, lane-first, with 128-bit accesses; in
+// shared memory the register file is lane-last too (RF_WORDS words a
+// lane, stride blockDim.x), so every access is bank-conflict free.
+//
+// What bounds it on an H100: latency, not bytes (K1 runs far above its
+// byte floor): each warp's chain of dependent reads, the frame scalars and
+// spills in local memory (ptxas: 255 registers, 352-2864 byte frames,
+// spills in the kLog, kPrecomp and kEc instances), at most 8 warps an SM,
+// and a warp whose lanes diverge (other programs, other indexes) pays a
+// sector a lane again.  The launch picks its block size from the SM count
+// so that a small batch still spans every SM (k1_block_threads).
 //
 // The precompile units (kPrecomp) run in a __noinline__ function that only a
 // lane whose cycle is a precompile call enters, so the hot loop's register
@@ -129,9 +142,12 @@ struct K1Args {
     int32_t *frame_count, *page_counter;
     uint8_t *done, *lane_error;
     int32_t *global_step, *wq_count;
-    int32_t *q_meta;        // [rows, 4, B]
+    int32_t *q_meta;        // [rows, 4, B]: the persistent memory queue
     int32_t *q_value;       // [rows, 8, B]
     int32_t *q_flags;       // [rows, B]
+    int32_t *blk_meta;      // [K * 8, 4, B]: the chunk slot block K2 folds
+    int32_t *blk_value;     // [K * 8, 8, B]
+    int32_t *blk_flags;     // [K * 8, B]
     const int32_t *step0;   // device scalar: min(global_step) of the batch
     // per-chunk round-witness scratch, read only by the kPrecomp instance
     // with a precompile queue: rows of the emitting lanes, and per cycle
@@ -147,7 +163,8 @@ struct K1Args {
     int queue_capacity;
     int storage_slots, journal_slots, event_slots;
     int log_queue_capacity, decommit_queue_capacity;
-    int emit_mode;          // 0 no slots, 1 persistent queue, 2 chunk block
+    int emit_queue;         // 1: each cycle's slots into the queue q_*
+    int emit_block;         // 1: each cycle's slots into the block blk_*
     int k_cycles, k_stop;
     int keccak_blocks, sha_rounds;  // the units' limits (MK, MS)
     int pq_slots_in;        // PS_IN; a call's row block is PS_IN + PS_OUT
@@ -174,17 +191,36 @@ struct DecRow {
     U256 hash;
 };
 
-HD U256 load_word(const int32_t *lane_arena, uint64_t n_words, uint64_t idx) {
-    U256 r = u256_zero();
-    if (idx < n_words)
-        for (int l = 0; l < 8; l++) r.w[l] = (uint32_t)lane_arena[idx * 8 + l];
+// Every per-lane array K1 indexes by something other than the lane is
+// lane-last (models/state.py, LANE_LAST_FIELDS): element k of lane b's row
+// lies at k * B + b, so the lanes of a warp at one index read one
+// contiguous run.
+HD uint64_t ll(const K1Args &a, int b, uint64_t k) {
+    return k * (uint64_t)a.batch + b;
+}
+
+// 256-bit row `row` of lane b in a lane-last array [rows, 8, B]
+HD U256 load_row(const K1Args &a, const int32_t *arr, int b, uint64_t row) {
+    U256 r;
+    for (int l = 0; l < 8; l++) r.w[l] = (uint32_t)arr[ll(a, b, row * 8 + l)];
     return r;
 }
 
-HD void store_word(int32_t *lane_arena, uint64_t n_words, uint64_t idx,
-                   const U256 &v) {
-    if (idx < n_words)
-        for (int l = 0; l < 8; l++) lane_arena[idx * 8 + l] = (int32_t)v.w[l];
+HD void store_row(const K1Args &a, int32_t *arr, int b, uint64_t row,
+                  const U256 &v) {
+    for (int l = 0; l < 8; l++) arr[ll(a, b, row * 8 + l)] = (int32_t)v.w[l];
+}
+
+// word idx of lane b's word arena [n_words, 8, B]; outside it reads zeros
+// and takes no store
+HD U256 load_word(const K1Args &a, const int32_t *arena, int b,
+                  uint64_t n_words, uint64_t idx) {
+    return idx < n_words ? load_row(a, arena, b, idx) : u256_zero();
+}
+
+HD void store_word(const K1Args &a, int32_t *arena, int b, uint64_t n_words,
+                   uint64_t idx, const U256 &v) {
+    if (idx < n_words) store_row(a, arena, b, idx, v);
 }
 
 // logical stack index -> physical arena slot; false when out of window
@@ -201,9 +237,16 @@ HD bool map_stack(const K1Args &a, uint32_t idx, uint32_t *phys) {
     return in_abs || in_sp;
 }
 
+// The register file: limb l of register r + 1 at rf[(r * 8 + l) * rs], its
+// pointer tag at rf[(RF_TAGS + r) * rs].  On the card it lies in shared
+// memory, lane-last (rs = blockDim.x), so a dynamic register index is a
+// conflict-free shared-memory access and not a local-memory round trip.
+#define RF_TAGS (15 * 8)
+#define RF_WORDS (RF_TAGS + 15)
+
 struct Lane {
-    uint32_t regs[15][8];
-    bool rtag[15];
+    uint32_t *rf;
+    uint32_t rs;
     bool lt, eq, gt;
     uint32_t timestamp, mcc, ergs_per_pubdata, tx_number;
     bool pending;
@@ -218,20 +261,41 @@ struct Lane {
     uint32_t pq_emit, pq_nslots;   // this cycle's round-witness block
 };
 
+// 32 contiguous bytes (a lane-first [B, 8] row): two 128-bit accesses on
+// the card
 HD U256 load_u256(const int32_t *p) {
     U256 r;
+#ifdef __CUDA_ARCH__
+    const int4 x = ((const int4 *)p)[0], y = ((const int4 *)p)[1];
+    r.w[0] = x.x; r.w[1] = x.y; r.w[2] = x.z; r.w[3] = x.w;
+    r.w[4] = y.x; r.w[5] = y.y; r.w[6] = y.z; r.w[7] = y.w;
+#else
     for (int l = 0; l < 8; l++) r.w[l] = (uint32_t)p[l];
+#endif
     return r;
 }
 
 HD void store_u256(int32_t *p, const U256 &v) {
+#ifdef __CUDA_ARCH__
+    ((int4 *)p)[0] = make_int4(v.w[0], v.w[1], v.w[2], v.w[3]);
+    ((int4 *)p)[1] = make_int4(v.w[4], v.w[5], v.w[6], v.w[7]);
+#else
     for (int l = 0; l < 8; l++) p[l] = (int32_t)v.w[l];
+#endif
 }
 
 HD bool addr_is_kernel(const uint32_t *addr5) {
     bool k = addr5[0] < KERNEL_SPACE_BOUND;
     for (int i = 1; i < 5; i++) k = k && addr5[i] == 0;
     return k;
+}
+
+HD uint32_t &reg_limb(const Lane &L, uint32_t r, int l) {
+    return L.rf[(r * 8 + l) * L.rs];
+}
+
+HD uint32_t &reg_tag(const Lane &L, uint32_t r) {
+    return L.rf[(RF_TAGS + r) * L.rs];
 }
 
 HD void read_reg(const Lane &L, uint32_t idx, U256 *v, bool *tag) {
@@ -241,13 +305,13 @@ HD void read_reg(const Lane &L, uint32_t idx, U256 *v, bool *tag) {
         *tag = false;
         return;
     }
-    for (int l = 0; l < 8; l++) v->w[l] = L.regs[idx - 1][l];
-    *tag = L.rtag[idx - 1];
+    for (int l = 0; l < 8; l++) v->w[l] = reg_limb(L, idx - 1, l);
+    *tag = reg_tag(L, idx - 1) != 0;
 }
 
 HD void write_reg(Lane &L, uint32_t idx, const U256 &v, bool tag) {
-    for (int l = 0; l < 8; l++) L.regs[idx - 1][l] = v.w[l];
-    L.rtag[idx - 1] = tag;
+    for (int l = 0; l < 8; l++) reg_limb(L, idx - 1, l) = v.w[l];
+    reg_tag(L, idx - 1) = tag;
 }
 
 // (on the heap, on the aux heap, frame slot) of a page: heap frames first
@@ -257,8 +321,8 @@ HD void page_slot(const K1Args &a, int b, uint32_t page, bool *on_h,
     uint32_t hs = 0, as = 0;
     bool h = false, x = false;
     for (int f = 0; f < F; f++) {
-        if ((uint32_t)a.hp_page[(uint64_t)b * F + f] == page) { hs += f; h = true; }
-        if ((uint32_t)a.ap_page[(uint64_t)b * F + f] == page) { as += f; x = true; }
+        if ((uint32_t)a.hp_page[ll(a, b, f)] == page) { hs += f; h = true; }
+        if ((uint32_t)a.ap_page[ll(a, b, f)] == page) { as += f; x = true; }
     }
     *on_h = h;
     *on_a = !h && x;
@@ -271,8 +335,8 @@ HD U256 frame_word(const K1Args &a, int b, bool on_h, uint32_t slot,
                    uint32_t idx) {
     const uint32_t W = on_h ? a.heap_words : a.aux_heap_words;
     const uint64_t n = (uint64_t)a.heap_frames * W;
-    const int32_t *arena = (on_h ? a.heap : a.aux_heap) + (uint64_t)b * n * 8;
-    return load_word(arena, n, (uint32_t)(slot * W + idx));
+    return load_word(a, on_h ? a.heap : a.aux_heap, b, n,
+                     (uint32_t)(slot * W + idx));
 }
 
 // keccak256 of in_len bytes at byte in_off of the frame: a byte-stream
@@ -425,12 +489,13 @@ HD_NOINLINE bool precompile_unit(const K1Args &a, int b, int c,
     err |= !hw_ok;
     if (hw_ok && (w_on_h || w_on_a)) {
         const uint64_t n = (uint64_t)a.heap_frames * W;
-        int32_t *arena = (w_on_h ? a.heap : a.aux_heap) + (uint64_t)b * n * 8;
+        int32_t *arena = w_on_h ? a.heap : a.aux_heap;
         if (is_ec) {
-            store_word(arena, n, (uint32_t)(w_slot * W + out_off), out);
-            store_word(arena, n, (uint32_t)(w_slot * W + out_off + 1), out2);
+            store_word(a, arena, b, n, (uint32_t)(w_slot * W + out_off), out);
+            store_word(a, arena, b, n, (uint32_t)(w_slot * W + out_off + 1),
+                       out2);
         } else {
-            store_word(arena, n, (uint64_t)w_slot * W + out_off, out);
+            store_word(a, arena, b, n, (uint64_t)w_slot * W + out_off, out);
         }
     }
     return err;
@@ -452,16 +517,16 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     uint32_t scal[NF];
     uint32_t this_addr[5], msg_sender[5], code_addr[5], frame_u128[4];
     {
-        const uint64_t fi = (uint64_t)b * D + (frame_ok ? depth : 0);
+        const uint64_t fd = frame_ok ? depth : 0;
         for (int f = 0; f < (int)NF; f++)
-            scal[f] = frame_ok ? (uint32_t)a.cs_scalars[fi * NF + f] : 0u;
+            scal[f] = frame_ok ? (uint32_t)a.cs_scalars[ll(a, b, fd * NF + f)] : 0u;
         for (int i = 0; i < 5; i++) {
-            this_addr[i] = frame_ok ? (uint32_t)a.cs_this[fi * 5 + i] : 0u;
-            msg_sender[i] = frame_ok ? (uint32_t)a.cs_sender[fi * 5 + i] : 0u;
-            code_addr[i] = frame_ok ? (uint32_t)a.cs_code_addr[fi * 5 + i] : 0u;
+            this_addr[i] = frame_ok ? (uint32_t)a.cs_this[ll(a, b, fd * 5 + i)] : 0u;
+            msg_sender[i] = frame_ok ? (uint32_t)a.cs_sender[ll(a, b, fd * 5 + i)] : 0u;
+            code_addr[i] = frame_ok ? (uint32_t)a.cs_code_addr[ll(a, b, fd * 5 + i)] : 0u;
         }
         for (int i = 0; i < 4; i++)
-            frame_u128[i] = frame_ok ? (uint32_t)a.cs_u128[fi * 4 + i] : 0u;
+            frame_u128[i] = frame_ok ? (uint32_t)a.cs_u128[ll(a, b, fd * 4 + i)] : 0u;
     }
     const uint32_t pc = scal[CS_PC];
     const uint32_t code_page = scal[CS_CODE_PAGE];
@@ -482,17 +547,16 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     uint64_t code_slot = 0;
     bool code_page_found = false;
     for (int p = 0; p < P; p++) {
-        bool m = (uint32_t)a.cb_page[(uint64_t)b * P + p] == code_page &&
-                 a.cb_valid[(uint64_t)b * P + p];
+        bool m = (uint32_t)a.cb_page[ll(a, b, p)] == code_page &&
+                 a.cb_valid[ll(a, b, p)];
         if (m) { code_slot += p; code_page_found = true; }
     }
     const uint64_t code_n = (uint64_t)P * a.code_words;
-    const int32_t *lane_code = a.code + (uint64_t)b * code_n * 8;
     if (code_read_needed &&
         (!code_page_found || super_pc >= (uint32_t)a.code_words))
         L.lane_error = true;
     U256 code_word = code_read_needed
-        ? load_word(lane_code, code_n, code_slot * a.code_words + super_pc)
+        ? load_word(a, a.code, b, code_n, code_slot * a.code_words + super_pc)
         : L.prev_code_word;
     const uint32_t new_prev_super_pc =
         (code_read_needed || pending) ? super_pc : L.prev_super_pc;
@@ -620,13 +684,12 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     const bool do_src0_mem_read = (src0_is_stack_mem || src0_code) && !is_nop_op;
 
     const uint64_t SW = a.stack_words;
-    int32_t *lane_stack = a.stack + (uint64_t)b * SW * 8;
-    uint8_t *lane_stag = a.stack_tag + (uint64_t)b * SW;
     uint32_t src0_phys;
     const bool src0_in_window = map_stack(a, src0_loc, &src0_phys);
-    const U256 stack_val = load_word(lane_stack, SW, src0_phys);
-    const bool stack_tag = src0_phys < SW ? lane_stag[src0_phys] != 0 : false;
-    const U256 code_val = load_word(lane_code, code_n,
+    const U256 stack_val = load_word(a, a.stack, b, SW, src0_phys);
+    const bool stack_tag =
+        src0_phys < SW ? a.stack_tag[ll(a, b, src0_phys)] != 0 : false;
+    const U256 code_val = load_word(a, a.code, b, code_n,
                                     code_slot * a.code_words + src0_loc);
     if (do_src0_mem_read && src0_is_stack_mem && !src0_in_window)
         L.lane_error = true;
@@ -795,10 +858,10 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     uint32_t ptr_heap_slot = 0, ptr_aux_slot = 0;
     bool hp_any = false, ap_any = false;
     for (int f = 0; f < F; f++) {
-        if ((uint32_t)a.hp_page[(uint64_t)b * F + f] == u_page_field) {
+        if ((uint32_t)a.hp_page[ll(a, b, f)] == u_page_field) {
             ptr_heap_slot += f; hp_any = true;
         }
-        if ((uint32_t)a.ap_page[(uint64_t)b * F + f] == u_page_field) {
+        if ((uint32_t)a.ap_page[ll(a, b, f)] == u_page_field) {
             ptr_aux_slot += f; ap_any = true;
         }
     }
@@ -820,11 +883,11 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     const uint32_t arena_words = use_heap_arena ? a.heap_words : a.aux_heap_words;
     const uint32_t m_base = uma_slot * arena_words;
     const uint64_t m_n = (uint64_t)F * arena_words;
-    int32_t *lane_mem = (use_heap_arena ? a.heap : a.aux_heap) + (uint64_t)b * m_n * 8;
-    const U256 w0 = do_mem ? load_word(lane_mem, m_n, (uint32_t)(m_base + word0))
+    int32_t *mem = use_heap_arena ? a.heap : a.aux_heap;
+    const U256 w0 = do_mem ? load_word(a, mem, b, m_n, (uint32_t)(m_base + word0))
                            : u256_zero();
     const U256 w1 = (do_mem && is_unaligned)
-        ? load_word(lane_mem, m_n, (uint32_t)(m_base + word1)) : u256_zero();
+        ? load_word(a, mem, b, m_n, (uint32_t)(m_base + word1)) : u256_zero();
 
     const uint32_t una_bits = unalign * 8;
     U256 read_val = u256_or(u256_shl(w0, una_bits), u256_shr(w1, 256 - una_bits));
@@ -880,30 +943,27 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
         for (int i = 0; i < 8; i++) key14[i] = src0.w[i];
         for (int i = 0; i < 5; i++) key14[8 + i] = this_addr[i];
         key14[13] = shard_this;
-        int32_t *lane_key = a.st_key + (uint64_t)b * S * 14;
-        int32_t *lane_val = a.st_val + (uint64_t)b * S * 8;
-        uint8_t *lane_used = a.st_used + (uint64_t)b * S;
         bool found = false;
         int32_t write_slot = 0;
         for (int s = 0; s < S; s++) {
-            bool m = lane_used[s] != 0;
+            bool m = a.st_used[ll(a, b, s)] != 0;
             for (int i = 0; i < 14 && m; i++)
-                m = (uint32_t)lane_key[s * 14 + i] == key14[i];
+                m = (uint32_t)a.st_key[ll(a, b, s * 14 + i)] == key14[i];
             if (!m) continue;
             found = true;
             write_slot += s;
-            for (int l = 0; l < 8; l++)
-                current_val.w[l] += (uint32_t)lane_val[s * 8 + l];
-            if (do_swrite) store_u256(lane_val + s * 8, src1);
+            const U256 v = load_row(a, a.st_val, b, s);
+            for (int l = 0; l < 8; l++) current_val.w[l] += v.w[l];
+            if (do_swrite) store_row(a, a.st_val, b, s, src1);
         }
         if (do_swrite && !found) {
             if (L.st_count >= S) {
                 L.lane_error = true;
             } else {
                 for (int i = 0; i < 14; i++)
-                    lane_key[L.st_count * 14 + i] = (int32_t)key14[i];
-                store_u256(lane_val + L.st_count * 8, src1);
-                lane_used[L.st_count] = 1;
+                    a.st_key[ll(a, b, L.st_count * 14 + i)] = (int32_t)key14[i];
+                store_row(a, a.st_val, b, L.st_count, src1);
+                a.st_used[ll(a, b, L.st_count)] = 1;
                 write_slot = L.st_count;
             }
             L.st_count += 1;
@@ -915,9 +975,8 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
             if (L.j_count >= J) {
                 L.lane_error = true;
             } else {
-                const uint64_t ji = (uint64_t)b * J + L.j_count;
-                a.j_slot[ji] = write_slot;
-                store_u256(a.j_prev + ji * 8, current_val);
+                a.j_slot[ll(a, b, L.j_count)] = write_slot;
+                store_row(a, a.j_prev, b, L.j_count, current_val);
             }
             new_j_count = L.j_count + 1;
         }
@@ -927,11 +986,11 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
             if (L.ev_count >= E) {
                 L.lane_error = true;
             } else {
-                const uint64_t ei = (uint64_t)b * E + L.ev_count;
-                store_u256(a.ev_key + ei * 8, src0);
-                store_u256(a.ev_val + ei * 8, src1);
-                a.ev_meta[ei * 2] = (int32_t)ts_log;
-                a.ev_meta[ei * 2 + 1] = (int32_t)(
+                const uint64_t e = L.ev_count;
+                store_row(a, a.ev_key, b, e, src0);
+                store_row(a, a.ev_val, b, e, src1);
+                a.ev_meta[ll(a, b, e * 2)] = (int32_t)ts_log;
+                a.ev_meta[ll(a, b, e * 2 + 1)] = (int32_t)(
                     aux_byte | ((uint32_t)vflag0 << 8) | (L.tx_number << 16));
             }
             new_ev_count = L.ev_count + 1;
@@ -1025,15 +1084,14 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
             for (int i = 0; i < 5; i++) key14[i] = fc_addr5[i];
             key14[8] = DEPLOYER_SYSTEM_CONTRACT_ADDRESS;
             key14[13] = fc_code_shard;
-            const int32_t *lane_key = a.st_key + (uint64_t)b * S * 14;
-            const int32_t *lane_val = a.st_val + (uint64_t)b * S * 8;
             for (int s = 0; s < S; s++) {
-                bool m = a.st_used[(uint64_t)b * S + s] != 0;
+                bool m = a.st_used[ll(a, b, s)] != 0;
                 for (int i = 0; i < 14 && m; i++)
-                    m = (uint32_t)lane_key[s * 14 + i] == key14[i];
-                if (m)
-                    for (int l = 0; l < 8; l++)
-                        fc_hash_storage.w[l] += (uint32_t)lane_val[s * 8 + l];
+                    m = (uint32_t)a.st_key[ll(a, b, s * 14 + i)] == key14[i];
+                if (m) {
+                    const U256 v = load_row(a, a.st_val, b, s);
+                    for (int l = 0; l < 8; l++) fc_hash_storage.w[l] += v.w[l];
+                }
             }
         }
         // default-AA masking for empty slots of user-space targets
@@ -1094,11 +1152,13 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
         bool bank_found = false;
         uint32_t bound_page = 0;
         for (int p = 0; p < P; p++) {
-            const uint64_t pi = (uint64_t)b * P + p;
-            bool m = a.cb_valid[pi] != 0;
+            bool m = a.cb_valid[ll(a, b, p)] != 0;
             for (int l = 0; l < 8 && m; l++)
-                m = (uint32_t)a.cb_hash[pi * 8 + l] == fc_code_hash.w[l];
-            if (m) { bank_found = true; bound_page += (uint32_t)a.cb_page[pi]; }
+                m = (uint32_t)a.cb_hash[ll(a, b, p * 8 + l)] == fc_code_hash.w[l];
+            if (m) {
+                bank_found = true;
+                bound_page += (uint32_t)a.cb_page[ll(a, b, p)];
+            }
         }
         // an unknown code hash is the VM's single hard error
         if (fc_do_decommit && !bank_found) L.lane_error = true;
@@ -1106,11 +1166,10 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
         fc_code_page = fc_fresh ? fc_new_base : bound_page;
         if (fc_do_decommit && fc_fresh) {
             for (int p = 0; p < P; p++) {
-                const uint64_t pi = (uint64_t)b * P + p;
-                bool m = a.cb_valid[pi] != 0;
+                bool m = a.cb_valid[ll(a, b, p)] != 0;
                 for (int l = 0; l < 8 && m; l++)
-                    m = (uint32_t)a.cb_hash[pi * 8 + l] == fc_code_hash.w[l];
-                if (m) a.cb_page[pi] = (int32_t)fc_new_base;
+                    m = (uint32_t)a.cb_hash[ll(a, b, p * 8 + l)] == fc_code_hash.w[l];
+                if (m) a.cb_page[ll(a, b, p)] = (int32_t)fc_new_base;
             }
         }
         // a repeat decommit refunds its cost (far_call.rs:450-453)
@@ -1129,7 +1188,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
         for (int i = 0; i < 5; i++) {
             fc_next_this[i] = fc_delegate ? this_addr[i] : fc_addr5[i];
             fc_next_sender[i] = fc_delegate ? msg_sender[i]
-                : (fc_mimic ? L.regs[14][i] : this_addr[i]);
+                : (fc_mimic ? reg_limb(L, 14, i) : this_addr[i]);
         }
         for (int i = 0; i < 4; i++)
             fc_next_u128[i] = fc_delegate ? frame_u128[i] : L.ctx[i];
@@ -1203,10 +1262,9 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
         : (is_far_call ? fc_new_heap_bound : heap_bound0);
     cur[CS_AUX_HEAP_BOUND] = is_uma ? new_aux_bound_u
         : (is_far_call ? fc_new_aux_bound : aux_bound0);
-    if (frame_ok) {
-        const uint64_t fi = (uint64_t)b * D + depth;
-        for (int f = 0; f < (int)NF; f++) a.cs_scalars[fi * NF + f] = (int32_t)cur[f];
-    }
+    if (frame_ok)
+        for (int f = 0; f < (int)NF; f++)
+            a.cs_scalars[ll(a, b, (uint64_t)depth * NF + f)] = (int32_t)cur[f];
     if (is_near_call || is_far_call) {
         const int32_t push_idx = depth + 1 < D - 1 ? depth + 1 : D - 1;
         if (depth + 1 >= D) L.lane_error = true;
@@ -1239,14 +1297,16 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
                 pushed[CS_ERGS_REMAINING] = nc_passed;
                 pushed[CS_FLAGS_WORD] = flags_word | 2;
             }
-            const uint64_t pi = (uint64_t)b * D + push_idx;
-            for (int f = 0; f < (int)NF; f++) a.cs_scalars[pi * NF + f] = (int32_t)pushed[f];
+            const uint64_t pd = push_idx;
+            for (int f = 0; f < (int)NF; f++)
+                a.cs_scalars[ll(a, b, pd * NF + f)] = (int32_t)pushed[f];
             for (int i = 0; i < 5; i++) {
-                a.cs_this[pi * 5 + i] = (int32_t)p_this[i];
-                a.cs_sender[pi * 5 + i] = (int32_t)p_sender[i];
-                a.cs_code_addr[pi * 5 + i] = (int32_t)p_code[i];
+                a.cs_this[ll(a, b, pd * 5 + i)] = (int32_t)p_this[i];
+                a.cs_sender[ll(a, b, pd * 5 + i)] = (int32_t)p_sender[i];
+                a.cs_code_addr[ll(a, b, pd * 5 + i)] = (int32_t)p_code[i];
             }
-            for (int i = 0; i < 4; i++) a.cs_u128[pi * 4 + i] = (int32_t)p_u128[i];
+            for (int i = 0; i < 4; i++)
+                a.cs_u128[ll(a, b, pd * 4 + i)] = (int32_t)p_u128[i];
         }
     }
     if (is_far_call) {
@@ -1255,8 +1315,8 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
         for (int i = 0; i < 4; i++) new_ctx[i] = 0;
         const int F = a.heap_frames;
         if (fc_heap_slot >= 0 && fc_heap_slot < F) {
-            a.hp_page[(uint64_t)b * F + fc_heap_slot] = (int32_t)(fc_new_base + 2);
-            a.ap_page[(uint64_t)b * F + fc_heap_slot] = (int32_t)(fc_new_base + 3);
+            a.hp_page[ll(a, b, fc_heap_slot)] = (int32_t)(fc_new_base + 2);
+            a.ap_page[ll(a, b, fc_heap_slot)] = (int32_t)(fc_new_base + 3);
         }
         L.frame_count += 1;
         L.page_counter += NEW_MEMORY_PAGES_PER_FAR_CALL;
@@ -1264,14 +1324,18 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     if (is_ret) {
         const int32_t parent_idx = depth - 1 > 0 ? depth - 1 : 0;
         if (parent_idx < D) {
-            const uint64_t pi = (uint64_t)b * D + parent_idx;
-            int32_t *par = a.cs_scalars + pi * NF;
-            par[CS_ERGS_REMAINING] = (int32_t)((uint32_t)par[CS_ERGS_REMAINING] + ergs3);
-            if (is_to_label && is_local_frame) par[CS_PC] = (int32_t)imm0;
-            else if (ret_panicked) par[CS_PC] = (int32_t)scal[CS_EXCEPTION_HANDLER];
+            // the parent frame's scalars: field f at ll(par + f)
+            const uint64_t par = (uint64_t)parent_idx * NF;
+            int32_t *cs = a.cs_scalars;
+            cs[ll(a, b, par + CS_ERGS_REMAINING)] = (int32_t)(
+                (uint32_t)cs[ll(a, b, par + CS_ERGS_REMAINING)] + ergs3);
+            if (is_to_label && is_local_frame)
+                cs[ll(a, b, par + CS_PC)] = (int32_t)imm0;
+            else if (ret_panicked)
+                cs[ll(a, b, par + CS_PC)] = (int32_t)scal[CS_EXCEPTION_HANDLER];
             if (is_local_frame) {
-                par[CS_HEAP_BOUND] = (int32_t)heap_bound0;
-                par[CS_AUX_HEAP_BOUND] = (int32_t)aux_bound0;
+                cs[ll(a, b, par + CS_HEAP_BOUND)] = (int32_t)heap_bound0;
+                cs[ll(a, b, par + CS_AUX_HEAP_BOUND)] = (int32_t)aux_bound0;
             }
         }
         if (kLog && ret_panicked) {
@@ -1285,16 +1349,15 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
                 int32_t slot = 0;
                 U256 prev = u256_zero();
                 if (e < J) {
-                    slot = a.j_slot[(uint64_t)b * J + e];
-                    prev = load_u256(a.j_prev + ((uint64_t)b * J + e) * 8);
+                    slot = a.j_slot[ll(a, b, e)];
+                    prev = load_row(a, a.j_prev, b, e);
                 }
-                if (slot >= 0 && slot < S)
-                    store_u256(a.st_val + ((uint64_t)b * S + slot) * 8, prev);
+                if (slot >= 0 && slot < S) store_row(a, a.st_val, b, slot, prev);
             }
             new_j_count = j_snap;
             for (int32_t pos = ev_snap > 0 ? ev_snap : 0;
                  pos < new_ev_count && pos < E; pos++)
-                a.ev_cancelled[(uint64_t)b * E + pos] = 1;
+                a.ev_cancelled[ll(a, b, pos)] = 1;
         }
     }
     int32_t new_depth = depth + ((is_near_call || is_far_call) ? 1 : 0) -
@@ -1308,11 +1371,11 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     if (nonlocal_ret) {
         // r1 = returndata pointer, the rest of the file wiped
         for (int r = 0; r < 15; r++) {
-            for (int l = 0; l < 8; l++) L.regs[r][l] = 0;
-            L.rtag[r] = r == 0;
+            for (int l = 0; l < 8; l++) reg_limb(L, r, l) = 0;
+            reg_tag(L, r) = r == 0;
         }
-        L.regs[0][0] = r_off; L.regs[0][1] = r_page;
-        L.regs[0][2] = r_start; L.regs[0][3] = r_len;
+        reg_limb(L, 0, 0) = r_off; reg_limb(L, 0, 1) = r_page;
+        reg_limb(L, 0, 2) = r_start; reg_limb(L, 0, 3) = r_len;
         for (int i = 0; i < 4; i++) new_ctx[i] = 0;
     }
     if (is_far_call) {
@@ -1322,11 +1385,11 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
         for (int r = 0; r < 15; r++) {
             const bool keep = fc_to_system && r >= 2 && r <= 11;
             if (!keep)
-                for (int l = 0; l < 8; l++) L.regs[r][l] = 0;
-            L.rtag[r] = r == 0;
+                for (int l = 0; l < 8; l++) reg_limb(L, r, l) = 0;
+            reg_tag(L, r) = r == 0;
         }
-        for (int i = 0; i < 4; i++) L.regs[0][i] = fc_cd[i];
-        L.regs[1][0] = (uint32_t)fc_ctor | ((uint32_t)fc_to_system << 1);
+        for (int i = 0; i < 4; i++) reg_limb(L, 0, i) = fc_cd[i];
+        reg_limb(L, 1, 0) = (uint32_t)fc_ctor | ((uint32_t)fc_to_system << 1);
     }
 
     // ======================================== memory writebacks
@@ -1336,13 +1399,14 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     if (dst0_to_stack) {
         if (!dst0_in_window) L.lane_error = true;
         if (dst0_phys < SW) {
-            store_word(lane_stack, SW, dst0_phys, dst0_val);
-            lane_stag[dst0_phys] = dst0_is_ptr;
+            store_word(a, a.stack, b, SW, dst0_phys, dst0_val);
+            a.stack_tag[ll(a, b, dst0_phys)] = dst0_is_ptr;
         }
     }
     if (uma_do_write) {
-        store_word(lane_mem, m_n, (uint32_t)(m_base + word0), new_w0);
-        if (is_unaligned) store_word(lane_mem, m_n, (uint32_t)(m_base + word1), new_w1);
+        store_word(a, mem, b, m_n, (uint32_t)(m_base + word0), new_w0);
+        if (is_unaligned)
+            store_word(a, mem, b, m_n, (uint32_t)(m_base + word1), new_w1);
     }
 
     // ====================================== memory witness slots
@@ -1428,9 +1492,14 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
 }
 
 // write one cycle's 8 slots at row `base` of a batch-last slot array
-HD void emit_slots(const K1Args &a, int b, uint64_t base, const Slot *slots,
-                   bool overflow, Lane &L) {
+// (meta [rows, 4, B], value [rows, 8, B], flags [rows, B]); an overflowing
+// cycle writes all-zero rows and flags its valid slots as a lane error.
+// Returns the number of valid slots written.
+HD int emit_slots(const K1Args &a, int32_t *meta, int32_t *value,
+                  int32_t *flags, int b, uint64_t base, const Slot *slots,
+                  bool overflow, Lane &L) {
     const uint64_t B = a.batch;
+    int n = 0;
     for (int s = 0; s < SLOTS_PER_CYCLE; s++) {
         const Slot &q = slots[s];
         bool v = q.valid;
@@ -1439,15 +1508,16 @@ HD void emit_slots(const K1Args &a, int b, uint64_t base, const Slot *slots,
             v = false;
         }
         const uint64_t row = base + s;
-        a.q_meta[(row * 4 + 0) * B + b] = v ? (int32_t)q.ts : 0;
-        a.q_meta[(row * 4 + 1) * B + b] = v ? (int32_t)q.type : 0;
-        a.q_meta[(row * 4 + 2) * B + b] = v ? (int32_t)q.page : 0;
-        a.q_meta[(row * 4 + 3) * B + b] = v ? (int32_t)q.index : 0;
+        meta[(row * 4 + 0) * B + b] = v ? (int32_t)q.ts : 0;
+        meta[(row * 4 + 1) * B + b] = v ? (int32_t)q.type : 0;
+        meta[(row * 4 + 2) * B + b] = v ? (int32_t)q.page : 0;
+        meta[(row * 4 + 3) * B + b] = v ? (int32_t)q.index : 0;
         for (int l = 0; l < 8; l++)
-            a.q_value[(row * 8 + l) * B + b] = v ? (int32_t)q.val.w[l] : 0;
-        a.q_flags[row * B + b] = v ? (int32_t)(q.rw | (q.ptr << 1) | 4u) : 0;
-        L.wq_count += v;
+            value[(row * 8 + l) * B + b] = v ? (int32_t)q.val.w[l] : 0;
+        flags[row * B + b] = v ? (int32_t)(q.rw | (q.ptr << 1) | 4u) : 0;
+        n += v;
     }
+    return n;
 }
 
 // write one cycle's log row at min(step, LQ - 1) of the lane's log queue
@@ -1459,12 +1529,14 @@ HD void emit_log_row(const K1Args &a, int b, int64_t step, const LogRow &lr,
         L.lane_error = true;
         v = false;
     }
-    const uint64_t r = (uint64_t)b * LQ + (step < LQ - 1 ? step : LQ - 1);
-    for (int i = 0; i < 4; i++) a.lq_meta[r * 4 + i] = v ? (int32_t)lr.meta[i] : 0;
-    for (int i = 0; i < 5; i++) a.lq_addr[r * 5 + i] = v ? (int32_t)lr.addr[i] : 0;
-    store_u256(a.lq_key + r * 8, v ? lr.key : u256_zero());
-    store_u256(a.lq_read + r * 8, v ? lr.read : u256_zero());
-    store_u256(a.lq_written + r * 8, v ? lr.written : u256_zero());
+    const uint64_t r = step < LQ - 1 ? step : LQ - 1;
+    for (int i = 0; i < 4; i++)
+        a.lq_meta[ll(a, b, r * 4 + i)] = v ? (int32_t)lr.meta[i] : 0;
+    for (int i = 0; i < 5; i++)
+        a.lq_addr[ll(a, b, r * 5 + i)] = v ? (int32_t)lr.addr[i] : 0;
+    store_row(a, a.lq_key, b, r, v ? lr.key : u256_zero());
+    store_row(a, a.lq_read, b, r, v ? lr.read : u256_zero());
+    store_row(a, a.lq_written, b, r, v ? lr.written : u256_zero());
     L.lq_count += v;
 }
 
@@ -1476,18 +1548,24 @@ HD void emit_decommit_row(const K1Args &a, int b, int64_t step,
         L.lane_error = true;
         v = false;
     }
-    const uint64_t r = (uint64_t)b * DQ + (step < DQ - 1 ? step : DQ - 1);
-    store_u256(a.dq_hash + r * 8, v ? dr.hash : u256_zero());
-    for (int i = 0; i < 4; i++) a.dq_meta[r * 4 + i] = v ? (int32_t)dr.meta[i] : 0;
+    const uint64_t r = step < DQ - 1 ? step : DQ - 1;
+    store_row(a, a.dq_hash, b, r, v ? dr.hash : u256_zero());
+    for (int i = 0; i < 4; i++)
+        a.dq_meta[ll(a, b, r * 4 + i)] = v ? (int32_t)dr.meta[i] : 0;
     L.dq_count += v;
 }
 
+// lane b's whole launch, its register file at rf (RF_WORDS words, stride
+// rs)
 template <bool kLog, bool kPrecomp, bool kEc = false>
-HD void k1_run_lane(const K1Args &a, int b) {
+HD void k1_run_lane(const K1Args &a, int b, uint32_t *rf, uint32_t rs) {
     Lane L;
+    L.rf = rf;
+    L.rs = rs;
     for (int r = 0; r < 15; r++) {
-        for (int l = 0; l < 8; l++) L.regs[r][l] = (uint32_t)a.regs[((uint64_t)b * 15 + r) * 8 + l];
-        L.rtag[r] = a.reg_ptr[(uint64_t)b * 15 + r] != 0;
+        const U256 v = load_u256(a.regs + ((uint64_t)b * 15 + r) * 8);
+        for (int l = 0; l < 8; l++) reg_limb(L, r, l) = v.w[l];
+        reg_tag(L, r) = a.reg_ptr[(uint64_t)b * 15 + r] != 0;
     }
     L.lt = a.flags[b * 3 + 0] != 0;
     L.eq = a.flags[b * 3 + 1] != 0;
@@ -1497,7 +1575,7 @@ HD void k1_run_lane(const K1Args &a, int b) {
     L.ergs_per_pubdata = a.ergs_per_pubdata[b];
     L.tx_number = a.tx_number[b];
     L.pending = a.pending[b] != 0;
-    for (int l = 0; l < 8; l++) L.prev_code_word.w[l] = (uint32_t)a.prev_code_word[(uint64_t)b * 8 + l];
+    L.prev_code_word = load_u256(a.prev_code_word + (uint64_t)b * 8);
     L.prev_super_pc = a.prev_super_pc[b];
     L.prev_code_page = a.prev_code_page[b];
     for (int i = 0; i < 4; i++) L.ctx[i] = (uint32_t)a.context_u128[(uint64_t)b * 4 + i];
@@ -1541,18 +1619,25 @@ HD void k1_run_lane(const K1Args &a, int b) {
             emit_log_row(a, b, step0 + c, lr, L);
         if (kLog && a.decommit_queue_capacity > 0)
             emit_decommit_row(a, b, step0 + c, dr, L);
-        if (a.emit_mode == 1) {
+        if (a.emit_queue) {
             const int64_t pos = (step0 + c) * SLOTS_PER_CYCLE;
             const int64_t last = (int64_t)a.queue_capacity - SLOTS_PER_CYCLE;
-            emit_slots(a, b, pos < last ? pos : last, slots, pos > last, L);
-        } else if (a.emit_mode == 2) {
-            emit_slots(a, b, (uint64_t)c * SLOTS_PER_CYCLE, slots, false, L);
+            L.wq_count += emit_slots(a, a.q_meta, a.q_value, a.q_flags, b,
+                                     pos < last ? pos : last, slots,
+                                     pos > last, L);
         }
+        // the block K2 folds keeps every valid slot, past a queue
+        // overflow too, as the reference's rolling absorb does
+        if (a.emit_block)
+            emit_slots(a, a.blk_meta, a.blk_value, a.blk_flags, b,
+                       (uint64_t)c * SLOTS_PER_CYCLE, slots, false, L);
     }
 
     for (int r = 0; r < 15; r++) {
-        for (int l = 0; l < 8; l++) a.regs[((uint64_t)b * 15 + r) * 8 + l] = (int32_t)L.regs[r][l];
-        a.reg_ptr[(uint64_t)b * 15 + r] = L.rtag[r];
+        U256 v;
+        for (int l = 0; l < 8; l++) v.w[l] = reg_limb(L, r, l);
+        store_u256(a.regs + ((uint64_t)b * 15 + r) * 8, v);
+        a.reg_ptr[(uint64_t)b * 15 + r] = reg_tag(L, r) != 0;
     }
     a.flags[b * 3 + 0] = L.lt;
     a.flags[b * 3 + 1] = L.eq;
@@ -1562,7 +1647,7 @@ HD void k1_run_lane(const K1Args &a, int b) {
     a.ergs_per_pubdata[b] = (int32_t)L.ergs_per_pubdata;
     a.tx_number[b] = (int32_t)L.tx_number;
     a.pending[b] = L.pending;
-    for (int l = 0; l < 8; l++) a.prev_code_word[(uint64_t)b * 8 + l] = (int32_t)L.prev_code_word.w[l];
+    store_u256(a.prev_code_word + (uint64_t)b * 8, L.prev_code_word);
     a.prev_super_pc[b] = (int32_t)L.prev_super_pc;
     a.prev_code_page[b] = (int32_t)L.prev_code_page;
     for (int i = 0; i < 4; i++) a.context_u128[(uint64_t)b * 4 + i] = (int32_t)L.ctx[i];
@@ -1570,7 +1655,7 @@ HD void k1_run_lane(const K1Args &a, int b) {
     a.done[b] = L.done;
     a.lane_error[b] = L.lane_error;
     a.global_step[b] += n;
-    if (a.emit_mode == 1) a.wq_count[b] = L.wq_count;
+    if (a.emit_queue) a.wq_count[b] = L.wq_count;
     if (kLog) {
         a.spent_pubdata[b] = (int32_t)L.spent_pubdata;
         a.page_counter[b] = (int32_t)L.page_counter;
@@ -1584,31 +1669,65 @@ HD void k1_run_lane(const K1Args &a, int b) {
 }
 
 #ifdef __CUDACC__
+// at most K1_THREADS threads a block (k1_block_threads picks fewer)
+#define K1_THREADS 128
+
 template <bool kLog, bool kPrecomp, bool kEc>
-__global__ void __launch_bounds__(128) k1_kernel(const K1Args a) {
+__global__ void __launch_bounds__(K1_THREADS) k1_kernel(const K1Args a) {
+    extern __shared__ uint32_t k1_rf[];   // the block's register files
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b < a.batch) k1_run_lane<kLog, kPrecomp, kEc>(a, b);
+    if (b < a.batch)
+        k1_run_lane<kLog, kPrecomp, kEc>(a, b, k1_rf + threadIdx.x,
+                                         blockDim.x);
+}
+
+// The block size: the largest of 128, 64 and 32 threads whose grid still
+// spans every SM of the card, so that a small batch does not leave SMs
+// idle (B = 32768: 128 threads, 256 blocks; B = 4096: 32 threads, 128
+// blocks).  A lane's 255 registers allow 8 warps an SM whatever the block
+// size, its 540-byte register file in shared memory 12.
+static int k1_block_threads(int batch) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+        return K1_THREADS;
+    int threads = K1_THREADS;
+    while (threads > 32 && (batch + threads - 1) / threads < sms) threads /= 2;
+    return threads;
+}
+
+// one instance's launch: the block size from the SM count, a register
+// file a thread in dynamic shared memory (67.5 KB at 128 threads)
+template <bool kLog, bool kPrecomp, bool kEc>
+static int k1_launch(const K1Args *args, cudaStream_t s) {
+    const int threads = k1_block_threads(args->batch);
+    const int blocks = (args->batch + threads - 1) / threads;
+    const int smem = threads * RF_WORDS * (int)sizeof(uint32_t);
+    const cudaError_t e = cudaFuncSetAttribute(
+        k1_kernel<kLog, kPrecomp, kEc>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    k1_kernel<kLog, kPrecomp, kEc><<<blocks, threads, smem, s>>>(*args);
+    return (int)cudaGetLastError();
 }
 
 #ifndef K1_EC_INSTANCE
 extern "C" int eravm_k1_ec_launch(const K1Args *args, void *stream);
 
+extern "C" int eravm_k1_threads(int batch) { return k1_block_threads(batch); }
+
 // the instance the config needs (models/fused_cycle.py: precompile_instance,
 // ecrecover_instance)
 extern "C" int eravm_k1_launch(const K1Args *args, int ecrecover,
                                void *stream) {
-    const int threads = 128;
-    const int blocks = (args->batch + threads - 1) / threads;
     cudaStream_t s = (cudaStream_t)stream;
     if (args->storage_slots > 0 && args->keccak_blocks > 0 && ecrecover)
         return eravm_k1_ec_launch(args, stream);
     if (args->storage_slots > 0 && args->keccak_blocks > 0)
-        k1_kernel<true, true, false><<<blocks, threads, 0, s>>>(*args);
-    else if (args->storage_slots > 0)
-        k1_kernel<true, false, false><<<blocks, threads, 0, s>>>(*args);
-    else
-        k1_kernel<false, false, false><<<blocks, threads, 0, s>>>(*args);
-    return (int)cudaGetLastError();
+        return k1_launch<true, true, false>(args, s);
+    if (args->storage_slots > 0) return k1_launch<true, false, false>(args, s);
+    return k1_launch<false, false, false>(args, s);
 }
 #endif  // K1_EC_INSTANCE
 #endif  // __CUDACC__

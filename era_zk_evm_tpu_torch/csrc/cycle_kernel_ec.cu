@@ -8,10 +8,6 @@
 
 #ifdef __CUDACC__
 extern "C" int eravm_k1_ec_launch(const K1Args *args, void *stream) {
-    const int threads = 128;
-    const int blocks = (args->batch + threads - 1) / threads;
-    k1_kernel<true, true, true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        *args);
-    return (int)cudaGetLastError();
+    return k1_launch<true, true, true>(args, (cudaStream_t)stream);
 }
 #endif

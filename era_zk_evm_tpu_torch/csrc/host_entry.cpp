@@ -16,14 +16,15 @@
 #include "bisect_fold.cu"
 
 extern "C" int eravm_k1_host(const K1Args *a, int ecrecover) {
-    // the instance eravm_k1_launch chooses
+    // the instance eravm_k1_launch chooses; a register file a lane
+    uint32_t rf[RF_WORDS];
     for (int b = 0; b < a->batch; b++) {
         if (a->storage_slots > 0 && a->keccak_blocks > 0 && ecrecover)
-            k1_run_lane<true, true, true>(*a, b);
+            k1_run_lane<true, true, true>(*a, b, rf, 1);
         else if (a->storage_slots > 0 && a->keccak_blocks > 0)
-            k1_run_lane<true, true>(*a, b);
-        else if (a->storage_slots > 0) k1_run_lane<true, false>(*a, b);
-        else k1_run_lane<false, false>(*a, b);
+            k1_run_lane<true, true>(*a, b, rf, 1);
+        else if (a->storage_slots > 0) k1_run_lane<true, false>(*a, b, rf, 1);
+        else k1_run_lane<false, false>(*a, b, rf, 1);
     }
     return 0;
 }
@@ -115,6 +116,19 @@ extern "C" int eravm_p6_host(const void *arena, const void *idx, void *out,
             ((uint32_t *)out)[(uint64_t)k * TB + t] = p6_sum(
                 (const uint32_t *)arena, W, TB, k,
                 ((const uint32_t *)idx)[t], t, reps, lane_major);
+    return 0;
+}
+
+// P6's word reads: out u32[8, TB] from a word arena (layouts as
+// eravm_p6w_launch)
+extern "C" int eravm_p6w_host(const void *arena, const void *idx, void *out,
+                              int W, int TB, int reps, int layout) {
+    for (int t = 0; t < TB; t++) {
+        uint32_t acc[8];
+        p6w_sum((const uint32_t *)arena, W, TB, layout,
+                ((const uint32_t *)idx)[t], t, reps, acc);
+        for (int l = 0; l < 8; l++) ((uint32_t *)out)[(uint64_t)l * TB + t] = acc[l];
+    }
     return 0;
 }
 

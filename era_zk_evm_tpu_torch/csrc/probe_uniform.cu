@@ -25,8 +25,51 @@
 // of the loop and the probe would time one load).  Bound: the bytes of the
 // gathered elements, the index and the output (REPS a power of two, the
 // product is one shift an output).
+//
+// The word reads (p6w_kernel) price K1's own access: a thread per lane reads
+// a whole 256-bit word, arena word (t, idx[t]), REPS times, in one of three
+// layouts: K1's lane-major word arena [TB, W, 8] (a lane's 8 limbs are 32
+// contiguous bytes) with 8 x 32-bit loads, the same with 2 x 128-bit (int4)
+// loads, and the batch-last word arena [W, 8, TB] (limb l of the lanes at
+// one word index contiguous), with 8 x 32-bit loads.  out[l, t] = REPS x
+// limb l of the word, the same function as the element reads on the
+// canonical arena [8, W, TB].
 
 #include "common.cuh"
+
+enum { kLaneWords = 0, kLaneWordsV4 = 1, kWordsBatchLast = 2 };
+
+// limb l of word (t, i) of the three word layouts
+HD uint64_t p6w_offset(int W, int TB, int layout, int t, uint32_t i, int l) {
+    return layout == kWordsBatchLast ? ((uint64_t)i * 8 + l) * TB + t
+                                     : ((uint64_t)t * W + i) * 8 + l;
+}
+
+// REPS x word (t, idx) into acc[8]; a word index past the arena reads zero
+HD void p6w_sum(const uint32_t *arena, int W, int TB, int layout, uint32_t i,
+                int t, int reps, uint32_t acc[8]) {
+    for (int l = 0; l < 8; l++) acc[l] = 0;
+    if (i >= (uint32_t)W) return;
+    for (int r = 0; r < reps; r++) {
+#ifdef __CUDA_ARCH__
+        if (layout == kLaneWordsV4) {
+            const uint32_t *p = arena + p6w_offset(W, TB, layout, t, i, 0);
+            uint32_t v[8];
+            asm volatile("ld.volatile.global.v4.u32 {%0,%1,%2,%3}, [%4];"
+                         : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                         : "l"(p));
+            asm volatile("ld.volatile.global.v4.u32 {%0,%1,%2,%3}, [%4];"
+                         : "=r"(v[4]), "=r"(v[5]), "=r"(v[6]), "=r"(v[7])
+                         : "l"(p + 4));
+            for (int l = 0; l < 8; l++) acc[l] += v[l];
+            continue;
+        }
+#endif
+        for (int l = 0; l < 8; l++)
+            acc[l] += *(const volatile uint32_t *)(
+                arena + p6w_offset(W, TB, layout, t, i, l));
+    }
+}
 
 HD uint32_t p6_sum(const uint32_t *arena, int W, int TB, int k, uint32_t i,
                    int t, int reps, int lane_major) {
@@ -57,6 +100,30 @@ __global__ void __launch_bounds__(256) p6_kernel(const uint32_t *arena,
     else
         acc = live ? p6_sum(arena, W, TB, k, i, t, reps, lane_major) : 0;
     if (live) out[(uint64_t)k * TB + t] = acc;
+}
+
+__global__ void __launch_bounds__(256) p6w_kernel(const uint32_t *arena,
+                                                  const uint32_t *idx,
+                                                  uint32_t *out, int W, int TB,
+                                                  int reps, int layout) {
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= TB) return;
+    uint32_t acc[8];
+    p6w_sum(arena, W, TB, layout, idx[t], t, reps, acc);
+    for (int l = 0; l < 8; l++) out[(uint64_t)l * TB + t] = acc[l];
+}
+
+// arena u32[TB, W, 8] (layout 0, 1) or u32[W, 8, TB] (layout 2), idx
+// u32[TB], out u32[8, TB]
+extern "C" int eravm_p6w_launch(const void *arena, const void *idx, void *out,
+                                int W, int TB, int reps, int layout,
+                                void *stream) {
+    const int threads = 256;
+    p6w_kernel<<<(TB + threads - 1) / threads, threads, 0,
+                 (cudaStream_t)stream>>>((const uint32_t *)arena,
+                                         (const uint32_t *)idx,
+                                         (uint32_t *)out, W, TB, reps, layout);
+    return (int)cudaGetLastError();
 }
 
 // arena u32[8, W, TB] (lane_major 0) or u32[TB, 8, W] (lane_major 1), idx

@@ -18,9 +18,12 @@ and FAR_CALL when `storage_slots == 0`.
 
 Every value is computed in int64 holding a u32 (or a bool), and the state
 fields are written back as int32.  `cycle_step` updates the state in place
-and returns it.  The CUDA kernel `csrc/cycle_kernel.cu` computes the same
-function one lane per thread; `models/fused_cycle.py` dispatches between
-the two by the device of the state.
+and returns it; it reads and writes the arrays through their
+reference-layout views (`state.reference_view`), so its indexing is the
+JAX engine's whatever the stored layout.  The CUDA kernel
+`csrc/cycle_kernel.cu` computes the same function one lane per thread;
+`models/fused_cycle.py` dispatches between the two by the device of the
+state.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from ..ops.secp256k1 import ecrecover_batched
 from ..ops.sha256 import sha256_compress_batched, sha256_iv
 from ..ops.u256 import M32, narrow, wide
 from ..witness.rolling import rolling_absorb
-from .state import BatchedVmState
+from .state import BatchedVmState, reference_view
 
 _PANIC_ENC = exception_revert_encoding()
 I64 = torch.int64
@@ -467,12 +470,17 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
                block: tuple | None = None) -> BatchedVmState:
     """Advance every lane by one cycle, in place.
 
-    In rolling-commitment mode the cycle's 8 memory-query slots are folded
-    into `wc_state` — or, when `block` is given as the `(meta, value,
-    flags)` views of 8 rows of a chunk slot block, written there for a
-    later fold (the layout the K2 kernel reads).
+    With the memory queue on, the cycle's 8 memory-query slots go into the
+    queue at its block clock.  With the rolling commitment on (beside the
+    queue or alone), they are folded into `wc_state` — or, when `block` is
+    given as the `(meta, value, flags)` views of 8 rows of a chunk slot
+    block, written there for a later fold (the layout the K2 kernel
+    reads).
     """
     check_slice(config)
+    # every array through its reference-layout view (lane first): writes
+    # land in the stored tensors
+    stored, state = state, reference_view(state)
     dev = state.done.device
     B, D = config.batch, config.max_depth
     step = int(state.global_step.min())
@@ -1363,36 +1371,44 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
         ]
         overflow = config.queue_capacity > 0 and \
             step * SLOTS_PER_CYCLE > config.queue_capacity - SLOTS_PER_CYCLE
-        meta_rows, value_rows, flag_rows = [], [], []
-        wq_count = state.wq_count.to(I64)
-        for valid, mtype, mpage, midx, mval, mptr, rw, ts in slots:
-            valid = valid & active
-            if overflow:
-                lane_error |= valid
-                valid = no
-            vm = valid.to(I64)
-            # invalid slots are all-zero rows, the rw bit included
-            meta_rows.append(torch.stack([ts, mtype, mpage, midx]) * vm)
-            value_rows.append(mval.T * vm)
-            flag_rows.append((rw | (mptr.to(I64) << 1) | 4) * vm)
-            wq_count += vm
-        meta_b = narrow(torch.stack(meta_rows), torch.int32)    # [8, 4, B]
-        value_b = narrow(torch.stack(value_rows), torch.int32)  # [8, 8, B]
-        flag_b = narrow(torch.stack(flag_rows), torch.int32)    # [8, B]
+        live = [valid & active for valid, *_ in slots]
+
+        def slot_rows(masks):
+            """The cycle's 8 rows ([8, 4, B], [8, 8, B], [8, B]) with the
+            slots `masks` keeps; the others all-zero rows, rw bit
+            included."""
+            meta_rows, value_rows, flag_rows = [], [], []
+            for m, (_, mtype, mpage, midx, mval, mptr, rw, ts) in zip(
+                    masks, slots):
+                vm = m.to(I64)
+                meta_rows.append(torch.stack([ts, mtype, mpage, midx]) * vm)
+                value_rows.append(mval.T * vm)
+                flag_rows.append((rw | (mptr.to(I64) << 1) | 4) * vm)
+            return tuple(narrow(torch.stack(r), torch.int32)
+                         for r in (meta_rows, value_rows, flag_rows))
+
         if config.queue_capacity > 0:
+            # an overflowing cycle keeps none of its slots in the queue
+            if overflow:
+                for m in live:
+                    lane_error |= m
+            kept = [no] * SLOTS_PER_CYCLE if overflow else live
+            meta_b, value_b, flag_b = slot_rows(kept)
             base = min(step * SLOTS_PER_CYCLE,
                        config.queue_capacity - SLOTS_PER_CYCLE)
             state.wq_meta[base:base + SLOTS_PER_CYCLE] = meta_b
             state.wq_value[base:base + SLOTS_PER_CYCLE] = value_b
             state.wq_flags[base:base + SLOTS_PER_CYCLE] = flag_b
-            state.wq_count.copy_(wq_count.to(torch.int32))
-        elif block is not None:
-            block[0].copy_(meta_b)
-            block[1].copy_(value_b)
-            block[2].copy_(flag_b)
-        else:
-            rolling_absorb(state.wc_state, state.wc_count, meta_b, value_b,
-                           flag_b)
+            state.wq_count += sum(m.to(torch.int32) for m in kept)
+        if config.rolling_commitment:
+            # the sponge absorbs every live slot, past a queue overflow too
+            # (the JAX engine's rolling block takes valid & active)
+            rows = slot_rows(live)
+            if block is not None:
+                for dst, src in zip(block, rows):
+                    dst.copy_(src)
+            else:
+                rolling_absorb(state.wc_state, state.wc_count, *rows)
 
     # ======================= log and decommit witness queues (1 row/cycle)
     # every lane writes its row at the cycle's position, done lanes too: a
@@ -1473,7 +1489,7 @@ def cycle_step(state: BatchedVmState, config: VmConfig,
     put("done", new_done)
     state.lane_error.copy_(lane_error)
     state.global_step += 1
-    return state
+    return stored
 
 
 def run_cycles(state: BatchedVmState, config: VmConfig,

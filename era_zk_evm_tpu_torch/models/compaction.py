@@ -7,7 +7,8 @@ cancelled events below it are in no observable.  `compact_log_state` drops
 both, shifts the kept entries down in order and adjusts the counts and every
 frame's snapshots, so a bounded `journal_slots` / `event_slots` serves a long
 run when it is called between `run_cycles` segments.  It runs in plain torch
-between calls; it is not a kernel.
+between calls; it is not a kernel.  It works on the reference-layout views
+of the arrays (`state.reference_view`).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..config import CS, VmConfig
-from .state import BatchedVmState
+from .state import BatchedVmState, reference_view
 
 
 def _stable_filter(keep: torch.Tensor, arrs: list[torch.Tensor]) -> list:
@@ -56,6 +57,7 @@ def compact_log_state(state: BatchedVmState, config: VmConfig,
     """
     if config.journal_slots == 0:
         return state
+    stored, state = state, reference_view(state)   # writes land in stored
     dev = state.depth.device
     J, E, D = config.journal_slots, config.event_slots, config.max_depth
     pos_j = torch.arange(J, device=dev)[None, :]
@@ -103,4 +105,4 @@ def compact_log_state(state: BatchedVmState, config: VmConfig,
         torch.int32)
     state.cs_scalars[:, :, CS["event_snapshot"]] = new_ev_snaps.to(
         torch.int32)
-    return state
+    return stored

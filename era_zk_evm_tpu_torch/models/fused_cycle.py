@@ -1,4 +1,4 @@
-"""The dispatcher: chained chunks of the K1 cycle kernel, and K2 in mode (b).
+"""The dispatcher: chained chunks of the K1 cycle kernel, K2 in rolling mode.
 
 The counterpart of `era_zk_evm_tpu/models/fused_cycle.py::run_cycles_fused`
 for the ported slice, storage-enabled configs included (K1 then also reads
@@ -36,7 +36,7 @@ from ..config import (
 from ..isa import params
 from ..witness.rolling import rolling_absorb
 from . import batched_vm
-from .state import BOOL_FIELDS, BatchedVmState
+from .state import BOOL_FIELDS, BatchedVmState, stored_shape
 
 K1_LAUNCHES = 0
 K1_PRECOMPILE_LAUNCHES = 0
@@ -58,8 +58,9 @@ def ecrecover_instance(config: VmConfig) -> bool:
 
 
 def _k1_fields(config: VmConfig) -> list[tuple[str, str, tuple]]:
-    """(K1Args field, state field, shape) for every state tensor K1 reads
-    or writes."""
+    """(K1Args field, state field, reference shape) for every state tensor
+    K1 reads or writes; K1 takes each in its stored layout
+    (`state.stored_shape`)."""
     B, D = config.batch, config.max_depth
     R = params.REGISTERS_COUNT
     P, F = config.code_pages, config.heap_frames
@@ -207,22 +208,25 @@ def k1_args(state: BatchedVmState, config: VmConfig, k_cycles: int, n: int,
     args = K1Args()
     for arg_name, field, shape in _k1_fields(config):
         dtype = torch.bool if field in BOOL_FIELDS else torch.int32
-        setattr(args, arg_name, _check(getattr(state, field), field, shape,
-                                       dtype, device))
-    if config.queue_capacity > 0:
-        q, emit = (state.wq_meta, state.wq_value, state.wq_flags), 1
-        shapes = _slot_block_shapes(config, config.queue_capacity)
-    elif config.rolling_commitment:
-        q, emit = block, 2
-        shapes = _slot_block_shapes(config, block[0].shape[0])
-        if block[0].shape[0] < n * SLOTS_PER_CYCLE:
-            raise ValueError("slot block shorter than the chunk")
-    else:
-        q, emit = (state.wq_meta, state.wq_value, state.wq_flags), 0
-        shapes = _slot_block_shapes(config, 0)
-    for arg_name, t, shape in zip(("q_meta", "q_value", "q_flags"), q, shapes):
-        setattr(args, arg_name, _check(t, arg_name, shape, torch.int32,
+        setattr(args, arg_name, _check(getattr(state, field), field,
+                                       stored_shape(field, shape), dtype,
                                        device))
+    # the persistent queue (its zero-row tensors when it is off), and the
+    # chunk slot block in rolling mode (the queue's tensors stand in for it
+    # when it is off: K1 then never reads the pointers)
+    queue = (state.wq_meta, state.wq_value, state.wq_flags)
+    blk = queue
+    if config.rolling_commitment:
+        if block is None or block[0].shape[0] < n * SLOTS_PER_CYCLE:
+            raise ValueError("rolling mode needs a slot block as long as "
+                             "the chunk")
+        blk = block
+    for prefix, q, rows in (("q", queue, config.queue_capacity),
+                            ("blk", blk, blk[0].shape[0])):
+        shapes = _slot_block_shapes(config, rows)
+        for part, t, shape in zip(("meta", "value", "flags"), q, shapes):
+            setattr(args, f"{prefix}_{part}",
+                    _check(t, f"{prefix}_{part}", shape, torch.int32, device))
     args.step0 = ctypes.c_void_p(step0.data_ptr())
     if _pq_rows_in_kernel(config) != (pq_block is not None):
         raise ValueError("the round-witness scratch block is needed exactly "
@@ -257,10 +261,19 @@ def k1_args(state: BatchedVmState, config: VmConfig, k_cycles: int, n: int,
     args.event_slots = config.event_slots
     args.log_queue_capacity = config.log_queue_capacity
     args.decommit_queue_capacity = config.decommit_queue_capacity
-    args.emit_mode = emit
+    args.emit_queue = int(config.queue_capacity > 0)
+    args.emit_block = int(config.rolling_commitment)
     args.k_cycles = k_cycles
     args.k_stop = n
     return args
+
+
+def k1_threads(batch: int) -> int:
+    """The block size K1's launches take at `batch` lanes on this card (its
+    grid spans every SM: csrc/cycle_kernel.cu, k1_block_threads)."""
+    from .._build import load
+
+    return load().eravm_k1_threads(batch)
 
 
 def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
@@ -268,9 +281,10 @@ def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
                 pq_block: tuple | None = None) -> BatchedVmState:
     """K1: run min(k_cycles, k_stop) cycles of every lane, in place.
 
-    Mode (a) writes each cycle's 8 memory-query slots into the persistent
-    queue (`wq_*`); mode (b) writes them to rows `c * 8` of `block` (see
-    `new_slot_block`) for `rolling_fold`.  With the precompile units and
+    With the memory queue on (mode a), each cycle's 8 memory-query slots go
+    into the persistent queue (`wq_*`); with the rolling commitment on
+    (mode b, beside the queue or alone), also to rows `c * 8` of `block`
+    (see `new_slot_block`) for `rolling_fold`.  With the precompile units and
     their queue, the round-witness rows go through `pq_block` (allocated
     here when not given) and `splice_precompile_rows`.
     """

@@ -25,7 +25,10 @@ The round protocol keeps the host off the device's critical path:
   5. queue-capacity pressure forces a drain before a launch that would not
      fit, from a host-side cycle count.
 
-Only the packed stream form (`collect="packed"`) is ported.
+Only the packed stream form (`collect="packed"`) is ported.  The default
+of `collect` is the reference's, `"objects"`, which raises until that form
+is ported (ROADMAP Queue 1 item 3), so a call copied from the reference
+never gets packed arrays in its place.
 """
 
 from __future__ import annotations
@@ -47,9 +50,9 @@ from ..witness.packed import (
 from .net_states import event_entries_of, messages_from_join, storage_map_of
 from .spill import QUEUE_FIELDS
 from .state import (
-    BOOL_FIELDS, DEFAULT_DEVICE, FIELD_NAMES, BatchedVmState, _empty_numpy,
-    entry_arrays, populate_code_bank, populate_storage, state_from_numpy,
-    to_device,
+    BOOL_FIELDS, DEFAULT_DEVICE, FIELD_NAMES, LANE_AXIS, BatchedVmState,
+    _empty_numpy, entry_arrays, populate_code_bank, populate_storage,
+    reference_view, state_from_numpy, stored_shape, to_device,
 )
 
 #: a transaction whose program is this sentinel finishes on its first cycle
@@ -95,7 +98,9 @@ def merge_lanes(state: BatchedVmState, fresh: BatchedVmState,
     with queue capacities of 0."""
     for name in FIELD_NAMES:
         if name not in QUEUE_FIELDS:
-            getattr(state, name).index_copy_(0, lanes, getattr(fresh, name))
+            axis = LANE_AXIS[name] % getattr(state, name).dim()
+            getattr(state, name).index_copy_(axis, lanes,
+                                             getattr(fresh, name))
     return state
 
 
@@ -107,9 +112,8 @@ def _with_queues(config: VmConfig, lanes: BatchedVmState) -> BatchedVmState:
     for name in FIELD_NAMES:
         t = getattr(lanes, name)
         if name in QUEUE_FIELDS:
-            shape = one[name].shape
-            shape = (shape[:-1] + (config.batch,) if name.startswith("wq_")
-                     else (config.batch,) + shape[1:])
+            shape = list(stored_shape(name, one[name].shape))
+            shape[LANE_AXIS[name]] = config.batch
             t = torch.zeros(shape, device=t.device,
                             dtype=torch.bool if name in BOOL_FIELDS
                             else torch.int32)
@@ -148,7 +152,8 @@ def _finalize_gather(state: BatchedVmState, idx: torch.Tensor, want_st: bool,
         names += ["st_key", "st_val", "st_used"]
     if want_ev:
         names += ["ev_meta", "ev_key", "ev_val", "ev_cancelled", "ev_count"]
-    return HostCopy({name: (getattr(state, name).index_select(0, idx),)
+    ref = reference_view(state)
+    return HostCopy({name: (getattr(ref, name).index_select(0, idx),)
                      for name in names})
 
 
@@ -218,7 +223,7 @@ def run_block_refill(config: VmConfig, txs: list[TxSpec], run_cycles_fn,
                      chunk: int, max_rounds: int = 100_000,
                      refill: bool = True, fresh_builder=None,
                      refill_frac: float = 0.125,
-                     collect: str = "packed",
+                     collect: str = "objects",
                      spec_depth: int = 2,
                      tail_chunk_mult: int = 1,
                      order: str = "arrival",
@@ -244,11 +249,17 @@ def run_block_refill(config: VmConfig, txs: list[TxSpec], run_cycles_fn,
     `run_dyn_fn(state, config, n)` runs any n <= chunk without a new
     compile (`fused_cycle.run_cycles`: one kernel for every length).  Only
     `collect="packed"` is ported: TxResult.streams holds uint32 record
-    arrays per family (`witness/packed.py`).
+    arrays per family (`witness/packed.py`).  The default, the reference's
+    `"objects"`, raises NotImplementedError until ROADMAP Queue 1 item 3
+    ports the query structs.
 
     Returns (results, stats); stats["lane_cycles"] counts every launched
     lane-cycle, so utilization = useful_cycles / lane_cycles, and
     stats["profile"] splits the host's time by step."""
+    if collect == "objects":
+        raise NotImplementedError(
+            'collect="objects" (the reference\'s default) is not ported yet '
+            '(ROADMAP Queue 1 item 3); pass collect="packed"')
     if collect != "packed":
         raise NotImplementedError(
             f"collect={collect!r}: only the packed streams are ported")

@@ -1,12 +1,23 @@
 """Batched VM state as a dataclass of torch tensors.
 
 The counterpart of `era_zk_evm_tpu/models/state.py`: the same field names,
-shapes and layouts, so a JAX state and a port state convert field for field
+dtypes and values, so a JAX state and a port state convert field for field
 (`state_from_numpy` / `state_to_numpy`).  u32 fields are carried as
 `torch.int32` (torch has no arithmetic on `torch.uint32`), i32 fields as
-`torch.int32` and bool fields as `torch.bool`.  The memory-queue arrays
-`wq_*` stay batch-last (`[Q, ., B]`), which is also the coalesced layout for
-a kernel that runs one thread per lane.
+`torch.int32` and bool fields as `torch.bool`.
+
+Layout.  The reference layout (the JAX package's) puts the lane first,
+`[B, ...]`, but for the memory-queue arrays `wq_*`, which are batch-last
+(`[Q, ., B]`).  The port stores every array that the K1 kernel indexes by
+something other than the lane (a word, a frame, a slot, a queue row) with
+the lane LAST: `LANE_LAST_FIELDS`, each the reference array with its lane
+axis moved to the end (`[B, n, 8]` -> `[n, 8, B]`).  A kernel that runs one
+thread per lane then reads one index across a warp as contiguous memory.
+`LANE_AXIS` gives every field's lane axis as stored; the converters
+(`state_from_numpy`, `state_to_numpy`) and `reference_view` (views of the
+stored tensors in the reference layout, which write through) are the only
+places that move the axis, so every comparison against the JAX package
+runs on the reference layout.
 
 `empty_state`, `make_entry_state`, `populate_storage` and
 `populate_code_bank` build the state in numpy exactly as the JAX package
@@ -23,7 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import CS, CS_SCALAR_FIELDS, VmConfig
+from ..config import BATCH_LAST_FIELDS, CS, CS_SCALAR_FIELDS, VmConfig
 from ..isa import params
 from ..isa.abi import FatPointer
 
@@ -126,6 +137,40 @@ class BatchedVmState:
 
 FIELD_NAMES = tuple(f.name for f in dataclasses.fields(BatchedVmState))
 
+#: fields stored lane-last: the reference array with its lane axis (0) moved
+#: to the end
+LANE_LAST_FIELDS = frozenset({
+    "code", "stack", "stack_ptr_tag", "heap", "aux_heap", "hp_page",
+    "ap_page",
+    "cs_this_address", "cs_msg_sender", "cs_code_address",
+    "cs_context_u128", "cs_scalars",
+    "st_key", "st_val", "st_used", "cb_hash", "cb_page", "cb_valid",
+    "lq_meta", "lq_addr", "lq_key", "lq_read", "lq_written",
+    "dq_hash", "dq_meta",
+    "j_slot", "j_prev", "ev_key", "ev_val", "ev_meta", "ev_cancelled",
+})
+#: every field's lane axis as stored (0 first, -1 last); the memory-queue
+#: arrays (BATCH_LAST_FIELDS) are lane-last in both layouts
+LANE_AXIS = {name: -1 if name in LANE_LAST_FIELDS | set(BATCH_LAST_FIELDS)
+             else 0 for name in FIELD_NAMES}
+
+
+def stored_array(name: str, a: np.ndarray) -> np.ndarray:
+    """A reference-layout numpy array in the stored layout (a view)."""
+    return np.moveaxis(a, 0, -1) if name in LANE_LAST_FIELDS else a
+
+
+def reference_array(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A stored tensor in the reference layout: a view that writes
+    through."""
+    return t.movedim(-1, 0) if name in LANE_LAST_FIELDS else t
+
+
+def stored_shape(name: str, shape: tuple) -> tuple:
+    """The stored shape of a field whose reference shape is `shape`."""
+    shape = tuple(shape)
+    return shape[1:] + shape[:1] if name in LANE_LAST_FIELDS else shape
+
 
 def _empty_numpy(config: VmConfig) -> dict[str, np.ndarray]:
     """Numpy form of `era_zk_evm_tpu.models.state.empty_state`."""
@@ -204,24 +249,33 @@ def state_from_numpy(arrays: dict,
     converted: the int32 tensor holds the same bits."""
     out = {}
     for name in FIELD_NAMES:
-        a = np.ascontiguousarray(np.asarray(arrays[name]))
+        a = np.asarray(arrays[name])
         if name in BOOL_FIELDS:
             a = a.astype(bool)
         elif a.dtype != np.int32:
             a = a.astype(np.uint32).view(np.int32)
-        out[name] = to_device(a, device)
+        out[name] = to_device(stored_array(name, a), device)
     return BatchedVmState(**out)
 
 
 def state_to_numpy(state: BatchedVmState) -> dict[str, np.ndarray]:
-    """Numpy arrays with the JAX state's dtypes (u32 fields as uint32)."""
+    """Numpy arrays in the reference layout, with the JAX state's dtypes
+    (u32 fields as uint32)."""
     out = {}
     for name in FIELD_NAMES:
-        a = getattr(state, name).detach().cpu().numpy()
+        a = np.ascontiguousarray(reference_array(
+            name, getattr(state, name)).detach().cpu().numpy())
         if name not in BOOL_FIELDS and name not in I32_FIELDS:
             a = a.view(np.uint32)
         out[name] = a
     return out
+
+
+def reference_view(state: BatchedVmState) -> BatchedVmState:
+    """The state's tensors as views in the reference layout (lane first but
+    for `wq_*`); writes through them land in `state`."""
+    return BatchedVmState(**{n: reference_array(n, getattr(state, n))
+                             for n in FIELD_NAMES})
 
 
 def clone_state(state: BatchedVmState) -> BatchedVmState:
@@ -359,11 +413,12 @@ def populate_code_bank(state: BatchedVmState, config: VmConfig,
     Bank slot 0 is the entry program; staged contracts fill slots 1..P-1 and
     get bound to VM page numbers on first decommit (far call).
     """
+    ref = reference_view(state)
     B, P = config.batch, config.code_pages
     hashes = np.zeros((B, P, 8), dtype=np.uint32)
     lens = np.zeros((B, P), dtype=np.uint32)
     valid = np.zeros((B, P), dtype=bool)
-    code = _to_numpy(state.code)
+    code = _to_numpy(ref.code)
     for b, lane in enumerate(contracts):
         assert len(lane) <= P - 1, "code bank full"
         for i, (code_hash, words) in enumerate(lane):
@@ -374,12 +429,12 @@ def populate_code_bank(state: BatchedVmState, config: VmConfig,
             assert len(words) <= config.code_words
             for w_i, w in enumerate(words):
                 code[b, slot * config.code_words + w_i] = _limbs(w)
-    _put(state.cb_hash, np.where(valid[:, :, None], hashes,
-                                 _to_numpy(state.cb_hash)))
-    _put(state.cb_len, np.where(valid, lens, _to_numpy(state.cb_len)))
-    _put(state.cb_valid, _to_numpy(state.cb_valid) | valid)
-    _put(state.code, code)
-    _put(state.default_aa_hash,
+    _put(ref.cb_hash, np.where(valid[:, :, None], hashes,
+                               _to_numpy(ref.cb_hash)))
+    _put(ref.cb_len, np.where(valid, lens, _to_numpy(ref.cb_len)))
+    _put(ref.cb_valid, _to_numpy(ref.cb_valid) | valid)
+    _put(ref.code, code)
+    _put(ref.default_aa_hash,
          np.broadcast_to(_limbs(default_aa_hash), (B, 8)))
     return state
 
@@ -411,8 +466,9 @@ def populate_storage(state: BatchedVmState, config: VmConfig,
             vals[b, i] = _limbs(value)
             used[b, i] = True
         counts[b] = len(lane_entries)
-    _put(state.st_key, keys)
-    _put(state.st_val, vals)
-    _put(state.st_used, used)
+    ref = reference_view(state)
+    _put(ref.st_key, keys)
+    _put(ref.st_val, vals)
+    _put(ref.st_used, used)
     state.st_count.copy_(to_device(counts, state.st_count.device))
     return state

@@ -7,18 +7,25 @@ arena int32[8, W, TB] (the tool's batch-last layout; int32[TB, 8, W],
 arena[t, k, idx[t]], when `lane_major`) and idx int32[TB], as a sum of
 `reps` gathers: on a CUDA tensor with csrc/probe_uniform.cu (mode 0 a
 per-lane load, mode 1 the warp-uniform fast path), on a CPU tensor with
-`uniform_gather_plain`.  `P6_LAUNCHES` counts launches.  `main(argv)` runs
-both modes on the tool's arena and index (every lane 37), checks that they
-agree, and prints the time a gather:
+`uniform_gather_plain`.  `word_gather(arena, idx, reps, layout)` prices
+K1's own access, a thread reading a whole 256-bit word: the same function
+with the arena in one of `WORD_LAYOUTS` ("lane_words" [TB, W, 8], K1's
+lane-major arenas, read as 8 x 32-bit loads; "lane_words_v4", the same read
+as 2 x 128-bit loads; "words_batch_last" [W, 8, TB]).  `P6_LAUNCHES` counts
+launches of both kernels.  `main(argv)` runs both modes on the tool's arena
+and index (every lane 37), checks that they agree, and prints the time a
+gather (`--sweep` times every layout, element and word, at the given TBs):
 
     python -m era_zk_evm_tpu_torch.tools.probe_uniform [--tb 32768] \
         [--random] [--lane-major]
+    python -m era_zk_evm_tpu_torch.tools.probe_uniform --sweep 32768,4096
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import sys
 
 import torch
@@ -26,6 +33,10 @@ import torch
 P6_LAUNCHES = 0
 W, TB, REPS = 256, 256, 512
 INDEX = 37          # the tool's index, every lane alike
+#: the word layouts: (kernel layout id, permutation from the canonical
+#: arena [8, W, TB])
+WORD_LAYOUTS = {"lane_words": (0, (2, 1, 0)), "lane_words_v4": (1, (2, 1, 0)),
+                "words_batch_last": (2, (1, 0, 2))}
 
 
 def uniform_gather_plain(arena: torch.Tensor, idx: torch.Tensor,
@@ -72,21 +83,103 @@ def uniform_gather(arena: torch.Tensor, idx: torch.Tensor, reps: int,
     return out
 
 
+def _canonical(arena: torch.Tensor, layout: str) -> torch.Tensor:
+    """The [8, W, TB] view of a word-layout arena."""
+    perm = WORD_LAYOUTS[layout][1]
+    return arena.permute(*[perm.index(d) for d in range(3)])
+
+
+def word_gather_plain(arena: torch.Tensor, idx: torch.Tensor, reps: int,
+                      layout: str) -> torch.Tensor:
+    """The plain version of P6's word reads."""
+    return uniform_gather_plain(_canonical(arena, layout), idx, reps)
+
+
+def word_gather(arena: torch.Tensor, idx: torch.Tensor, reps: int,
+                layout: str) -> torch.Tensor:
+    """P6's word reads: int32[8, TB], limb l of word (t, idx[t]) times
+    reps, from a word arena in `layout` (see WORD_LAYOUTS)."""
+    global P6_LAUNCHES
+    if layout not in WORD_LAYOUTS or arena.dim() != 3 \
+            or _canonical(arena, layout).shape[0] != 8 \
+            or tuple(idx.shape) != (_canonical(arena, layout).shape[2],) \
+            or arena.dtype != torch.int32 or idx.dtype != torch.int32:
+        raise ValueError(f"P6 words ({layout}): arena {arena.dtype}"
+                         f"{list(arena.shape)}, idx {idx.dtype}"
+                         f"{list(idx.shape)}")
+    if arena.device.type == "cpu":
+        return word_gather_plain(arena, idx, reps, layout)
+    if arena.device.type != "cuda":
+        raise ValueError(f"no P6 kernel for device {arena.device}")
+    from .._build import load
+
+    arena, idx = arena.contiguous(), idx.contiguous()
+    _, w, tb = _canonical(arena, layout).shape
+    out = torch.empty((8, tb), dtype=torch.int32, device=arena.device)
+    stream = torch.cuda.current_stream(arena.device).cuda_stream
+    rc = load().eravm_p6w_launch(
+        ctypes.c_void_p(arena.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), w, tb, reps, WORD_LAYOUTS[layout][0],
+        ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"P6 word launch failed: cudaError {rc}")
+    P6_LAUNCHES += 1
+    return out
+
+
 def tool_inputs(w: int, tb: int, device, random_index: bool = False,
-                lane_major: bool = False):
+                lane_major: bool = False, word_layout: str | None = None):
     """The tool's arena (0, 1, 2, ... over [8, W, TB]; laid out [TB, 8, W]
-    when `lane_major`, the same function) and index (INDEX in every lane,
-    or uniform random in [0, W))."""
+    when `lane_major`, or in a word layout, the same function) and index
+    (INDEX in every lane, or uniform random in [0, W))."""
     arena = torch.arange(8 * w * tb, dtype=torch.int32,
                          device=device).reshape(8, w, tb)
     if lane_major:
         arena = arena.permute(2, 0, 1).contiguous()
+    elif word_layout is not None:
+        arena = arena.permute(*WORD_LAYOUTS[word_layout][1]).contiguous()
     if random_index:
         gen = torch.Generator().manual_seed(0)
         idx = torch.randint(0, w, (tb,), generator=gen, dtype=torch.int32)
     else:
         idx = torch.full((tb,), INDEX, dtype=torch.int32)
     return arena, idx.to(device)
+
+
+def sweep(tbs, device, w: int = W, reps: int = REPS) -> dict:
+    """Microseconds a gather (the best of three calls over `reps`) of every
+    layout (the tool's batch-last and the lane-major element arenas, mode
+    0; the three word layouts) at each TB, with the tool's index and a
+    random one, each checked against its plain version on the same
+    inputs."""
+    from .probe_keccak import best_seconds
+
+    out = {}
+    for tb in tbs:
+        for random_index in (False, True):
+            kind = "random" if random_index else "uniform"
+            for layout in ("batch_last", "lane_major") + tuple(WORD_LAYOUTS):
+                words = layout in WORD_LAYOUTS
+                arena, idx = tool_inputs(
+                    w, tb, device, random_index, layout == "lane_major",
+                    layout if words else None)
+                box = {}
+                if words:
+                    fn = lambda: box.__setitem__(  # noqa: E731
+                        "k", word_gather(arena, idx, reps, layout))
+                    want = word_gather_plain(arena, idx, reps, layout)
+                else:
+                    fn = lambda: box.__setitem__(  # noqa: E731
+                        "k", uniform_gather(arena, idx, reps, 0,
+                                            layout == "lane_major"))
+                    want = uniform_gather_plain(arena, idx, reps,
+                                                layout == "lane_major")
+                sec = best_seconds(fn, device, reps=3) / reps
+                if not torch.equal(box["k"], want):
+                    raise AssertionError(f"P6 {layout} {kind} TB={tb}")
+                out[f"tb{tb}_{layout}_{kind}_us"] = sec * 1e6
+                del arena, idx
+    return out
 
 
 def main(argv=None) -> dict:
@@ -101,11 +194,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--random", action="store_true",
                     help="a random index a lane in place of the tool's 37")
     ap.add_argument("--lane-major", action="store_true",
-                    help="the arena laid out [TB, 8, W], as K1's arenas")
+                    help="the arena laid out [TB, 8, W]")
+    ap.add_argument("--sweep", metavar="TB,TB,...",
+                    help="time every layout at these TBs (one JSON line)")
     args = ap.parse_args(argv)
     device = torch.device("cpu" if args.cpu else "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --cpu to run the plain version")
+    if args.sweep:
+        out = sweep([int(t) for t in args.sweep.split(",")], device, args.w,
+                    args.reps)
+        print(json.dumps(out))
+        return out
     if not args.random and args.w <= INDEX:
         raise SystemExit(f"--w must exceed the tool's index {INDEX}")
     arena, idx = tool_inputs(args.w, args.tb, device, args.random,

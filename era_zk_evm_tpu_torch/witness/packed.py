@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..models.spill import rewind_queues
-from ..models.state import DEFAULT_DEVICE, BatchedVmState
+from ..models.state import DEFAULT_DEVICE, BatchedVmState, reference_view
 from ..ops.goldilocks import GOLDILOCKS_P, gl_reduce64
 from ..ops.keccak import keccak_f1600_
 from ..ops.u256 import narrow, wide
@@ -91,6 +91,7 @@ def precompile_record_words(state: BatchedVmState):
 
 def log_record_words(state: BatchedVmState):
     """serialize_log_query (128 bytes)."""
+    state = reference_view(state)
     meta = wide(state.lq_meta)
     ts, packed, tx = meta[..., 0], meta[..., 1], meta[..., 2]
     flags = ((packed >> 8) & 1) | (((packed >> 9) & 1) << 2)
@@ -110,6 +111,7 @@ def log_record_words(state: BatchedVmState):
 
 def decommit_record_words(state: BatchedVmState):
     """serialize_decommittment (64 bytes)."""
+    state = reference_view(state)
     meta, h = wide(state.dq_meta), wide(state.dq_hash)
     z = torch.zeros_like(meta[..., 0])
     cols = [_bswap(h[..., 7 - i]) for i in range(8)]

@@ -79,7 +79,7 @@ def test_from_jax_config_round_trip():
     {"storage_slots": 4, "precompile_ecrecover": True},
     {"precompile_keccak_blocks": 1},
     {"limb_major_arenas": True},
-    {"rolling_commitment": True, "queue_capacity": 64},
+    {"precompile_ecrecover": True},                 # ecrecover without units
 ])
 def test_configs_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError):

@@ -56,6 +56,53 @@ def test_k1_matches_plain(cuda, rolling):
 
 
 @pytest.mark.cuda
+def test_k1_rolling_with_queue_matches_plain(cuda):
+    """The rolling commitment beside the memory queue: K1 writes both, K2
+    folds the block, equal to the plain engine (digests included)."""
+    import dataclasses
+
+    from era_zk_evm_tpu_torch.witness.rolling import finalize_rolling
+
+    words = [programs.assemble(p) for p in programs.FAMILY_PROGRAMS.values()]
+    config = dataclasses.replace(_config(len(words), True),
+                                 queue_capacity=64 * 8)
+    ks = pstate.make_entry_state(config, words, ergs=1 << 20, device=cuda)
+    ps = pstate.clone_state(ks)
+    fused_cycle.run_cycles(ks, config, 64, k_inner=24)
+    batched_vm.run_cycles(ps, config, 64)
+    a, b = pstate.state_to_numpy(ks), pstate.state_to_numpy(ps)
+    bad = [k for k in a if not (a[k] == b[k]).all()]
+    assert not bad, f"kernel/plain mismatch in fields: {bad}"
+    assert torch.equal(finalize_rolling(ks.wc_state, ks.wc_count),
+                       finalize_rolling(ps.wc_state, ps.wc_count))
+    assert ks.wq_count.any() and ks.wc_count.any()
+
+
+@pytest.mark.cuda
+def test_k1_grid_spans_the_sms(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for batch in (4096, 32768):
+        threads = fused_cycle.k1_threads(batch)
+        assert threads in (32, 64, 128)
+        assert -(-batch // threads) >= min(sms, batch // 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random", "far_call"])
+def test_k1_fuzz_matches_plain(cuda, name):
+    from era_zk_evm_tpu_torch.testing import fuzz_programs
+
+    config, ks = fuzz_programs.entry_state(name, device=cuda)
+    ps = pstate.clone_state(ks)
+    fused_cycle.run_cycles(ks, config, fuzz_programs.MAX_CYCLES, k_inner=40)
+    batched_vm.run_cycles(ps, config, fuzz_programs.MAX_CYCLES)
+    a, b = pstate.state_to_numpy(ks), pstate.state_to_numpy(ps)
+    bad = [k for k in a if not (a[k] == b[k]).all()]
+    assert not bad, f"kernel/plain mismatch in fields: {bad}"
+    assert a["done"].all() and not a["lane_error"].any()
+
+
+@pytest.mark.cuda
 def test_k2_matches_plain(cuda):
     gen = torch.Generator().manual_seed(5)
     B, rows = 300, 40
@@ -297,6 +344,17 @@ def test_p6_matches_plain(cuda, mode, random_index, lane_major):
     _on_card_and_cpu(cuda, lambda a, i: probe_uniform.uniform_gather(
         a, i, 9, mode, lane_major), (probe_uniform, "P6_LAUNCHES"), arena,
         idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(probe_uniform.WORD_LAYOUTS))
+@pytest.mark.parametrize("random_index", [False, True])
+def test_p6_word_reads_match_plain(cuda, random_index, layout):
+    arena, idx = probe_uniform.tool_inputs(64, 1000, "cpu", random_index,
+                                           word_layout=layout)
+    idx[7] = 64                                   # past the arena: reads 0
+    _on_card_and_cpu(cuda, lambda a, i: probe_uniform.word_gather(
+        a, i, 9, layout), (probe_uniform, "P6_LAUNCHES"), arena, idx)
 
 
 @pytest.mark.cuda

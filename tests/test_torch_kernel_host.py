@@ -297,6 +297,20 @@ def test_p6_host_build_matches_plain(host, random_index, lane_major):
         arena, idx, 5, lane_major))
 
 
+@pytest.mark.parametrize("layout", sorted(probe_uniform.WORD_LAYOUTS))
+@pytest.mark.parametrize("random_index", [False, True])
+def test_p6_word_host_build_matches_plain(host, random_index, layout):
+    arena, idx = probe_uniform.tool_inputs(48, 40, "cpu", random_index,
+                                           word_layout=layout)
+    idx[5] = 48                                   # past the arena: reads 0
+    out = torch.empty((8, 40), dtype=torch.int32)
+    assert host.eravm_p6w_host(arena.data_ptr(), idx.data_ptr(),
+                               out.data_ptr(), 48, 40, 5,
+                               probe_uniform.WORD_LAYOUTS[layout][0]) == 0
+    assert torch.equal(out, probe_uniform.word_gather_plain(
+        arena, idx, 5, layout))
+
+
 @pytest.mark.parametrize("variant", ["old", "wrapb", "sel", "two"])
 def test_p7_host_build_matches_plain(host, variant):
     gen = torch.Generator().manual_seed(13)

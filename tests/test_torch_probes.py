@@ -169,6 +169,36 @@ def test_p6_uniform_gather_matches_the_tool(monkeypatch, mode, random_index,
     assert np.array_equal(_np(got), np.asarray(want))
 
 
+@pytest.mark.parametrize("layout", sorted(probe_uniform.WORD_LAYOUTS))
+def test_p6_word_reads_match_the_tool(monkeypatch, layout):
+    """The word reads compute the tool's function on the same arena laid
+    out in K1's word layouts (the tool's kernel in interpret mode, mode 0,
+    a random index a lane)."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    tool = _tool("probe_mosaic_uniform")
+    W, TB, REPS = 64, 8, 4
+    for name, value in (("W", W), ("TB", TB), ("REPS", REPS)):
+        monkeypatch.setattr(tool, name, value)
+    arena, idx = probe_uniform.tool_inputs(W, TB, "cpu", True)
+    call = pl.pallas_call(
+        tool.kernel,
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1, grid=(1,),
+            in_specs=[pl.BlockSpec((8, W, TB), lambda i, *_: (0, 0, 0)),
+                      pl.BlockSpec((TB,), lambda i, *_: (0,))],
+            out_specs=pl.BlockSpec((8, TB), lambda i, *_: (0, 0))),
+        out_shape=jax.ShapeDtypeStruct((8, TB), jnp.uint32),
+        interpret=True)
+    want = call(jnp.asarray([0], jnp.int32), jnp.asarray(_np(arena)),
+                jnp.asarray(_np(idx)))
+    words, _ = probe_uniform.tool_inputs(W, TB, "cpu", True,
+                                         word_layout=layout)
+    got = probe_uniform.word_gather(words, idx, REPS, layout)
+    assert np.array_equal(_np(got), np.asarray(want))
+
+
 def test_p6_index_past_the_arena_reads_zero():
     arena, idx = probe_uniform.tool_inputs(64, 8, "cpu", random_index=True)
     idx[3] = 64

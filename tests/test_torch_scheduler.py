@@ -67,7 +67,8 @@ def _port(config, txs, **kw):
     if kw.get("adaptive_chunk"):
         kw["run_dyn_fn"] = _port_run
     return scheduler.run_block_refill(from_jax_config(config), txs,
-                                      _port_run, CHUNK, device="cpu", **kw)
+                                      _port_run, CHUNK, collect="packed",
+                                      device="cpu", **kw)
 
 
 def _both(config, txs, **kw):
@@ -198,10 +199,25 @@ def test_txspec_ergs_out_of_range_rejected():
                            ergs=params.VM_INITIAL_FRAME_ERGS + 1)
     with pytest.raises(ValueError, match="TxSpec.ergs"):
         scheduler.run_block_refill(config, [bad], _port_run, chunk=16,
-                                   device="cpu")
+                                   collect="packed", device="cpu")
     with pytest.raises(NotImplementedError):
         scheduler.run_block_refill(config, [], _port_run, chunk=16,
                                    collect="objects", device="cpu")
+
+
+def test_default_collect_is_the_references_and_raises():
+    """A call without `collect` takes the reference's default, "objects",
+    which is not ported: it raises instead of returning packed streams."""
+    import inspect
+
+    default = inspect.signature(scheduler.run_block_refill) \
+        .parameters["collect"].default
+    assert default == inspect.signature(jax_refill) \
+        .parameters["collect"].default == "objects"
+    config = from_jax_config(dataclasses.replace(_config(), batch=2))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        scheduler.run_block_refill(config, _txs([1, 2]), _port_run,
+                                   chunk=16, device="cpu")
 
 
 def test_merge_lanes_replaces_only_the_given_lanes():
