@@ -5,9 +5,9 @@
 
 Phases, one line each; any failure raises and the exit code is nonzero:
   device        a CUDA card is required; prints its name and power limit;
-  build         compiles K1, K2 and K3 from the sources in this tree; the
-                ptxas lines and K1's block size at B = 4096 and 32768 (its
-                grid must span the card's SMs);
+  build         compiles K1, K2, K3, the sponge and the probes from the
+                sources in this tree; the ptxas lines and K1's block size at
+                B = 4096 and 32768 (its grid must span the card's SMs);
   K1-small      K1 against its plain torch version on the family programs
                 (both memory-witness modes), every state field equal;
   K1            WORKLOAD at B = 32768, one 128-cycle call, kernel vs plain;
@@ -84,7 +84,21 @@ Phases, one line each; any failure raises and the exit code is nonzero:
   block-realistic  execute_block on bench_block's realistic mix (B = 4096,
                 chunk 128), txs/s, utilization, device idle and
                 vs_engine_ideal against one long tx per lane;
-  launches      K1 (each instance), K2 and K3 launched on their main paths.
+                every block phase counts the sponge's launches and K3's;
+  block-commit  each block phase's commitment phase alone
+                (block.commit_block on its txs' results, equal to the
+                block's): host wall, device busy time, K3's and the
+                sponge's device time and launches;
+  K3-sponge     the ragged keccak256 sponge against its plain version on
+                the card, bit for bit: the edge lengths of a rate block and
+                a mixed batch, a T = 1 fold of 8192 digests, block-
+                realistic's memory-family streams; times beside the bound
+                and the serial floor (the longest stream's blocks at one
+                permutation's single-thread latency); the log fingerprints
+                through K3 and through the sponge, timed and equal;
+  launches      K1 (each instance), K2, K3 and the sponge launched on their
+                main paths; block-tiny's sponge and K3 launches at most two
+                a queue family and one.
 The card's name and power limit come on a line of their own, the kernels'
 JSON record on the line before the last, and the last line is the device
 record.  The script imports no JAX and nothing of the JAX package.
@@ -106,7 +120,7 @@ import numpy as np
 import torch
 
 from era_zk_evm_tpu_torch import _build
-from era_zk_evm_tpu_torch.block import TxSpec, execute_block
+from era_zk_evm_tpu_torch.block import TxSpec, commit_block, execute_block
 from era_zk_evm_tpu_torch.config import VmConfig, precompile_queue_slots
 from era_zk_evm_tpu_torch.isa import params
 from era_zk_evm_tpu_torch.isa.abi import code_hash_for_bytecode
@@ -117,6 +131,8 @@ from era_zk_evm_tpu_torch.models.state import (
     populate_storage, reference_view,
 )
 from era_zk_evm_tpu_torch.ops import keccak, secp256k1
+from era_zk_evm_tpu_torch.ops.goldilocks import gl_reduce64
+from era_zk_evm_tpu_torch.ops.u256 import wide
 from era_zk_evm_tpu_torch.testing import (
     block_programs, ec_programs, fuzz_programs, log_programs,
 )
@@ -126,6 +142,7 @@ from era_zk_evm_tpu_torch.testing.programs import (
 )
 from era_zk_evm_tpu_torch.testing.wave import run_wave, wave_commitments
 from era_zk_evm_tpu_torch.tools import bisect_fold, probe_keccak, probe_uniform
+from era_zk_evm_tpu_torch.witness import packed
 from era_zk_evm_tpu_torch.witness.rolling import (
     finalize_rolling, rolling_absorb,
 )
@@ -174,6 +191,11 @@ BLOCK_KNOBS = dict(chunk=64, k_inner=64, refill_frac=0.25, order="cost_desc",
 #: phase (a timed and a profiled run) stays near a minute on the card
 REALISTIC_CHUNK, REALISTIC_TXS = 128, 2 * 4096
 SECTOR = 32                                   # bytes of one DRAM sector
+#: the ragged sponge's edge lengths in words (around a 34-word rate block),
+#: the random lengths of its mixed batch, and the block fold's digests
+SPONGE_EDGE, SPONGE_MIXED, FOLD_DIGESTS = (0, 1, 33, 34, 35, 67, 68), 64, 8192
+#: K3 chained at N = 1: one permutation's latency on one thread
+SERIAL_ITERS = 20000
 #: the probes' shapes: the JAX tools' defaults (tools/probe_keccak.py main,
 #: probe_vpu_rate, probe_round_rate; tools/probe_mosaic_uniform.py;
 #: tools/bisect_fold.py), and card-filling sizes where the tool's is a
@@ -540,18 +562,25 @@ def profiled(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ops = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+    ops = [(e.key, e.self_device_time_total, e.count)
+           for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(t for _, t in ops) / 1e6
+    busy = sum(t for _, t, _ in ops) / 1e6
     if busy <= 0:
         raise AssertionError("torch.profiler recorded no device time")
     top = sorted(ops, key=lambda kv: -kv[1])[:5]
-    k1_ms = sum(t for k, t in ops if "k1_kernel" in k) / 1e3
+
+    def kernel_ms(name):
+        return round(sum(t for k, t, _ in ops if name in k) / 1e3, 3)
+
     return {"profiled_wall_s": round(wall, 4),
             "device_busy_s": round(busy, 4),
             "idle_share": round(1 - busy / wall, 4),
-            "k1_device_ms": round(k1_ms, 3),
-            "top": ";".join(f"{k[:40]}:{t / 1e3:.2f}ms" for k, t in top)}
+            "k1_device_ms": kernel_ms("k1_kernel"),
+            "k3_device_ms": kernel_ms("k3_kernel"),
+            "sponge_device_ms": kernel_ms("k3s_kernel"),
+            "sponge_events": sum(c for k, _, c in ops if "k3s_kernel" in k),
+            "top": ";".join(f"{k[:40]}:{t / 1e3:.2f}ms" for k, t, _ in top)}
 
 
 def block_phase(tag: str, config: VmConfig, txs: list, knobs: dict, dev,
@@ -564,6 +593,7 @@ def block_phase(tag: str, config: VmConfig, txs: list, knobs: dict, dev,
     torch.cuda.synchronize()
     fused_cycle.K1_LAUNCHES = fused_cycle.K1_PRECOMPILE_LAUNCHES = 0
     fused_cycle.K1_ECRECOVER_LAUNCHES = keccak.K3_LAUNCHES = 0
+    keccak.K3S_LAUNCHES = 0
     t0 = time.perf_counter()
     blk = execute_block(config, txs, device=dev, **knobs)
     torch.cuda.synchronize()
@@ -571,7 +601,7 @@ def block_phase(tag: str, config: VmConfig, txs: list, knobs: dict, dev,
     launches = {"K1": fused_cycle.K1_LAUNCHES,
                 "K1_precompile": fused_cycle.K1_PRECOMPILE_LAUNCHES,
                 "K1_ecrecover": fused_cycle.K1_ECRECOVER_LAUNCHES,
-                "K3": keccak.K3_LAUNCHES}
+                "K3": keccak.K3_LAUNCHES, "sponge": keccak.K3S_LAUNCHES}
     if not blk.all_ok:
         bad = sum(t.status != "ok" for t in blk.txs)
         raise AssertionError(f"{tag}: {bad} txs ended in error")
@@ -610,6 +640,112 @@ def block_fields(blk, wall: float, n_txs: int) -> dict:
             "all_ok": blk.all_ok,
             "families": ",".join(sorted(blk.commitments)),
             **{f"host_{k}": v for k, v in blk.stats["profile"].items()}}
+
+
+def commit_phase(config: VmConfig, blk, dev) -> dict:
+    """execute_block's commitment phase alone (`block.commit_block`) on a
+    block's tx results, equal to the block's: its host wall (synchronised,
+    best of 3), the launches of one run, and a run under torch.profiler."""
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        keccak.K3_LAUNCHES = keccak.K3S_LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = commit_block(config, blk.txs, dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if got != (blk.tx_commitments, blk.commitments, blk.sorted_log_products):
+        raise AssertionError("the commitment phase alone differs from the "
+                             "block's")
+    launches = {"sponge": keccak.K3S_LAUNCHES, "K3": keccak.K3_LAUNCHES}
+    prof = profiled(lambda: commit_block(config, blk.txs, dev))
+    return {"wall_s": round(min(walls), 4),
+            **{f"launches_{k}": v for k, v in launches.items()},
+            # the profiler can miss the phase's first device events: then
+            # its device time is read from the whole block's profile
+            "profile_complete": prof["sponge_events"] == launches["sponge"],
+            **{k: prof[k] for k in ("device_busy_s", "k3_device_ms",
+                                    "sponge_device_ms", "sponge_events",
+                                    "top")}}
+
+
+def sponge_blocks(streams) -> list:
+    """Each stream's rate blocks in the sponge: n // 34 + 1 for n words."""
+    return [int(s.size) // 34 + 1 for s in streams]
+
+
+def sponge_phase(dev, sm_mhz: float, memory_streams: list,
+                 log_records: np.ndarray) -> tuple:
+    """K3-sponge: the ragged sponge against its plain version on the card,
+    bit for bit, on the edge lengths and a mixed batch, on a T = 1 fold of
+    8192 digests and on block-realistic's memory-family streams; CUDA-event
+    times (best of 3) beside the bound and the serial floor (the longest
+    stream's blocks at one permutation's single-thread latency, K3 at N = 1
+    chained SERIAL_ITERS times); and the log fingerprints through K3 (the
+    path's) and through the sponge, both timed and equal.  Returns the
+    kernels line's (max abs err, ms, plain ms, bound) at block-realistic's
+    memory streams."""
+    rng = np.random.default_rng(7)
+    lengths = SPONGE_EDGE + tuple(rng.integers(0, 12 * 34, SPONGE_MIXED))
+    sets = (("edge", [rng.integers(0, 1 << 32, int(n), dtype=np.uint32)
+                      for n in lengths]),
+            ("fold", [rng.integers(0, 1 << 32, 8 * FOLD_DIGESTS,
+                                   dtype=np.uint32)]),
+            ("realistic_memory", memory_streams))
+    one = torch.zeros((1, 25, 2), dtype=torch.int32, device=dev)
+    keccak.keccak_f1600_(one, 16)
+    perm_ms = timed_ms(lambda: keccak.keccak_f1600_(one, SERIAL_ITERS)) \
+        / SERIAL_ITERS
+    err, fields = 0, {"perm_latency_us": round(perm_ms * 1e3, 4)}
+    for name, streams in sets:
+        args = packed.ragged_words(streams, dev)
+        keccak.keccak256_ragged(*args)                           # warm
+        box = {}
+        ms = min(timed_ms(lambda: box.__setitem__(
+            "k", keccak.keccak256_ragged(*args))) for _ in range(3))
+        plain_ms = timed_ms(lambda: box.__setitem__(
+            "p", keccak.keccak256_ragged_plain(*args[:2])))
+        err = max(err, require_equal(f"sponge {name}", {"digests": box["k"]},
+                                     {"digests": box["p"]}))
+        nbs = sponge_blocks(streams)
+        n_bytes = sum(4 * t.numel() * (2 if t.dtype == torch.int64 else 1)
+                      for t in args) + 32 * len(streams)
+        bound = bound_ms(n_bytes, sum(nbs) * KECCAK_OPS, sm_mhz)
+        fields.update({f"{name}_streams": len(streams),
+                       f"{name}_blocks": sum(nbs),
+                       f"{name}_longest": max(nbs), f"{name}_ms": round(ms, 4),
+                       f"{name}_plain_ms": round(plain_ms, 1),
+                       f"{name}_bound_ms": round(bound[0], 4),
+                       f"{name}_bound_by": bound[1],
+                       f"{name}_serial_floor_ms": round(max(nbs) * perm_ms,
+                                                        4)})
+        del args, box
+    # the fingerprints: K3 on one padded block a record (packed.fingerprints)
+    # against the sponge on 32-word streams at offsets 32 i
+    recs = torch.from_numpy(log_records.view(np.int32)).to(dev)
+    n = recs.shape[0]
+    offsets = torch.arange(n + 1, dtype=torch.int64, device=dev) * 32
+    order = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def fp_sponge():
+        d = keccak.keccak256_ragged(recs.reshape(-1), offsets, order)
+        return gl_reduce64(wide(d[:, 0]), wide(d[:, 1]))
+
+    box = {}
+    fp_k3 = min(timed_ms(lambda: box.__setitem__(
+        "k3", packed.fingerprints(recs))) for _ in range(4))
+    fp_sp = min(timed_ms(lambda: box.__setitem__("sp", fp_sponge()))
+                for _ in range(4))
+    for a, b in zip(box["k3"], box["sp"]):
+        if not torch.equal(a, b):
+            raise AssertionError("fingerprints: K3 and the sponge differ")
+    phase("K3-sponge", equal=True, **fields, fingerprint_records=n,
+          fingerprints_k3_ms=round(fp_k3, 4),
+          fingerprints_sponge_ms=round(fp_sp, 4))
+    return (err, fields["realistic_memory_ms"],
+            fields["realistic_memory_plain_ms"],
+            (fields["realistic_memory_bound_ms"],
+             fields["realistic_memory_bound_by"]))
 
 
 def p3_sass_per_step(lib_path) -> dict:
@@ -1459,7 +1595,7 @@ def main() -> int:
         run_wave(st, cfg_w, WAVE_SEGMENT, WAVE_FRACS), dev)))
 
     # -- the block pipeline: execute_block, the product path ------------
-    blocks = {}
+    blocks, commits = {}, {}
     for tag, mix, unit in (("block-tiny", "tiny", None),
                            ("block-precompile", "precompile",
                             "K1_precompile"),
@@ -1472,12 +1608,13 @@ def main() -> int:
                                                precompile=0.25)
         txs = ec_txs if mix == "ecrecover" else mix_txs(mix, 2 * B_BLOCK)
         blk, wall, launches, prof = block_phase(tag, cfg_k, txs, knobs, dev)
-        need = ("K1", "K3") + ((unit,) if unit else ())
+        need = ("K1", "K3", "sponge") + ((unit,) if unit else ())
         if any(launches[k] == 0 for k in need):
             raise AssertionError(f"{tag}: launches {launches}")
         n_check = EC_CHECK_TXS if mix == "ecrecover" else CHECK_TXS
         check_on_cpu(tag, cfg_k, txs, knobs, blk, n_check)
         blocks[tag] = launches
+        commits[tag] = commit_phase(cfg_k, blk, dev)
         extra = {}
         if unit:
             extra["precompile_records"] = sum(
@@ -1526,7 +1663,20 @@ def main() -> int:
           engine_cycles_per_sec=engine_rate,
           vs_engine_ideal=round((len(txs) / wall)
                                 / (engine_rate / mean_cycles), 4))
+    commits["block-realistic"] = commit_phase(cfg_r, blk, dev)
+    memory_streams = [r.streams["memory"] for r in blk.txs]
+    log_records = np.concatenate([r.streams["log"] for r in blk.txs])
     del blk, st
+    phase("block-commit", **{f"{tag[6:]}_{k}": v for tag, fields
+                             in commits.items() for k, v in fields.items()})
+    sponge = sponge_phase(dev, sm_mhz, memory_streams, log_records)
+    del memory_streams, log_records
+    # block-tiny's commitments: one sponge launch for every family's
+    # digests, one for the folds, one K3 launch for the fingerprints
+    tiny = blocks["block-tiny"]
+    n_families = len(packed.queue_families(block_config(B_BLOCK)))
+    if tiny["sponge"] + tiny["K3"] > 2 * n_families + 1:
+        raise AssertionError(f"block-tiny: sponge and K3 launches {tiny}")
 
     phase("launches", K1=main_k1 + wave_k1, K1_main=main_k1,
           K1_wave=wave_k1, K2=main_k2, K3=wave_k3,
@@ -1535,7 +1685,11 @@ def main() -> int:
           K1_precompile_block=blocks["block-precompile"]["K1_precompile"],
           K3_block_precompile=blocks["block-precompile"]["K3"],
           K1_ecrecover=blocks["block-ecrecover"]["K1_ecrecover"],
-          K3_block_ecrecover=blocks["block-ecrecover"]["K3"])
+          K3_block_ecrecover=blocks["block-ecrecover"]["K3"],
+          K3_block_realistic=launches_r["K3"],
+          **{f"sponge_{tag.replace('-', '_')}": v["sponge"]
+             for tag, v in list(blocks.items())
+             + [("block-realistic", launches_r)]})
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "era_zk_evm_tpu" or m.startswith("era_zk_evm_tpu.")]
     if bad:
@@ -1579,6 +1733,10 @@ def main() -> int:
                "keccak.py:371", blocks["block-tiny"]["K3"], k3_err, k3_ms,
                k3_plain_ms,
                k3_bound),
+        kernel("K3S keccak256 ragged sponge", "keccak_sponge.cu keccak.cuh",
+               "era_zk_evm_tpu/ops/keccak.py:292, :371 (K3/K4) as driven by "
+               "era_zk_evm_tpu/witness/packed.py:304 _absorb_ragged",
+               blocks["block-tiny"]["sponge"], *sponge),
     ] + [kernel(f"{p} {name}", source, replaces, *probes[p])
          for p, name, source, replaces in (
         ("P1", "keccak_rows2d", "probe_keccak.cu keccak.cuh",

@@ -32,8 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HOST_FLAGS = ["-std=c++17", "-O1", "-fPIC"]
 SOURCES = ("cycle_kernel.cu", "cycle_kernel_ec.cu", "rolling_fold.cu",
-           "keccak_f.cu", "probe_keccak.cu", "probe_rate.cu",
-           "probe_uniform.cu", "bisect_fold.cu")
+           "keccak_f.cu", "keccak_sponge.cu", "probe_keccak.cu",
+           "probe_rate.cu", "probe_uniform.cu", "bisect_fold.cu")
 
 
 def generate_header() -> str:
@@ -256,6 +256,9 @@ def load() -> ctypes.CDLL:
         lib.eravm_k3_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_int, ctypes.c_void_p]
         lib.eravm_k3_launch.restype = ctypes.c_int
+        lib.eravm_k3s_launch.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_void_p]
+        lib.eravm_k3s_launch.restype = ctypes.c_int
         _bind_probes(lib, "launch", _PROBE_LAUNCH)
         lib.eravm_p3_unroll.argtypes = []
         lib.eravm_p3_unroll.restype = ctypes.c_int
@@ -276,6 +279,8 @@ def load_host() -> ctypes.CDLL:
         lib.eravm_k3_host.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_int]
         lib.eravm_k3_host.restype = ctypes.c_int
+        lib.eravm_k3s_host.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+        lib.eravm_k3s_host.restype = ctypes.c_int
         lib.eravm_ecrecover_host.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int]
         lib.eravm_ecrecover_host.restype = ctypes.c_int

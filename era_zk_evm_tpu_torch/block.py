@@ -10,8 +10,8 @@ The port of `era_zk_evm_tpu/block.py`.  The whole block is one call:
 * every tx gets its ordered witness streams as packed record arrays (the
   memory, log, decommit and precompile families), its net states (final
   storage, net events, net L1 messages) and per-family keccak256
-  commitments, computed on the device (`witness/packed.py`, K3 on the
-  card);
+  commitments, computed on the device (`commit_block`: the ragged sponge
+  of `witness/packed.py` on the card);
 * the block gets per-family folds over the tx digests in tx order and the
   sorted-log grand products (per tx and for the block).
 
@@ -31,11 +31,12 @@ from .models import fused_cycle
 from .models.scheduler import TxResult, TxSpec, run_block_refill
 from .models.state import DEFAULT_DEVICE
 from .witness.packed import (
-    RECORD_WORDS, block_grand_product, commit_packed_streams,
-    fold_digests_device, packed_grand_products,
+    RECORD_WORDS, block_grand_product, digest_bytes, fold_digest_rows,
+    packed_grand_products, stream_digests,
 )
 
-__all__ = ["BlockResult", "TxResult", "TxSpec", "execute_block"]
+__all__ = ["BlockResult", "TxResult", "TxSpec", "commit_block",
+           "execute_block"]
 
 
 @dataclasses.dataclass
@@ -106,23 +107,37 @@ def execute_block(config: VmConfig, txs: list[TxSpec], engine: str = "auto",
                                       fresh_builder=fresh_builder,
                                       collect="packed", device=device,
                                       **sched_kwargs)
-    families = _families(config)
-    tx_commitments: list[dict] = [dict() for _ in results]
-    for name in families:
-        w = RECORD_WORDS[name]
-        per_tx = [r.streams.get(name, np.zeros((0, w), np.uint32))
-                  for r in results]
-        for c, d in zip(tx_commitments, commit_packed_streams(per_tx, device)):
-            c[name] = d
-    commitments = {
-        name: fold_digests_device([c[name] for c in tx_commitments], device)
-        for name in families}
-    log_streams = [r.streams.get(
-        "log", np.zeros((0, RECORD_WORDS["log"]), np.uint32))
-        for r in results]
-    sorted_products = packed_grand_products(log_streams, device=device)
+    tx_commitments, commitments, sorted_products = commit_block(
+        config, results, device)
     return BlockResult(txs=results, tx_commitments=tx_commitments,
                        commitments=commitments,
                        sorted_log_products=sorted_products,
                        block_log_product=block_grand_product(sorted_products),
                        stats=stats)
+
+
+def commit_block(config: VmConfig, results: list[TxResult],
+                 device: torch.device | str = DEFAULT_DEVICE) -> tuple:
+    """The block's commitments from its txs' packed streams, on `device`:
+    (per-tx {family: digest}, {family: fold over the tx digests in tx
+    order}, per-tx sorted-log grand products).  The tx streams of every
+    family are one sponge launch and the families' folds another, over the
+    digests where they lie (`witness/packed.py`); the grand products take
+    K3 for the fingerprints and the host for the products."""
+    families = _families(config)
+    streams = [r.streams.get(name, np.zeros((0, RECORD_WORDS[name]),
+                                            np.uint32))
+               for name in families for r in results]
+    digests = stream_digests(streams, device).view(len(families),
+                                                   len(results), 8)
+    folds = digest_bytes(fold_digest_rows(digests))
+    rows = digest_bytes(digests.view(-1, 8))
+    tx_commitments = [
+        {name: rows[f * len(results) + i] for f, name in enumerate(families)}
+        for i in range(len(results))]
+    commitments = dict(zip(families, folds))
+    log_streams = [r.streams.get(
+        "log", np.zeros((0, RECORD_WORDS["log"]), np.uint32))
+        for r in results]
+    return (tx_commitments, commitments,
+            packed_grand_products(log_streams, device=device))

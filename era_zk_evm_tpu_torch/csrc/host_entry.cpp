@@ -1,5 +1,5 @@
-// Host (C++) build of the K1 (all four instances), K2 and K3 per-lane
-// bodies, of K1's ecrecover unit and of the probes P1-P7, one lane (or
+// Host (C++) build of the K1 (all four instances), K2, K3 and sponge
+// per-lane bodies, of K1's ecrecover unit and of the probes P1-P7, one lane (or
 // column) after another.
 //
 // Not a runtime path: the port's wrappers take the kernels on CUDA tensors
@@ -10,6 +10,7 @@
 #include "cycle_kernel.cu"
 #include "rolling_fold.cu"
 #include "keccak_f.cu"
+#include "keccak_sponge.cu"
 #include "probe_keccak.cu"
 #include "probe_rate.cu"
 #include "probe_uniform.cu"
@@ -41,6 +42,16 @@ extern "C" int eravm_k2_host(const void *meta, const void *value,
 
 extern "C" int eravm_k3_host(void *states, int n, int iters) {
     for (int i = 0; i < n; i++) k3_run_state((int32_t *)states, i, iters);
+    return 0;
+}
+
+// the sponge over n streams: words u32[W], offsets int64[n + 1], digests
+// int32[n, 8]
+extern "C" int eravm_k3s_host(const void *words, const void *offsets,
+                              void *digests, int n) {
+    for (int t = 0; t < n; t++)
+        k3s_run_stream((const uint32_t *)words, (const int64_t *)offsets, t,
+                       (int32_t *)digests);
     return 0;
 }
 

@@ -11,11 +11,18 @@ chained `iters` times).  `keccak_f1600_` does the same in place.
 `K3_LAUNCHES` counts kernel launches.  Inside the plain version each u64
 lane is one int64 that holds its bit pattern, and every round step runs over
 all 25 lanes at once.
+
+`keccak256_ragged(words, offsets)` is keccak256 over T ragged u32 word
+streams concatenated in one buffer: on a CUDA tensor one launch of the
+sponge kernel (`csrc/keccak_sponge.cu`, K3 as the witness commitments drive
+it), counted in `K3S_LAUNCHES`; on a CPU tensor its plain version
+`keccak256_ragged_plain`, a loop over the rate blocks.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,6 +51,9 @@ KECCAK_ROTATIONS = [
 ]
 
 K3_LAUNCHES = 0
+K3S_LAUNCHES = 0
+#: u32 words of keccak256's rate (136 bytes)
+RATE_WORDS = 34
 
 _RC = [c - (1 << 64) if c >= 1 << 63 else c for c in KECCAK_RC]
 # rho + pi: lane s moves to y + 5 * ((2x + 3y) % 5); gather form
@@ -74,13 +84,19 @@ def from_lanes(lanes: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo.T, hi.T], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _round_tables(device: torch.device) -> tuple:
+    """The round's constant tables on `device`, made once a device (a table
+    made from a list on the card is a copy that waits for the stream)."""
+    return (torch.ones((5, 1), dtype=torch.int64, device=device),
+            torch.tensor(_ROT_SRC, dtype=torch.int64, device=device)[:, None],
+            torch.tensor(_PI_SRC, dtype=torch.int64, device=device))
+
+
 def keccak_rounds_lanes(a: torch.Tensor, rcs) -> torch.Tensor:
     """One round over int64[25, B] lanes for each round constant of `rcs`
     (int64 bit patterns), in order."""
-    dev = a.device
-    one = torch.ones((5, 1), dtype=torch.int64, device=dev)
-    rot = torch.tensor(_ROT_SRC, dtype=torch.int64, device=dev)[:, None]
-    pi = torch.tensor(_PI_SRC, dtype=torch.int64, device=dev)
+    one, rot, pi = _round_tables(a.device)
     for rc in rcs:
         # theta
         s = a.view(5, 5, -1)
@@ -164,6 +180,97 @@ def keccak_f1600(states: torch.Tensor, iters: int = 1) -> torch.Tensor:
     if states.device.type == "cpu":
         return keccak_f1600_plain(states, iters)
     return keccak_f1600_(states.contiguous().clone(), iters)
+
+
+def _check_ragged(words: torch.Tensor, offsets: torch.Tensor,
+                  order: torch.Tensor | None) -> None:
+    if words.dim() != 1 or words.dtype != torch.int32:
+        raise ValueError(f"words: expected int32[W], got "
+                         f"{words.dtype}{list(words.shape)}")
+    if offsets.dim() != 1 or offsets.dtype != torch.int64 \
+            or offsets.shape[0] < 1:
+        raise ValueError(f"offsets: expected int64[T + 1], got "
+                         f"{offsets.dtype}{list(offsets.shape)}")
+    tensors = [words, offsets]
+    if order is not None:
+        if order.dtype != torch.int32 \
+                or tuple(order.shape) != (offsets.shape[0] - 1,):
+            raise ValueError(f"order: expected int32[{offsets.shape[0] - 1}]"
+                             f", got {order.dtype}{list(order.shape)}")
+        tensors.append(order)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("words, offsets and order must share a device")
+
+
+def keccak256_ragged_plain(words: torch.Tensor, offsets: torch.Tensor
+                           ) -> torch.Tensor:
+    """The plain version of the sponge: keccak256 of each stream
+    words[offsets[t]:offsets[t + 1]] (u32 words as int32, little-endian
+    bytes) -> int32[T, 8] digest words, in torch on the words' device.  One
+    step a rate block, every stream at once: a stream absorbs
+    n // 34 + 1 blocks and keeps its state past its last; no bucketing."""
+    dev = words.device
+    off = offsets.to(device=dev, dtype=torch.int64)
+    n = off[1:] - off[:-1]
+    T = n.shape[0]
+    nb = n // RATE_WORDS + 1
+    j = n - RATE_WORDS * (nb - 1)
+    # one word past the end, where every read past a stream's end lands
+    w = torch.cat([words.to(torch.int64) & M32,
+                   torch.zeros(1, dtype=torch.int64, device=dev)])
+    col = torch.arange(RATE_WORDS, device=dev)
+    lanes = torch.zeros((25, T), dtype=torch.int64, device=dev)
+    for b in range(int(nb.max()) if T else 0):
+        pos = RATE_WORDS * b + col                            # [34]
+        idx = (off[:-1, None] + pos).clamp(max=words.shape[0])
+        blk = torch.where(pos < n[:, None], w[idx], 0)
+        last = (nb - 1 == b)[:, None]
+        blk = blk ^ torch.where(last & (col == j[:, None]), 1, 0)
+        blk = blk ^ torch.where(last & (col == RATE_WORDS - 1), 1 << 31, 0)
+        rate = (blk[:, 0::2] | (blk[:, 1::2] << 32)).T       # int64[17, T]
+        nxt = keccak_f1600_lanes(torch.cat([lanes[:17] ^ rate, lanes[17:]]))
+        lanes = torch.where(b < nb, nxt, lanes)
+    return from_lanes(lanes[:4]).reshape(T, 8)
+
+
+def keccak256_ragged(words: torch.Tensor, offsets: torch.Tensor,
+                     order: torch.Tensor | None = None) -> torch.Tensor:
+    """keccak256 of each of T streams, words[offsets[t]:offsets[t + 1]]
+    (int32[W] holding u32 words, int64[T + 1] offsets) -> int32[T, 8]
+    digest words (little-endian u32 of the 32 digest bytes).
+
+    On CUDA tensors (contiguous, on one card) this is one launch of the
+    sponge kernel, threads in `order` (int32[T], a permutation of the
+    streams; longest first when not given, computed on the device); on CPU
+    tensors, the plain version.  The order changes no digest."""
+    global K3S_LAUNCHES
+    _check_ragged(words, offsets, order)
+    device = words.device
+    if device.type == "cpu":
+        return keccak256_ragged_plain(words, offsets)
+    if device.type != "cuda":
+        raise ValueError(f"no sponge kernel for device {device}")
+    tensors = (words, offsets) + ((order,) if order is not None else ())
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the sponge reads contiguous tensors")
+    n = offsets.shape[0] - 1
+    digests = torch.empty((n, 8), dtype=torch.int32, device=device)
+    if n == 0:
+        return digests
+    if order is None:
+        order = torch.argsort(offsets[1:] - offsets[:-1], descending=True,
+                              stable=True).to(torch.int32)
+    from .._build import load
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = load().eravm_k3s_launch(
+        ctypes.c_void_p(words.data_ptr()), ctypes.c_void_p(offsets.data_ptr()),
+        ctypes.c_void_p(order.data_ptr()), ctypes.c_void_p(digests.data_ptr()),
+        n, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"sponge launch failed: cudaError {rc}")
+    K3S_LAUNCHES += 1
+    return digests
 
 
 def keccak256(data: bytes) -> bytes:

@@ -15,10 +15,11 @@ The port of `era_zk_evm_tpu/witness/packed.py`:
     to the host started and nothing waited for (`AsyncDrain`), for the
     scheduler's deferred resolve; `log_join_columns` reads the net-state
     join columns from packed log records;
-  * `commit_packed_streams` computes per-stream keccak256 digests with a
-    ragged sponge: each 136-byte block is XORed into the states in torch and
-    the states permute in place through `ops.keccak.keccak_f1600_` (K3 on
-    the card);
+  * `commit_packed_streams` computes per-stream keccak256 digests with the
+    ragged sponge `ops.keccak.keccak256_ragged`: every stream in one word
+    buffer, one copy to the device and one launch (`csrc/keccak_sponge.cu`
+    on the card); `stream_digests` and `fold_digest_rows` are the same at
+    the tensor level, for callers that keep the digests on the device;
   * `packed_grand_products` computes per-stream products of (gamma +
     fingerprint) mod p, the fingerprints through K3 on the card, the
     products on the host as Python ints.
@@ -34,7 +35,7 @@ import torch
 from ..models.spill import rewind_queues
 from ..models.state import DEFAULT_DEVICE, BatchedVmState, reference_view
 from ..ops.goldilocks import GOLDILOCKS_P, gl_reduce64
-from ..ops.keccak import keccak_f1600_
+from ..ops.keccak import RATE_WORDS, keccak256_ragged, keccak_f1600_
 from ..ops.u256 import narrow, wide
 
 #: record width in u32 words per family (the pinned serializations)
@@ -318,67 +319,75 @@ def split_compacted_by_lane(rows: np.ndarray, lane_counts: np.ndarray,
 # keccak256 digests over ragged packed streams
 # ---------------------------------------------------------------------------
 
-def _absorb_ragged(blocks: torch.Tensor, nb_valid: torch.Tensor
+def ragged_words(streams: list[np.ndarray],
+                 device: torch.device | str = DEFAULT_DEVICE) -> tuple:
+    """The sponge's inputs for `streams` (uint32 arrays of any shape, read
+    in C order) on `device`: (words int32[W], offsets int64[T + 1], launch
+    order int32[T], longest first), made on the host as one buffer and
+    copied to the device at once."""
+    T = len(streams)
+    sizes = np.fromiter((s.size for s in streams), dtype=np.int64, count=T)
+    # [offsets as int32 pairs | launch order | words]: the offsets first,
+    # so that their int64 view is aligned
+    head = 2 * (T + 1) + T
+    buf = np.empty(head + int(sizes.sum()), dtype=np.int32)
+    offsets = buf[:2 * (T + 1)].view(np.int64)
+    offsets[0] = 0
+    np.cumsum(sizes, out=offsets[1:])
+    # longest first: a warp's threads absorb streams of similar length
+    buf[2 * (T + 1):head] = np.argsort(-(sizes // RATE_WORDS), kind="stable")
+    if T:
+        np.concatenate([np.ascontiguousarray(s, dtype=np.uint32).reshape(-1)
+                        for s in streams], out=buf[head:].view(np.uint32))
+    dev = torch.from_numpy(buf).to(device)
+    return (dev[head:], dev[:2 * (T + 1)].view(torch.int64),
+            dev[2 * (T + 1):head])
+
+
+def stream_digests(streams: list[np.ndarray],
+                   device: torch.device | str = DEFAULT_DEVICE
                    ) -> torch.Tensor:
-    """Sponge over int32[T, n, 34] rate blocks where row t absorbs only its
-    first nb_valid[t] blocks; returns int32[T, 8] digest words."""
-    T, n, _ = blocks.shape
-    st = torch.zeros((T, 25, 2), dtype=torch.int32, device=blocks.device)
-    for k in range(n):
-        # one new tensor per block, permuted in place
-        lanes = torch.cat([st[:, :17] ^ blocks[:, k].reshape(T, 17, 2),
-                           st[:, 17:]], dim=1)
-        keep = (k < nb_valid)[:, None, None]
-        st = torch.where(keep, keccak_f1600_(lanes, 1), st)
-    return st[:, :4].reshape(T, 8)
+    """keccak256 of each stream's words -> int32[T, 8] digest words on
+    `device`: one copy to the device (`ragged_words`) and one launch of the
+    sponge."""
+    return keccak256_ragged(*ragged_words(streams, device))
 
 
-def _bucket(n: int) -> int:
-    b = 1
-    while b < n:
-        b *= 2
-    return b
+def fold_digest_rows(digests: torch.Tensor) -> torch.Tensor:
+    """int32[F, T, 8] digest words -> int32[F, 8]: for each f, keccak256
+    over its T digests concatenated in order (keccak256 of nothing when T =
+    0); one launch of the sponge, the digests read where they are."""
+    F, T, _ = digests.shape
+    offsets = torch.arange(F + 1, dtype=torch.int64,
+                           device=digests.device) * (8 * T)
+    order = torch.arange(F, dtype=torch.int32, device=digests.device)
+    return keccak256_ragged(digests.contiguous().reshape(-1), offsets, order)
+
+
+def digest_bytes(rows: torch.Tensor) -> list[bytes]:
+    """int32[T, 8] digest words -> T 32-byte digests (one copy to the
+    host)."""
+    flat = _u32(rows).astype("<u4").tobytes()
+    return [flat[i:i + 32] for i in range(0, len(flat), 32)]
 
 
 def commit_packed_streams(streams: list[np.ndarray],
                           device: torch.device | str = DEFAULT_DEVICE
                           ) -> list[bytes]:
     """Per-stream keccak256 over the concatenated records (uint32 words),
-    equal to `era_zk_evm_tpu.witness.packed.commit_packed_streams`.  Streams
-    are grouped by their block count rounded up to a power of two; each
-    group is one ragged sponge on `device`."""
-    digests: list[bytes | None] = [None] * len(streams)
-    by_bucket: dict[int, list[int]] = {}
-    blocks_of = []
-    for i, rec in enumerate(streams):
-        nb = (int(rec.size) * 4) // 136 + 1
-        blocks_of.append(nb)
-        by_bucket.setdefault(_bucket(nb), []).append(i)
-    for bucket, idxs in sorted(by_bucket.items()):
-        data = np.zeros((len(idxs), bucket * 34), dtype=np.uint32)
-        nbs = np.zeros((len(idxs),), dtype=np.int64)
-        for j, i in enumerate(idxs):
-            flat = np.ascontiguousarray(streams[i], dtype=np.uint32).reshape(-1)
-            nb = blocks_of[i]
-            data[j, :flat.size] = flat
-            data[j, flat.size] ^= 0x01
-            data[j, nb * 34 - 1] ^= 0x80000000
-            nbs[j] = nb
-        blocks = torch.from_numpy(data.view(np.int32)).to(device)
-        rows = _absorb_ragged(blocks.reshape(len(idxs), bucket, 34),
-                              torch.from_numpy(nbs).to(device))
-        for j, row in zip(idxs, _u32(rows)):
-            digests[j] = row.astype("<u4").tobytes()
-    return digests
+    equal to `era_zk_evm_tpu.witness.packed.commit_packed_streams`: one
+    ragged sponge on `device` (`stream_digests`)."""
+    return digest_bytes(stream_digests(streams, device))
 
 
 def fold_digests_device(digests: list[bytes],
                         device: torch.device | str = DEFAULT_DEVICE) -> bytes:
     """block_commitment: keccak256 over the concatenated 32-byte digests
-    (keccak256 of nothing when there are none), one ragged sponge."""
+    (keccak256 of nothing when there are none), one sponge launch."""
     rows = (np.stack([np.frombuffer(d, dtype="<u4") for d in digests])
             if digests else np.zeros((0, 8), dtype=np.uint32))
-    return commit_packed_streams([rows], device)[0]
+    rows = torch.from_numpy(rows.view(np.int32)).to(device)
+    return digest_bytes(fold_digest_rows(rows[None]))[0]
 
 
 # ---------------------------------------------------------------------------

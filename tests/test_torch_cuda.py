@@ -1,6 +1,7 @@
-"""K1 (all four instances), K2, K3 and the probes P1-P7 against their plain
-versions on a CUDA card, and execute_block on the card against the same call
-on the CPU (the keccak256 / sha256 mix and the signed-transfer mix).
+"""K1 (all four instances), K2, K3, the ragged sponge and the probes P1-P7
+against their plain versions on a CUDA card, and execute_block on the card
+against the same call on the CPU (the keccak256 / sha256 mix and the
+signed-transfer mix).
 
 Imports no jax, so it also runs on the GPU machine, where the suite's
 conftest (which configures jax) cannot load:
@@ -169,6 +170,35 @@ def test_k3_matches_plain(cuda, iters):
     assert keccak.keccak_f1600_(inplace, iters) is inplace
     assert keccak.K3_LAUNCHES == before + 2
     assert torch.equal(inplace.cpu(), got.cpu())
+
+
+@pytest.mark.cuda
+def test_sponge_matches_plain(cuda):
+    """The ragged sponge on the edge lengths of a rate block and a mixed
+    batch: one launch, equal to the plain version on the CPU; the block
+    path's entries (one launch for the digests, one for the folds) too."""
+    import numpy as np
+
+    from era_zk_evm_tpu_torch.witness import packed
+
+    rng = np.random.default_rng(7)
+    lengths = [0, 1, 33, 34, 35, 67, 68] + list(rng.integers(0, 700, 100))
+    streams = [rng.integers(0, 1 << 32, int(n), dtype=np.uint32)
+               for n in lengths]
+    words = torch.from_numpy(np.concatenate(streams).view(np.int32))
+    offsets = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(lengths)]).astype(np.int64))
+    want = keccak.keccak256_ragged(words, offsets)
+    before = keccak.K3S_LAUNCHES
+    got = keccak.keccak256_ragged(words.to(cuda), offsets.to(cuda))
+    assert keccak.K3S_LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)
+    digests = packed.stream_digests(streams, cuda)
+    folds = packed.fold_digest_rows(digests[:100].view(4, 25, 8))
+    assert keccak.K3S_LAUNCHES == before + 3
+    assert torch.equal(digests.cpu(), want)
+    assert torch.equal(folds.cpu(), packed.fold_digest_rows(
+        want[:100].view(4, 25, 8)))
 
 
 def _precompile_config(batch, chunk=32):
