@@ -11,7 +11,12 @@ Phases, one line each; any failure raises and the exit code is nonzero:
   K1-small      K1 against its plain torch version on the family programs
                 (both memory-witness modes), every state field equal;
   K1            WORKLOAD at B = 32768, one 128-cycle call, kernel vs plain;
-  K2            the rolling fold at B = 32768, kernel vs plain;
+  K1-b / K2     mode (b) at B = 32768: a second 128-cycle K1 chunk alone,
+                timed, against the plain engine (every field, and K1's
+                compacted records against the plain compaction of the
+                engine's slot rows), then K2 folding those records against
+                rolling_absorb_rows, with the bound of the work the
+                records need (their permutations and bytes);
   K1-rolling-queue  the rolling commitment beside the memory queue, B =
                 32768: two 64-cycle K1 + K2 chunks against the plain
                 engine, every field and the digests;
@@ -109,9 +114,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import os
-import re
-import shutil
 import subprocess
 import sys
 import time
@@ -141,10 +143,12 @@ from era_zk_evm_tpu_torch.testing.programs import (
     assemble, farcall_callee, farcall_caller, tiny_mix_program,
 )
 from era_zk_evm_tpu_torch.testing.wave import run_wave, wave_commitments
-from era_zk_evm_tpu_torch.tools import bisect_fold, probe_keccak, probe_uniform
+from era_zk_evm_tpu_torch.tools import (
+    bisect_fold, k1_times, probe_keccak, probe_uniform,
+)
 from era_zk_evm_tpu_torch.witness import packed
 from era_zk_evm_tpu_torch.witness.rolling import (
-    finalize_rolling, rolling_absorb,
+    compact_slot_rows, finalize_rolling, rolling_absorb_rows,
 )
 
 DEVICE = "cuda:0"
@@ -750,50 +754,16 @@ def sponge_phase(dev, sm_mhz: float, memory_streams: list,
 
 def p3_sass_per_step(lib_path) -> dict:
     """SASS instructions a step of P3's main loop at 8 rows, by op, read
-    with cuobjdump from the built library: (all, the logic ones: LOP3 and
-    the funnel shift SHF) in the first loop, the unrolled one, over the
-    steps a trip (eravm_p3_unroll); {} where the toolkit has no
-    cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
+    with cuobjdump from the built library: (all, logic) in the first loop,
+    the unrolled one, over the steps a trip (eravm_p3_unroll); {} where
+    the toolkit has no cuobjdump."""
+    sass = k1_times.read_sass(lib_path)
+    if sass is None:
         return {}
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
     unroll = _build.load().eravm_p3_unroll()
     out = {}
     for op, code in (("xor", 0), ("mix", 1), ("andnot", 2)):
-        m = re.search(rf"Function : \S*p3_kernelILi{code}ELi8E\S*\n(.*?)"
-                      r"(?=\n\s*Function :|\Z)", sass, re.S)
-        if not m:
-            continue
-        offsets, logic, labels, branches, pending = [], [], {}, [], []
-        for line in m.group(1).splitlines():
-            label = re.match(r"\s*(\.L_x_\d+):", line)
-            if label:
-                pending.append(label.group(1))
-                continue
-            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-            if not ins:
-                continue
-            off = int(ins.group(1), 16)
-            labels.update((name, off) for name in pending)
-            pending = []
-            offsets.append(off)
-            words = ins.group(2).split()          # [@predicate] opcode ...
-            opcode = words[1] if words[0].startswith("@") else words[0]
-            if opcode.split(".")[0] in ("LOP3", "LOP", "SHF"):
-                logic.append(off)
-            br = re.search(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)",
-                           ins.group(2))
-            if br:
-                branches.append((off, br.group(1)))
-        loops = []
-        for off, target in branches:
-            t = int(target, 16) if target.startswith("0x") \
-                else labels.get(target)
-            if t is not None and t < off:
-                loops.append((sum(t <= o <= off for o in offsets),
-                               sum(t <= o <= off for o in logic)))
+        loops = k1_times.sass_loops(sass, rf"p3_kernelILi{code}ELi8E")
         if loops:   # the unrolled loop comes first, its remainder after
             n_all, n_logic = loops[0]
             out[op] = (n_all / unroll, n_logic / unroll)
@@ -1136,29 +1106,77 @@ def main() -> int:
           bound_by=k1_bound[1], bound_bytes=k1_nbytes)
     del ks, ps
 
-    # -- K2 against plain ----------------------------------------------
+    # -- K1 in mode (b) and K2 against plain ----------------------------
     cfg_b = bench_config(B_FULL, rolling=True)
     entry_b = make_entry_state(cfg_b, [wl] * B_FULL, ergs=FULL_ERGS,
                                device=dev)
     st = clone_state(entry_b)
     block = fused_cycle.new_slot_block(cfg_b, K, dev)
     fused_cycle.cycle_chunk(st, cfg_b, K, K, block)
-    fused_cycle.rolling_fold(st.wc_state, st.wc_count, block, K * 8)
-    fused_cycle.cycle_chunk(st, cfg_b, K, K, block)   # a second chunk's slots
-    wa, ca = st.wc_state.clone(), st.wc_count.clone()
+    fused_cycle.rolling_fold(st.wc_state, st.wc_count, block)
+    # a second chunk's records: K1 alone, against the plain engine's dense
+    # slot rows compacted, every field and the block's rows and counts
+    ps = clone_state(st)
+    k1b_ms = timed_ms(lambda: fused_cycle.cycle_chunk(st, cfg_b, K, K, block))
+    k1b_nbytes = k1_bytes(ps, st, cfg_b)       # ps is still the state before
+    dense = tuple(torch.empty(x.shape, dtype=torch.int32, device=dev)
+                  for x in block[:3])
+
+    def plain_chunk():
+        for c in range(K):
+            batched_vm.cycle_step(ps, cfg_b, tuple(x[c * 8:(c + 1) * 8]
+                                                   for x in dense))
+
+    k1b_plain_ms = timed_ms(plain_chunk)
+    want = compact_slot_rows(*dense)
+    live = torch.arange(K * 8, device=dev)[:, None] < want[3][None, :]
+    got_rows = {"count": block[3]}
+    want_rows = {"count": want[3]}
+    for name, g, w, keep in (("meta", block[0], want[0], live[:, None]),
+                             ("value", block[1], want[1], live[:, None]),
+                             ("flags", block[2], want[2], live)):
+        got_rows[name] = torch.where(keep, g, 0)
+        want_rows[name] = torch.where(keep, w, 0)
+    k1b_err = max(require_equal("K1 mode (b) B=32768", state_tensors(st),
+                                state_tensors(ps)),
+                  require_equal("K1 mode (b) records B=32768", got_rows,
+                                want_rows))
+    k1_err = max(k1_err, k1b_err)
+    del ps, dense, want, got_rows, want_rows, live
+    k2_all = []                 # the best of five launches, each on a copy
+    for _ in range(5):
+        wa, ca = st.wc_state.clone(), st.wc_count.clone()
+        k2_all.append(timed_ms(
+            lambda: fused_cycle.rolling_fold(wa, ca, block)))
+    k2_ms = min(k2_all)
     wb, cb = st.wc_state.clone(), st.wc_count.clone()
-    k2_ms = timed_ms(lambda: fused_cycle.rolling_fold(wa, ca, block, K * 8))
-    k2_plain_ms = timed_ms(lambda: rolling_absorb(wb, cb, *block))
+    k2_plain_ms = timed_ms(lambda: rolling_absorb_rows(wb, cb, *block))
     k2_err = require_equal(
         "K2 B=32768",
         {"wc_state": wa, "wc_count": ca, "digest": finalize_rolling(wa, ca)},
         {"wc_state": wb, "wc_count": cb, "digest": finalize_rolling(wb, cb)})
-    n_perms = int(((block[2] >> 2) & 1).sum()) // 2    # one per record pair
-    k2_bound = bound_ms(sum(x.nbytes for x in block) + 2 * wa.nbytes
-                        + 2 * ca.nbytes, n_perms * KECCAK_OPS, sm_mhz)
+    # the work the records need, whatever folds them: a permutation for
+    # each record that lands at an odd position of its lane's stream; the
+    # records (52 bytes each), the counts, and the sponges read and written
+    c0 = st.wc_count.to(torch.int64) & 0xFFFFFFFF
+    n_rec = block[3].to(torch.int64)
+    n_perms = int(((c0 + n_rec) // 2 - c0 // 2).sum())
+    k2_bound = bound_ms(int(n_rec.sum()) * 52 + block[3].nbytes
+                        + 2 * wa.nbytes + 2 * ca.nbytes,
+                        n_perms * KECCAK_OPS, sm_mhz)
+    # K1 in mode (b): the state it changes (as for mode (a)), then the
+    # records it writes (52 bytes each) and the counts
+    k1b_nbytes += int(n_rec.sum()) * 52 + block[3].nbytes
+    k1b_bound = bound_ms(k1b_nbytes, B_FULL * K * K1_MIN_OPS, sm_mhz)
+    phase("K1-b", batch=B_FULL, cycles=K, equal=True, ms=round(k1b_ms, 3),
+          plain_ms=round(k1b_plain_ms, 3), bound_ms=round(k1b_bound[0], 3),
+          bound_by=k1b_bound[1], bound_bytes=k1b_nbytes,
+          records=int(n_rec.sum()), records_lane0=int(n_rec[0]),
+          max_records=int(n_rec.max()), slots=K * 8)
     phase("K2", batch=B_FULL, rows=K * 8, equal=True, ms=round(k2_ms, 3),
-          plain_ms=round(k2_plain_ms, 3), bound_ms=round(k2_bound[0], 3),
-          bound_by=k2_bound[1], records=int(ca[0]))
+          ms_all=",".join(f"{t:.3f}" for t in k2_all),
+          plain_ms=round(k2_plain_ms, 3), bound_ms=round(k2_bound[0], 4),
+          bound_by=k2_bound[1], permutations=n_perms, records=int(ca[0]))
     del st, block, wa, wb
 
     # -- the rolling commitment beside the memory queue (K1 + K2) ----------

@@ -210,7 +210,7 @@ class K1Args(ctypes.Structure):
         "lq_read", "lq_written", "lq_count", "dq_hash", "dq_meta", "dq_count",
         "cb_hash", "default_aa_hash", "frame_count", "page_counter", "done",
         "lane_error", "global_step", "wq_count", "q_meta", "q_value",
-        "q_flags", "blk_meta", "blk_value", "blk_flags", "step0",
+        "q_flags", "blk_meta", "blk_value", "blk_flags", "blk_count", "step0",
         "pq_meta_blk", "pq_value_blk", "pq_flags_blk", "pq_emit_blk",
         "pq_nslots_blk",
     )] + [(name, ctypes.c_int) for name in (
@@ -250,7 +250,7 @@ def load() -> ctypes.CDLL:
         lib.eravm_k1_launch.restype = ctypes.c_int
         lib.eravm_k1_threads.argtypes = [ctypes.c_int]
         lib.eravm_k1_threads.restype = ctypes.c_int
-        lib.eravm_k2_launch.argtypes = [ctypes.c_void_p] * 5 + [
+        lib.eravm_k2_launch.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.eravm_k2_launch.restype = ctypes.c_int
         lib.eravm_k3_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
@@ -273,7 +273,7 @@ def load_host() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_host()))
         lib.eravm_k1_host.argtypes = [ctypes.POINTER(K1Args), ctypes.c_int]
         lib.eravm_k1_host.restype = ctypes.c_int
-        lib.eravm_k2_host.argtypes = [ctypes.c_void_p] * 5 + [
+        lib.eravm_k2_host.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int, ctypes.c_int]
         lib.eravm_k2_host.restype = ctypes.c_int
         lib.eravm_k3_host.argtypes = [ctypes.c_void_p, ctypes.c_int,

@@ -18,3 +18,19 @@
 #endif
 
 #include "eravm_gen.h"   // generated from the port's isa/ by _build.py
+
+#ifdef __CUDACC__
+// The block size of a one-thread-a-lane kernel: the largest of max_threads,
+// max_threads / 2, ... 32 whose grid of `batch` lanes still spans every SM
+// of the card, so that a small batch does not leave SMs idle.
+static int sm_block_threads(int batch, int max_threads) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+        return max_threads;
+    int threads = max_threads;
+    while (threads > 32 && (batch + threads - 1) / threads < sms) threads /= 2;
+    return threads;
+}
+#endif

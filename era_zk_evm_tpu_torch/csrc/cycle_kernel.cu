@@ -35,9 +35,13 @@
 // local-memory round trip), flags and lane scalars in registers; the
 // callstack frame is read from and written to global memory each cycle.
 // k_stop is always honoured.  Each cycle writes its 8 memory-query slots
-// straight into the persistent queue at min(step * 8, cap - 8) (mode a)
-// and, with the rolling commitment, into row c * 8 of the chunk block
-// (mode b); both are batch-last, so those stores coalesce.
+// straight into the persistent queue at min(step * 8, cap - 8) (mode a),
+// valid or not (the queue is the reference's layout), and, with the
+// rolling commitment, appends its valid slots alone to the lane's rows of
+// the chunk block (mode b), whose count a lane writes at the end of the
+// launch: K2 then reads only records (PERF.md: about 11% of the slots on
+// WORKLOAD).  Both are batch-last, so a warp's stores coalesce wherever
+// its lanes write one row.
 // With kLog, the storage lookup is a per-lane loop over the S slots of
 // st_key; journal and event entries are per-lane appends; a panicked pop
 // replays the lane's journal newest-first down to the frame's snapshot (the
@@ -145,9 +149,10 @@ struct K1Args {
     int32_t *q_meta;        // [rows, 4, B]: the persistent memory queue
     int32_t *q_value;       // [rows, 8, B]
     int32_t *q_flags;       // [rows, B]
-    int32_t *blk_meta;      // [K * 8, 4, B]: the chunk slot block K2 folds
-    int32_t *blk_value;     // [K * 8, 8, B]
-    int32_t *blk_flags;     // [K * 8, B]
+    int32_t *blk_meta;      // [K * 8, 4, B]: the chunk's records K2 folds,
+    int32_t *blk_value;     // [K * 8, 8, B]  each lane's valid slots
+    int32_t *blk_flags;     // [K * 8, B]     compacted into rows 0, 1, ...
+    int32_t *blk_count;     // [B]: each lane's rows, written at the end
     const int32_t *step0;   // device scalar: min(global_step) of the batch
     // per-chunk round-witness scratch, read only by the kPrecomp instance
     // with a precompile queue: rows of the emitting lanes, and per cycle
@@ -241,8 +246,12 @@ HD bool map_stack(const K1Args &a, uint32_t idx, uint32_t *phys) {
 // pointer tag at rf[(RF_TAGS + r) * rs].  On the card it lies in shared
 // memory, lane-last (rs = blockDim.x), so a dynamic register index is a
 // conflict-free shared-memory access and not a local-memory round trip.
+// One word more, rf[RF_CURSOR * rs], holds the lane's next free row of the
+// chunk's record block (mode b), so that no register carries it through
+// the launch.
 #define RF_TAGS (15 * 8)
-#define RF_WORDS (RF_TAGS + 15)
+#define RF_CURSOR (RF_TAGS + 15)
+#define RF_WORDS (RF_CURSOR + 1)
 
 struct Lane {
     uint32_t *rf;
@@ -297,6 +306,8 @@ HD uint32_t &reg_limb(const Lane &L, uint32_t r, int l) {
 HD uint32_t &reg_tag(const Lane &L, uint32_t r) {
     return L.rf[(RF_TAGS + r) * L.rs];
 }
+
+HD uint32_t &blk_cursor(const Lane &L) { return L.rf[RF_CURSOR * L.rs]; }
 
 HD void read_reg(const Lane &L, uint32_t idx, U256 *v, bool *tag) {
     // r0 reads as zero
@@ -1520,6 +1531,28 @@ HD int emit_slots(const K1Args &a, int32_t *meta, int32_t *value,
     return n;
 }
 
+// append one cycle's valid slots, in slot order, to lane b's rows of the
+// chunk block K2 folds (batch-last as emit_slots' arrays), from its
+// cursor on; an invalid slot writes nothing
+HD void emit_block_rows(const K1Args &a, int b, const Slot *slots,
+                        const Lane &L) {
+    const uint64_t B = a.batch;
+    uint32_t next = blk_cursor(L);
+    for (int s = 0; s < SLOTS_PER_CYCLE; s++) {
+        const Slot &q = slots[s];
+        if (!q.valid) continue;
+        const uint64_t row = next++;
+        a.blk_meta[(row * 4 + 0) * B + b] = (int32_t)q.ts;
+        a.blk_meta[(row * 4 + 1) * B + b] = (int32_t)q.type;
+        a.blk_meta[(row * 4 + 2) * B + b] = (int32_t)q.page;
+        a.blk_meta[(row * 4 + 3) * B + b] = (int32_t)q.index;
+        for (int l = 0; l < 8; l++)
+            a.blk_value[(row * 8 + l) * B + b] = (int32_t)q.val.w[l];
+        a.blk_flags[row * B + b] = (int32_t)(q.rw | (q.ptr << 1) | 4u);
+    }
+    blk_cursor(L) = next;
+}
+
 // write one cycle's log row at min(step, LQ - 1) of the lane's log queue
 HD void emit_log_row(const K1Args &a, int b, int64_t step, const LogRow &lr,
                      Lane &L) {
@@ -1583,6 +1616,7 @@ HD void k1_run_lane(const K1Args &a, int b, uint32_t *rf, uint32_t rs) {
     L.done = a.done[b] != 0;
     L.lane_error = a.lane_error[b] != 0;
     L.wq_count = a.wq_count[b];
+    blk_cursor(L) = 0;
     L.j_count = a.j_count[b];
     L.ev_count = a.ev_count[b];
     if (kLog) {
@@ -1628,9 +1662,7 @@ HD void k1_run_lane(const K1Args &a, int b, uint32_t *rf, uint32_t rs) {
         }
         // the block K2 folds keeps every valid slot, past a queue
         // overflow too, as the reference's rolling absorb does
-        if (a.emit_block)
-            emit_slots(a, a.blk_meta, a.blk_value, a.blk_flags, b,
-                       (uint64_t)c * SLOTS_PER_CYCLE, slots, false, L);
+        if (a.emit_block) emit_block_rows(a, b, slots, L);
     }
 
     for (int r = 0; r < 15; r++) {
@@ -1656,6 +1688,7 @@ HD void k1_run_lane(const K1Args &a, int b, uint32_t *rf, uint32_t rs) {
     a.lane_error[b] = L.lane_error;
     a.global_step[b] += n;
     if (a.emit_queue) a.wq_count[b] = L.wq_count;
+    if (a.emit_block) a.blk_count[b] = (int32_t)blk_cursor(L);
     if (kLog) {
         a.spent_pubdata[b] = (int32_t)L.spent_pubdata;
         a.page_counter[b] = (int32_t)L.page_counter;
@@ -1685,20 +1718,13 @@ __global__ void __launch_bounds__(K1_THREADS) k1_kernel(const K1Args a) {
 // spans every SM of the card, so that a small batch does not leave SMs
 // idle (B = 32768: 128 threads, 256 blocks; B = 4096: 32 threads, 128
 // blocks).  A lane's 255 registers allow 8 warps an SM whatever the block
-// size, its 540-byte register file in shared memory 12.
+// size, its 544-byte register file in shared memory 12.
 static int k1_block_threads(int batch) {
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-        return K1_THREADS;
-    int threads = K1_THREADS;
-    while (threads > 32 && (batch + threads - 1) / threads < sms) threads /= 2;
-    return threads;
+    return sm_block_threads(batch, K1_THREADS);
 }
 
 // one instance's launch: the block size from the SM count, a register
-// file a thread in dynamic shared memory (67.5 KB at 128 threads)
+// file a thread in dynamic shared memory (68 KB at 128 threads)
 template <bool kLog, bool kPrecomp, bool kEc>
 static int k1_launch(const K1Args *args, cudaStream_t s) {
     const int threads = k1_block_threads(args->batch);

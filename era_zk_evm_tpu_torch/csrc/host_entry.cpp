@@ -30,13 +30,15 @@ extern "C" int eravm_k1_host(const K1Args *a, int ecrecover) {
     return 0;
 }
 
+// K2 over a compacted chunk block of `rows` rows and its count int32[B]
 extern "C" int eravm_k2_host(const void *meta, const void *value,
-                             const void *flags, void *wc_state,
-                             void *wc_count, int n_rows, int batch) {
+                             const void *flags, const void *count,
+                             void *wc_state, void *wc_count, int rows,
+                             int batch) {
     for (int b = 0; b < batch; b++)
         k2_run_lane((const int32_t *)meta, (const int32_t *)value,
-                    (const int32_t *)flags, (int32_t *)wc_state,
-                    (int32_t *)wc_count, n_rows, batch, b);
+                    (const int32_t *)flags, (const int32_t *)count,
+                    (int32_t *)wc_state, (int32_t *)wc_count, rows, batch, b);
     return 0;
 }
 

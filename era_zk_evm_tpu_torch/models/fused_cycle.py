@@ -9,14 +9,17 @@ Where the JAX package detours each ecrecover cycle through its jnp engine
 `run_cycles(n)` is one launch per chunk for every config.  `run_cycles`
 runs `n_cycles` in chunks of `k_inner`: each chunk is one K1 launch
 (`cycle_chunk`) and, with the rolling commitment on, one K2 launch
-(`rolling_fold`) over the chunk's slot block.  With a precompile queue, K1
-writes each cycle's round-witness rows into a chunk scratch block and
+(`rolling_fold`) over the chunk's records, which K1 writes compacted: each
+lane's valid memory-query slots in its first rows, with a count a lane
+(`new_slot_block`).  With a precompile queue, K1 writes each cycle's
+round-witness rows into a chunk scratch block and
 `splice_precompile_rows` moves them into the queue at the batch-global
 block clock, in torch ops on the device, without a host sync.
 
 Each wrapper takes its kernel for CUDA tensors and its plain torch version
-for CPU tensors: `models/batched_vm.cycle_step` for K1,
-`witness/rolling.rolling_absorb` for K2.  On a CUDA tensor a wrapper
+for CPU tensors: `models/batched_vm.cycle_step` (and
+`witness/rolling.compact_slot_rows` for the block) for K1,
+`witness/rolling.rolling_absorb_rows` for K2.  On a CUDA tensor a wrapper
 launches its kernel or raises; there is no fallback.  `K1_LAUNCHES` and
 `K2_LAUNCHES` count kernel launches (never plain-version calls);
 `K1_PRECOMPILE_LAUNCHES` and `K1_ECRECOVER_LAUNCHES` count the K1 launches
@@ -34,7 +37,7 @@ from ..config import (
     precompile_queue_slots,
 )
 from ..isa import params
-from ..witness.rolling import rolling_absorb
+from ..witness.rolling import compact_slot_rows, rolling_absorb_rows
 from . import batched_vm
 from .state import BOOL_FIELDS, BatchedVmState, stored_shape
 
@@ -128,10 +131,13 @@ def _slot_block_shapes(config: VmConfig, rows: int):
 
 def new_slot_block(config: VmConfig, k_cycles: int,
                    device: torch.device | str) -> tuple:
-    """Scratch (meta, value, flags) for one chunk's memory-query slots."""
+    """Scratch (meta, value, flags, count) for one chunk's memory records:
+    K1 writes each lane's valid slots to rows 0 .. count - 1 of [k_cycles *
+    8, ., B] and each lane's count to int32[B]; rows past a lane's count
+    are left unwritten."""
+    shapes = _slot_block_shapes(config, k_cycles * SLOTS_PER_CYCLE)
     return tuple(torch.empty(s, dtype=torch.int32, device=device)
-                 for s in _slot_block_shapes(config,
-                                             k_cycles * SLOTS_PER_CYCLE))
+                 for s in shapes + ((config.batch,),))
 
 
 def _pq_rows_in_kernel(config: VmConfig) -> bool:
@@ -212,10 +218,10 @@ def k1_args(state: BatchedVmState, config: VmConfig, k_cycles: int, n: int,
                                        stored_shape(field, shape), dtype,
                                        device))
     # the persistent queue (its zero-row tensors when it is off), and the
-    # chunk slot block in rolling mode (the queue's tensors stand in for it
-    # when it is off: K1 then never reads the pointers)
+    # chunk's record block in rolling mode (the queue's tensors and
+    # wq_count stand in for it when it is off: K1 then never touches them)
     queue = (state.wq_meta, state.wq_value, state.wq_flags)
-    blk = queue
+    blk = queue + (state.wq_count,)
     if config.rolling_commitment:
         if block is None or block[0].shape[0] < n * SLOTS_PER_CYCLE:
             raise ValueError("rolling mode needs a slot block as long as "
@@ -223,8 +229,9 @@ def k1_args(state: BatchedVmState, config: VmConfig, k_cycles: int, n: int,
         blk = block
     for prefix, q, rows in (("q", queue, config.queue_capacity),
                             ("blk", blk, blk[0].shape[0])):
-        shapes = _slot_block_shapes(config, rows)
-        for part, t, shape in zip(("meta", "value", "flags"), q, shapes):
+        shapes = _slot_block_shapes(config, rows) + ((config.batch,),)
+        for part, t, shape in zip(("meta", "value", "flags", "count"), q,
+                                  shapes):
             setattr(args, f"{prefix}_{part}",
                     _check(t, f"{prefix}_{part}", shape, torch.int32, device))
     args.step0 = ctypes.c_void_p(step0.data_ptr())
@@ -283,10 +290,12 @@ def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
 
     With the memory queue on (mode a), each cycle's 8 memory-query slots go
     into the persistent queue (`wq_*`); with the rolling commitment on
-    (mode b, beside the queue or alone), also to rows `c * 8` of `block`
-    (see `new_slot_block`) for `rolling_fold`.  With the precompile units and
-    their queue, the round-witness rows go through `pq_block` (allocated
-    here when not given) and `splice_precompile_rows`.
+    (mode b, beside the queue or alone), each lane's valid slots also go,
+    compacted, to `block` (see `new_slot_block`) for `rolling_fold`: on a
+    CPU state the plain engine writes the chunk's dense slot rows and
+    `compact_slot_rows` compacts them into `block`.  With the precompile
+    units and their queue, the round-witness rows go through `pq_block`
+    (allocated here when not given) and `splice_precompile_rows`.
     """
     global K1_LAUNCHES, K1_PRECOMPILE_LAUNCHES, K1_ECRECOVER_LAUNCHES
     check_slice(config)
@@ -295,11 +304,17 @@ def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
         raise ValueError("rolling mode needs a slot block")
     device = state.done.device
     if device.type == "cpu":
+        dense = None if block is None else tuple(
+            torch.empty(s, dtype=torch.int32)
+            for s in _slot_block_shapes(config, n * SLOTS_PER_CYCLE))
         for c in range(n):
-            rows = None if block is None else tuple(
+            rows = None if dense is None else tuple(
                 x[c * SLOTS_PER_CYCLE:(c + 1) * SLOTS_PER_CYCLE]
-                for x in block)
+                for x in dense)
             batched_vm.cycle_step(state, config, rows)
+        if dense is not None:
+            for dst, src in zip(block, compact_slot_rows(*dense)):
+                dst[:src.shape[0]] = src
         return state
     if device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {device}")
@@ -325,31 +340,27 @@ def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
 
 
 def rolling_fold(wc_state: torch.Tensor, wc_count: torch.Tensor,
-                 block: tuple, n_rows: int) -> None:
-    """K2: fold the first `n_rows` slots of `block` into the sponges, in
+                 block: tuple) -> None:
+    """K2: fold each lane's records of `block` (`new_slot_block`, as K1
+    wrote it: rows 0 .. count[b] - 1 of lane b) into the sponges, in
     place."""
     global K2_LAUNCHES
-    meta, value, flags = (x[:n_rows] for x in block)
     device = wc_state.device
     if device.type == "cpu":
-        rolling_absorb(wc_state, wc_count, meta, value, flags)
+        rolling_absorb_rows(wc_state, wc_count, *block)
         return
     if device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {device}")
     from .._build import load
 
-    B = wc_state.shape[0]
-    ptrs = [_check(wc_state, "wc_state", (B, 25, 2), torch.int32, device),
-            _check(wc_count, "wc_count", (B,), torch.int32, device)]
-    ptrs = [_check(t, name, (n_rows,) + tuple(t.shape[1:]), torch.int32,
-                   device)
-            for t, name in ((meta, "meta"), (value, "value"),
-                            (flags, "flags"))] + ptrs
-    if tuple(meta.shape[1:]) != (4, B) or tuple(value.shape[1:]) != (8, B) \
-            or tuple(flags.shape[1:]) != (B,):
-        raise ValueError("slot block does not match the batch")
+    B, rows = wc_state.shape[0], block[0].shape[0]
+    shapes = ((rows, 4, B), (rows, 8, B), (rows, B), (B,), (B, 25, 2), (B,))
+    names = ("meta", "value", "flags", "count", "wc_state", "wc_count")
+    ptrs = [_check(t, name, shape, torch.int32, device)
+            for t, name, shape in zip(tuple(block) + (wc_state, wc_count),
+                                      names, shapes)]
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = load().eravm_k2_launch(*ptrs, n_rows, B, ctypes.c_void_p(stream))
+    rc = load().eravm_k2_launch(*ptrs, rows, B, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc}")
     K2_LAUNCHES += 1
@@ -376,7 +387,6 @@ def run_cycles(state: BatchedVmState, config: VmConfig, n_cycles: int,
         k = min(k_inner, n_cycles - done)
         cycle_chunk(state, config, k, k, block, pq_block)
         if block is not None:
-            rolling_fold(state.wc_state, state.wc_count, block,
-                         k * SLOTS_PER_CYCLE)
+            rolling_fold(state.wc_state, state.wc_count, block)
         done += k
     return state

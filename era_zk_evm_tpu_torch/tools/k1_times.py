@@ -1,5 +1,6 @@
-"""K1's four instances timed on the card at the smoke run's shapes, for
-comparing two trees of the port in one process each on one card.
+"""K1's four instances and the rolling main path (K1 + K2) timed on the
+card at the smoke run's shapes, for comparing two trees of the port in one
+process each on one card.
 
     python era_zk_evm_tpu_torch/tools/k1_times.py [--tree DIR] [--reps 3]
 
@@ -18,7 +19,19 @@ alone, and the launch's block size.  The cases are `chip_smoke.py`'s K1
 32768, a second call on the warm state), K1-precompile (the precompile
 mix, B = 32768) and K1-ecrecover (signed transfers, a recovery in every
 lane, B = 32768), and K1 and K1-storage again at the block phases' B =
-4096.
+4096.  `main-b` is `chip_smoke.py`'s main-b (mode (b): the rolling
+commitment, WORKLOAD, B = 32768) through the entry points every tree has
+(`fused_cycle.run_cycles(st, cfg, 128, k_inner=128)`, `spill.rewind_queues`,
+the tree's own `chip_smoke.bench_config`): the best of `--reps` walls of
+one pipelined call (8 calls chained, host clock around a synchronised
+run), K1's and K2's device time a call from one `torch.profiler` pass over
+8 calls, split by kernel name (`k1_kernel`, `k2_kernel`), and lane 0's
+memory records a chunk.  `ptxas` gives the registers, stack frame and
+spills of every K1 and K2 instance, from the tree's build log;
+`sass_round` the SASS instructions (all, logic) of one keccak-f round in
+K2 and K3 (`keccak.cuh` runs one round a loop trip), read with
+`cuobjdump`, against the 180 int32 operations a round that the bounds
+count.
 """
 
 from __future__ import annotations
@@ -27,9 +40,95 @@ import argparse
 import dataclasses
 import json
 import pathlib
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+
+CASES = ("main-b", "a", "log", "precompile", "ec", "a4096", "log4096")
+
+
+def ptxas(log: str) -> dict:
+    """Each K1 and K2 kernel's registers, stack frame and spills (bytes),
+    from `nvcc -Xptxas -v` output: {mangled name: {...}}."""
+    out, entry = {}, None
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m and re.search(r"k[12]_kernel", m.group(1)):
+            entry = m.group(1)
+            f = re.findall(r"(\d+) bytes", lines[i + 1])
+            out[entry] = {"frame": int(f[0]), "spill_stores": int(f[1]),
+                          "spill_loads": int(f[2])}
+        elif m:
+            entry = None
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
+            entry = None
+    return out
+
+
+def read_sass(lib_path) -> str | None:
+    """cuobjdump -sass of a built library; None where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
+def sass_loops(sass: str, function: str) -> list[tuple[int, int]]:
+    """The backward-branch loops of one function in cuobjdump's SASS (its
+    mangled name matching the regex `function`), in address order: (all
+    instructions, the logic ones: LOP3 and the funnel shift SHF) from the
+    branch target to the branch."""
+    m = re.search(rf"Function : \S*{function}\S*\n(.*?)"
+                  r"(?=\n\s*Function :|\Z)", sass, re.S)
+    if not m:
+        return []
+    offsets, logic, labels, branches, pending = [], [], {}, [], []
+    for line in m.group(1).splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not ins:
+            continue
+        off = int(ins.group(1), 16)
+        labels.update((name, off) for name in pending)
+        pending = []
+        offsets.append(off)
+        words = ins.group(2).split()          # [@predicate] opcode ...
+        opcode = words[1] if words[0].startswith("@") else words[0]
+        if opcode.split(".")[0] in ("LOP3", "LOP", "SHF"):
+            logic.append(off)
+        br = re.search(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)", ins.group(2))
+        if br:
+            branches.append((off, br.group(1)))
+    loops = []
+    for off, target in branches:
+        t = int(target, 16) if target.startswith("0x") else labels.get(target)
+        if t is not None and t < off:
+            loops.append((sum(t <= o <= off for o in offsets),
+                          sum(t <= o <= off for o in logic)))
+    return loops
+
+
+def keccak_round_sass(sass: str | None) -> dict:
+    """{kernel: (all, logic) SASS instructions of one keccak-f round}, for
+    K2 and K3: the kernel's smallest loop with 100 logic instructions or
+    more; None without cuobjdump or such a loop."""
+    out = {}
+    for fn in ("k2_kernel", "k3_kernel"):
+        rounds = [x for x in sass_loops(sass, fn) if x[1] >= 100] \
+            if sass is not None else []
+        out[fn] = min(rounds) if rounds else None
+    return out
 
 
 def main(argv=None) -> dict:
@@ -48,6 +147,7 @@ def main(argv=None) -> dict:
     from era_zk_evm_tpu_torch import _build
     from era_zk_evm_tpu_torch.config import VmConfig, precompile_queue_slots
     from era_zk_evm_tpu_torch.models import fused_cycle
+    from era_zk_evm_tpu_torch.models.spill import rewind_queues
     from era_zk_evm_tpu_torch.models.state import (
         clone_state, make_entry_state,
     )
@@ -63,6 +163,7 @@ def main(argv=None) -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     t0 = time.time()
+    lib = _build.build()
     _build.load()
     build_s = time.time() - t0
 
@@ -120,9 +221,63 @@ def main(argv=None) -> dict:
             cfg, [progs[i % len(progs)] for i in range(batch)], ergs=ERGS,
             entry_address=ec_programs.EC, device=dev), 0
 
+    def main_b() -> dict:
+        """chip_smoke.py's main-b: pipelined wall a call, K1's and K2's
+        device time a call, lane 0's records a chunk."""
+        import chip_smoke
+
+        calls = 8
+        cfg = chip_smoke.bench_config(32768, rolling=True)
+        entry = make_entry_state(cfg, [assemble(WORKLOAD)] * cfg.batch,
+                                 ergs=ERGS, device=dev)
+        st = clone_state(entry)
+
+        def call():
+            fused_cycle.run_cycles(st, cfg, K, k_inner=K)
+            rewind_queues(st)
+
+        call()                                    # loads, warms
+        torch.cuda.synchronize()
+        before = int(st.wc_count[0])
+        call()
+        torch.cuda.synchronize()
+        records = int(st.wc_count[0]) - before
+        walls = []
+        for _ in range(args.reps):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / calls)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        dev_ms = {"k1": 0.0, "k2": 0.0}
+        counts = {"k1": 0, "k2": 0}
+        for e in prof.key_averages():
+            for k in dev_ms:
+                if f"{k}_kernel" in e.key:
+                    dev_ms[k] += e.self_device_time_total / 1e3 / calls
+                    counts[k] += e.count
+        errors = int(st.lane_error.sum())
+        return {"batch": cfg.batch, "wall_ms": min(walls) * 1e3,
+                "wall_ms_all": [w * 1e3 for w in walls],
+                "cycles_per_sec_pipelined": cfg.batch * K / min(walls),
+                "k1_device_ms": dev_ms["k1"], "k2_device_ms": dev_ms["k2"],
+                "profiled_launches": counts,
+                "records_lane0_per_chunk": records, "lane_errors": errors}
+
     out = {"card": card, "tree": args.tree, "build_s": build_s,
-           "torch": torch.__version__}
-    for name in ("a", "log", "precompile", "ec", "a4096", "log4096"):
+           "torch": torch.__version__,
+           "ptxas": ptxas((lib.parent / "build.log").read_text()),
+           "sass_round": keccak_round_sass(read_sass(lib))}
+    for name in CASES:
+        if name == "main-b":
+            out[name] = main_b()
+            torch.cuda.empty_cache()
+            continue
         cfg, entry, warm_calls = case(name)
         pq = fused_cycle.new_pq_block(cfg, K, dev)
         warm = clone_state(entry)

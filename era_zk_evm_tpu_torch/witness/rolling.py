@@ -1,12 +1,19 @@
 """The rolling memory-queue commitment (spec v2, rate-packed) in plain torch.
 
-`rolling_absorb` is the plain version of the K2 kernel
-(`csrc/rolling_fold.cu`): it folds a block of memory-query slots, in slot
-order, into each lane's keccak sponge.  Record 2i of a lane is XORed into
-u64 lanes 0..7, record 2i+1 into lanes 8..15 and then the lane permutes;
-`wc_count & 1` says which half the next record takes.  The record layout is
+Each lane folds its valid memory-query slots, in cycle-then-slot order,
+into its keccak sponge.  Record 2i of a lane is XORed into u64 lanes 0..7,
+record 2i+1 into lanes 8..15 and then the lane permutes; `wc_count & 1`
+says which half the next record takes.  The record layout is
 `era_zk_evm_tpu/witness/commitment.py::serialize_memory_query`, as the JAX
 engine builds it (`era_zk_evm_tpu/models/batched_vm.py`, rolling block).
+
+Two block forms carry the slots.  The dense one holds every slot of a
+cycle, valid (bit 2 of its flags word) or not: `rolling_absorb` folds it,
+the plain engine's in-cycle absorb.  The compacted one holds each lane's
+valid slots alone in rows 0 .. count - 1, the block K1 writes for K2
+(`csrc/cycle_kernel.cu`, `emit_block_rows`): `compact_slot_rows` is the
+plain version of that write and `rolling_absorb_rows` the plain version of
+the K2 kernel (`csrc/rolling_fold.cu`).
 
 `finalize_rolling` is the port of
 `era_zk_evm_tpu/witness/device_fold.py::finalize_rolling_device`.
@@ -49,16 +56,10 @@ def slot_records(meta: torch.Tensor, value: torch.Tensor,
     return torch.stack([lo[k] | (hi[k] << 32) for k in range(8)], dim=1)
 
 
-def rolling_absorb(wc_state: torch.Tensor, wc_count: torch.Tensor,
-                   meta: torch.Tensor, value: torch.Tensor,
-                   flags: torch.Tensor) -> None:
-    """Fold the valid slots of a slot block into the sponges, in place.
-
-    wc_state int32[B, 25, 2], wc_count int32[B]; slot i of lane b is valid
-    where bit 2 of flags[i, b] is set.
-    """
-    records = slot_records(meta, value, flags)
-    valid = ((flags >> 2) & 1) != 0
+def _fold(wc_state: torch.Tensor, wc_count: torch.Tensor,
+          records: torch.Tensor, valid: torch.Tensor) -> None:
+    """Fold row s of `records` (int64[S, 8, B]) into lane b's sponge where
+    valid[s, b], rows in order, in place."""
     lanes = to_lanes(wc_state)
     count = wide(wc_count)
     for s in range(records.shape[0]):
@@ -73,6 +74,55 @@ def rolling_absorb(wc_state: torch.Tensor, wc_count: torch.Tensor,
         count = (count + valid[s].to(torch.int64)) & M32
     wc_state.copy_(from_lanes(lanes))
     wc_count.copy_(narrow(count, torch.int32))
+
+
+def rolling_absorb(wc_state: torch.Tensor, wc_count: torch.Tensor,
+                   meta: torch.Tensor, value: torch.Tensor,
+                   flags: torch.Tensor) -> None:
+    """Fold the valid slots of a dense slot block into the sponges, in
+    place.
+
+    wc_state int32[B, 25, 2], wc_count int32[B]; slot i of lane b is valid
+    where bit 2 of flags[i, b] is set.
+    """
+    _fold(wc_state, wc_count, slot_records(meta, value, flags),
+          ((flags >> 2) & 1) != 0)
+
+
+def compact_slot_rows(meta: torch.Tensor, value: torch.Tensor,
+                      flags: torch.Tensor) -> tuple:
+    """A dense slot block ([S, 4, B], [S, 8, B], [S, B]) -> the compacted
+    block (meta, value, flags, count): each lane's valid slots, in slot
+    order, in rows 0 .. count - 1 (a stable compaction by bit 2 of the
+    flags), count int32[B]; the rows past a lane's count are zero."""
+    valid = ((flags >> 2) & 1) != 0
+    order = torch.argsort((~valid).to(torch.int8), dim=0, stable=True)
+    count = valid.sum(0, dtype=torch.int32)
+    rows = torch.arange(flags.shape[0], device=flags.device)
+    keep = rows[:, None] < count[None, :]
+
+    def take(x):    # x [S, B] or [S, n, B]
+        idx, k = (order, keep) if x.dim() == 2 else (order[:, None],
+                                                     keep[:, None])
+        return torch.where(k, torch.gather(x, 0, idx.expand_as(x)), 0)
+
+    return take(meta), take(value), take(flags), count
+
+
+def rolling_absorb_rows(wc_state: torch.Tensor, wc_count: torch.Tensor,
+                        meta: torch.Tensor, value: torch.Tensor,
+                        flags: torch.Tensor, count: torch.Tensor) -> None:
+    """Fold a compacted block into the sponges, in place: rows 0 ..
+    count[b] - 1 of lane b are its records, in order; no other row is
+    read.
+
+    wc_state int32[B, 25, 2], wc_count int32[B]; meta [R, 4, B], value
+    [R, 8, B], flags [R, B], count int32[B] with count <= R.
+    """
+    n = int(count.max()) if count.numel() else 0
+    rows = torch.arange(n, device=count.device)
+    _fold(wc_state, wc_count, slot_records(meta[:n], value[:n], flags[:n]),
+          rows[:, None] < count[None, :])
 
 
 def finalize_rolling(wc_state: torch.Tensor,

@@ -22,7 +22,7 @@ from era_zk_evm_tpu_torch.tools import bisect_fold, probe_keccak, probe_uniform
 from era_zk_evm_tpu_torch.testing import (
     block_programs, ec_programs, log_programs, programs,
 )
-from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb
+from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb_rows
 
 
 @pytest.fixture
@@ -80,6 +80,31 @@ def test_k1_rolling_with_queue_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_k1_records_are_the_plain_compaction(cuda):
+    # mode (b): K1's record block (rows below each lane's count, and the
+    # counts) against the plain engine's slot rows, compacted
+    from era_zk_evm_tpu_torch.witness.rolling import compact_slot_rows
+
+    words = [programs.assemble(p) for p in programs.FAMILY_PROGRAMS.values()]
+    config = _config(len(words), True)
+    ks = pstate.make_entry_state(config, words, ergs=1 << 20, device=cuda)
+    ps = pstate.clone_state(ks)
+    block = fused_cycle.new_slot_block(config, 24, cuda)
+    fused_cycle.cycle_chunk(ks, config, 24, 24, block)
+    dense = tuple(torch.empty(x.shape, dtype=torch.int32, device=cuda)
+                  for x in block[:3])
+    for c in range(24):
+        batched_vm.cycle_step(ps, config, tuple(x[c * 8:(c + 1) * 8]
+                                                for x in dense))
+    want = compact_slot_rows(*dense)
+    assert torch.equal(block[3], want[3]) and int(want[3].max()) > 0
+    live = torch.arange(24 * 8, device=cuda)[:, None] < want[3][None, :]
+    for got, exp, keep in zip(block[:3], want[:3],
+                              (live[:, None], live[:, None], live)):
+        assert torch.equal(torch.where(keep, got, 0), exp)
+
+
+@pytest.mark.cuda
 def test_k1_grid_spans_the_sms(cuda):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for batch in (4096, 32768):
@@ -105,20 +130,32 @@ def test_k1_fuzz_matches_plain(cuda, name):
 
 @pytest.mark.cuda
 def test_k2_matches_plain(cuda):
+    # a compacted block: each lane's first count rows, the rest poison;
+    # counts 0, 1 and full among random ones, wc_count of both parities
     gen = torch.Generator().manual_seed(5)
     B, rows = 300, 40
     meta = torch.randint(-2**31, 2**31 - 1, (rows, 4, B), generator=gen,
                          dtype=torch.int32)
     value = torch.randint(-2**31, 2**31 - 1, (rows, 8, B), generator=gen,
                           dtype=torch.int32)
-    flags = torch.randint(0, 8, (rows, B), generator=gen, dtype=torch.int32)
+    flags = torch.randint(0, 4, (rows, B), generator=gen,
+                          dtype=torch.int32) | 4
+    count = torch.randint(0, rows + 1, (B,), generator=gen, dtype=torch.int32)
+    count[:3] = torch.tensor([0, 1, rows])
+    live = torch.arange(rows)[:, None] < count[None, :]
+    meta = torch.where(live[:, None, :], meta, -7)
+    value = torch.where(live[:, None, :], value, -7)
+    flags = torch.where(live, flags, -7)
     wc = torch.randint(-2**31, 2**31 - 1, (B, 25, 2), generator=gen,
                        dtype=torch.int32)
     cnt = torch.randint(0, 5, (B,), generator=gen, dtype=torch.int32)
-    block = tuple(x.to(cuda) for x in (meta, value, flags))
+    block = tuple(x.to(cuda) for x in (meta, value, flags, count))
     wk, ck = wc.to(cuda), cnt.to(cuda)
-    fused_cycle.rolling_fold(wk, ck, block, rows)
-    rolling_absorb(wc, cnt, meta, value, flags)
+    before = fused_cycle.K2_LAUNCHES
+    fused_cycle.rolling_fold(wk, ck, block)
+    torch.cuda.synchronize()
+    assert fused_cycle.K2_LAUNCHES == before + 1
+    rolling_absorb_rows(wc, cnt, meta, value, flags, count)
     assert torch.equal(wk.cpu(), wc) and torch.equal(ck.cpu(), cnt)
 
 

@@ -5,7 +5,8 @@ The wrappers never take this build (on CPU tensors they run the plain
 versions); it checks the kernel sources' lane logic where no card or nvcc
 exists: K1's memory-witness body, its storage-enabled (kLog) body, its
 precompile (kPrecomp) body with the round-witness splice and its ecrecover
-(kEc) body, the ecrecover unit alone, K2's fold, K3's chained
+(kEc) body, the ecrecover unit alone, K1's compacted record block, K2's
+fold of it, K3's chained
 permutation and the probes P1-P7 (csrc/probe_keccak.cu, probe_rate.cu,
 probe_uniform.cu, bisect_fold.cu).  The kernels themselves are held against
 the plain versions on the card by chip_smoke.py.
@@ -19,9 +20,7 @@ import pytest
 import torch
 
 from era_zk_evm_tpu_torch import _build
-from era_zk_evm_tpu_torch.config import (
-    SLOTS_PER_CYCLE, VmConfig, from_jax_config,
-)
+from era_zk_evm_tpu_torch.config import VmConfig, from_jax_config
 from era_zk_evm_tpu_torch.models import fused_cycle
 from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.ops import keccak
@@ -30,7 +29,9 @@ from era_zk_evm_tpu_torch.tools import bisect_fold, probe_keccak, probe_uniform
 from era_zk_evm_tpu_torch.testing import (
     block_programs, ec_programs, log_programs, programs,
 )
-from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb
+from era_zk_evm_tpu_torch.witness.rolling import (
+    compact_slot_rows, rolling_absorb_rows,
+)
 
 from test_batched_vm import (
     BASIC_PROGRAMS, CALL_PROGRAMS, CONTEXT_PROGRAMS, CONTROL_FLOW,
@@ -60,14 +61,20 @@ def _config(batch, rolling, queue_capacity, code_words=32):
                     rolling_commitment=rolling)
 
 
-def _host_run(host, st, config, n_cycles, k_inner):
-    """fused_cycle.run_cycles with the host build in place of the kernels."""
+def _host_run(host, st, config, n_cycles, k_inner, blocks=None):
+    """fused_cycle.run_cycles with the host build in place of the kernels.
+    The record block's rows are poisoned before each chunk (K2 must read
+    only the rows below a lane's count); `blocks`, when given, receives a
+    copy of each chunk's block as K1 wrote it."""
     block = (fused_cycle.new_slot_block(config, k_inner, "cpu")
              if config.rolling_commitment else None)
     pq_block = fused_cycle.new_pq_block(config, k_inner, "cpu")
     done = 0
     while done < n_cycles:
         k = min(k_inner, n_cycles - done)
+        if block is not None:
+            for x in block:
+                x.fill_(-7)
         step0 = st.global_step.min()
         args = fused_cycle.k1_args(st, config, k, k, block, step0, pq_block)
         assert host.eravm_k1_host(
@@ -75,11 +82,25 @@ def _host_run(host, st, config, n_cycles, k_inner):
         if pq_block is not None:
             fused_cycle.splice_precompile_rows(st, config, pq_block, k)
         if block is not None:
+            if blocks is not None:
+                blocks.append(tuple(x.clone() for x in block))
             ptrs = [x.data_ptr() for x in block]
             assert host.eravm_k2_host(*ptrs, st.wc_state.data_ptr(),
                                       st.wc_count.data_ptr(),
-                                      k * SLOTS_PER_CYCLE, config.batch) == 0
+                                      block[0].shape[0], config.batch) == 0
         done += k
+
+
+def assert_compacted(got, want):
+    """Two compacted blocks (meta, value, flags, count) agree: the counts,
+    and every row below a lane's count."""
+    assert torch.equal(got[3], want[3])
+    for g, w in zip(got[:3], want[:3]):
+        n = w.shape[0]
+        keep = (torch.arange(n)[:, None] < want[3][None, :]).reshape(
+            n, *([1] * (w.dim() - 2)), w.shape[-1])
+        assert torch.equal(torch.where(keep, g[:n], 0),
+                           torch.where(keep, w, 0))
 
 
 def _assert_same(a, b):
@@ -91,7 +112,7 @@ def _assert_same(a, b):
 @pytest.mark.parametrize("case", ["queue", "rolling", "no_witness",
                                   "queue_overflow", "workload",
                                   "workload_rolling"])
-def test_k1_host_build_matches_plain(host, case):
+def test_k1_host_build_matches_plain(host, case, monkeypatch):
     if case.startswith("workload"):
         words = [programs.assemble(programs.WORKLOAD)] * 4
         config = _config(4, case.endswith("rolling"), 128 * 8, code_words=16)
@@ -106,14 +127,32 @@ def test_k1_host_build_matches_plain(host, case):
         n, k_inner, ergs = 48, 20, 1 << 20
     plain = pstate.make_entry_state(config, words, ergs=ergs, device="cpu")
     kern = pstate.clone_state(plain)
+    # the plain engine's dense slot rows of each chunk, as the CPU path
+    # hands them to the compaction
+    dense = []
+
+    def spy(*rows):
+        dense.append(tuple(x.clone() for x in rows))
+        return compact_slot_rows(*rows)
+
+    monkeypatch.setattr(fused_cycle, "compact_slot_rows", spy)
     fused_cycle.run_cycles(plain, config, n, k_inner=k_inner)
-    _host_run(host, kern, config, n, k_inner)
+    blocks = []
+    _host_run(host, kern, config, n, k_inner, blocks)
     _assert_same(plain, kern)
     if case == "queue_overflow":
         assert kern.lane_error.any()
+    # K1's record block is the plain compaction of the dense rows
+    assert len(blocks) == len(dense) == (
+        -(-n // k_inner) if config.rolling_commitment else 0)
+    for got, rows in zip(blocks, dense):
+        assert_compacted(got, compact_slot_rows(*rows))
+    if config.rolling_commitment:
+        assert 0 < int(blocks[0][3].max()) < blocks[0][0].shape[0]
 
 
 def test_k2_host_build_matches_plain(host):
+    # K2 over a compacted block: each lane's first count rows
     rng = random.Random(11)
     gen = torch.Generator().manual_seed(11)
     B, rows = 37, 24
@@ -121,16 +160,18 @@ def test_k2_host_build_matches_plain(host):
                          dtype=torch.int32)
     value = torch.randint(-2**31, 2**31 - 1, (rows, 8, B), generator=gen,
                           dtype=torch.int32)
-    flags = torch.tensor([[rng.randrange(8) for _ in range(B)]
+    flags = torch.tensor([[rng.randrange(8) | 4 for _ in range(B)]
                           for _ in range(rows)], dtype=torch.int32)
+    count = torch.tensor([rng.randrange(rows + 1) for _ in range(B)],
+                         dtype=torch.int32)
     wc = torch.randint(-2**31, 2**31 - 1, (B, 25, 2), generator=gen,
                        dtype=torch.int32)
     cnt = torch.tensor([rng.randrange(5) for _ in range(B)], dtype=torch.int32)
     wk, ck = wc.clone(), cnt.clone()
     assert host.eravm_k2_host(meta.data_ptr(), value.data_ptr(),
-                              flags.data_ptr(), wk.data_ptr(), ck.data_ptr(),
-                              rows, B) == 0
-    rolling_absorb(wc, cnt, meta, value, flags)
+                              flags.data_ptr(), count.data_ptr(),
+                              wk.data_ptr(), ck.data_ptr(), rows, B) == 0
+    rolling_absorb_rows(wc, cnt, meta, value, flags, count)
     assert torch.equal(wk, wc) and torch.equal(ck, cnt)
 
 
