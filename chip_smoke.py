@@ -94,6 +94,22 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 (block.commit_block on its txs' results, equal to the
                 block's): host wall, device busy time, K3's and the
                 sponge's device time and launches;
+  block-objects execute_block with streams="objects" (the reference's
+                query structs) and streams="packed" on the same 8192 txs of
+                the tiny mix, B = 4096 (so lanes refill): equal
+                commitments, products, net states, cycles and registers,
+                and each tx's structs equal to queries_from_packed of its
+                packed streams; both walls, txs/s and the host split;
+  sorted-queue  the witness wave's first 256-cycle segment, B = 4096: the
+                sorted-queue functions (sort, K3 fingerprints, grand
+                products, block product) on the card equal to the same
+                functions on a CPU copy of the state, the first 256 lanes
+                to the host references, and the sorted queue's products to
+                the emission order's over every lane; CUDA-event ms a step;
+  net-states-by-tx  the bootloader block (tests/test_bootloader.py) at
+                B = 4096, 160 cycles on K1: every lane's per-tx buckets
+                hold their markers, the first 64 lanes equal to a plain CPU
+                run;
   K3-sponge     the ragged keccak256 sponge against its plain version on
                 the card, bit for bit: the edge lengths of a rate block and
                 a mixed batch, a T = 1 fold of 8192 digests, block-
@@ -103,7 +119,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 through K3 and through the sponge, timed and equal;
   launches      K1 (each instance), K2, K3 and the sponge launched on their
                 main paths; block-tiny's sponge and K3 launches at most two
-                a queue family and one.
+                a queue family and one; K3's on block-tiny and the sorted
+                queue.
 The card's name and power limit come on a line of their own, the kernels'
 JSON record on the line before the last, and the last line is the device
 record.  The script imports no JAX and nothing of the JAX package.
@@ -126,7 +143,7 @@ from era_zk_evm_tpu_torch.block import TxSpec, commit_block, execute_block
 from era_zk_evm_tpu_torch.config import VmConfig, precompile_queue_slots
 from era_zk_evm_tpu_torch.isa import params
 from era_zk_evm_tpu_torch.isa.abi import code_hash_for_bytecode
-from era_zk_evm_tpu_torch.models import batched_vm, fused_cycle
+from era_zk_evm_tpu_torch.models import batched_vm, fused_cycle, net_states
 from era_zk_evm_tpu_torch.models.spill import rewind_queues
 from era_zk_evm_tpu_torch.models.state import (
     FIELD_NAMES, LANE_AXIS, clone_state, make_entry_state, populate_code_bank,
@@ -137,6 +154,7 @@ from era_zk_evm_tpu_torch.ops.goldilocks import gl_reduce64
 from era_zk_evm_tpu_torch.ops.u256 import wide
 from era_zk_evm_tpu_torch.testing import (
     block_programs, ec_programs, fuzz_programs, log_programs,
+    witness_programs,
 )
 from era_zk_evm_tpu_torch.testing.programs import (
     FAMILY_PROGRAMS, FARCALL_CALLEE_ADDRESS, STORAGE_WORKLOAD, WORKLOAD,
@@ -146,7 +164,8 @@ from era_zk_evm_tpu_torch.testing.wave import run_wave, wave_commitments
 from era_zk_evm_tpu_torch.tools import (
     bisect_fold, k1_times, probe_keccak, probe_uniform,
 )
-from era_zk_evm_tpu_torch.witness import packed
+from era_zk_evm_tpu_torch.witness import packed, sorted_queue
+from era_zk_evm_tpu_torch.witness.commitment import device_log_streams
 from era_zk_evm_tpu_torch.witness.rolling import (
     compact_slot_rows, finalize_rolling, rolling_absorb_rows,
 )
@@ -200,6 +219,9 @@ SECTOR = 32                                   # bytes of one DRAM sector
 SPONGE_EDGE, SPONGE_MIXED, FOLD_DIGESTS = (0, 1, 33, 34, 35, 67, 68), 64, 8192
 #: K3 chained at N = 1: one permutation's latency on one thread
 SERIAL_ITERS = 20000
+#: block-objects: the tiny mix's txs; sorted-queue: lanes held against the
+#: host references; net-states-by-tx: lanes held against a CPU run
+OBJECTS_TXS, SQ_HOST_LANES, NET_CPU_LANES = 2 * 4096, 256, 64
 #: the probes' shapes: the JAX tools' defaults (tools/probe_keccak.py main,
 #: probe_vpu_rate, probe_round_rate; tools/probe_mosaic_uniform.py;
 #: tools/bisect_fold.py), and card-filling sizes where the tool's is a
@@ -595,9 +617,7 @@ def block_phase(tag: str, config: VmConfig, txs: list, knobs: dict, dev,
     if warm:
         execute_block(config, txs, device=dev, **knobs)
     torch.cuda.synchronize()
-    fused_cycle.K1_LAUNCHES = fused_cycle.K1_PRECOMPILE_LAUNCHES = 0
-    fused_cycle.K1_ECRECOVER_LAUNCHES = keccak.K3_LAUNCHES = 0
-    keccak.K3S_LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     blk = execute_block(config, txs, device=dev, **knobs)
     torch.cuda.synchronize()
@@ -671,6 +691,224 @@ def commit_phase(config: VmConfig, blk, dev) -> dict:
             **{k: prof[k] for k in ("device_busy_s", "k3_device_ms",
                                     "sponge_device_ms", "sponge_events",
                                     "top")}}
+
+
+def card_fields(t_phase: float) -> dict:
+    """A phase line's wall since `t_phase` (perf_counter) and the card's
+    name and power limit, as nvidia-smi gives them."""
+    return {"wall_s": round(time.perf_counter() - t_phase, 2),
+            "card": json.dumps(nvidia_smi("name,power.limit"))}
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0 (before a path is driven)."""
+    fused_cycle.K1_LAUNCHES = fused_cycle.K1_PRECOMPILE_LAUNCHES = 0
+    fused_cycle.K1_ECRECOVER_LAUNCHES = keccak.K3_LAUNCHES = 0
+    keccak.K3S_LAUNCHES = 0
+
+
+def objects_phase(dev) -> dict:
+    """block-objects: execute_block in both stream forms on the tiny mix's
+    OBJECTS_TXS txs at B = 4096 (bench_block's knobs), objects first with
+    the launch counts set to 0 just before it; every result equal, each
+    tx's query structs equal to queries_from_packed of its packed streams;
+    both walls and both runs' host split.  Returns the objects run's
+    launches."""
+    t_phase = time.perf_counter()
+    config = block_config(B_BLOCK)
+    txs = mix_txs("tiny", OBJECTS_TXS)
+    walls, runs = {}, {}
+    for form in ("objects", "packed"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        runs[form] = execute_block(config, txs, device=dev, streams=form,
+                                   **BLOCK_KNOBS)
+        torch.cuda.synchronize()
+        walls[form] = time.perf_counter() - t0
+        if form == "objects":
+            launches = {"K1": fused_cycle.K1_LAUNCHES,
+                        "K3": keccak.K3_LAUNCHES,
+                        "sponge": keccak.K3S_LAUNCHES}
+        if not runs[form].all_ok:
+            raise AssertionError(f"block-objects: {form} txs in error")
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"block-objects: launches {launches}")
+    obj, pk = runs["objects"], runs["packed"]
+    for name in ("tx_commitments", "commitments", "sorted_log_products",
+                 "block_log_product"):
+        if getattr(obj, name) != getattr(pk, name):
+            raise AssertionError(f"block-objects: {name} differ")
+    t0 = time.perf_counter()
+    n_records = 0
+    for a, b in zip(obj.txs, pk.txs):
+        if (a.status, a.cycles, a.net_states) \
+                != (b.status, b.cycles, b.net_states) \
+                or not np.array_equal(a.registers, b.registers) \
+                or sorted(a.streams) != sorted(b.streams):
+            raise AssertionError(f"block-objects: tx {a.tx} differs")
+        for name, stream in a.streams.items():
+            if packed.queries_from_packed(name, b.streams[name]) != stream:
+                raise AssertionError(f"block-objects: tx {a.tx} {name} "
+                                     "structs != its packed records")
+            n_records += len(stream)
+    phase("block-objects", **card_fields(t_phase), batch=B_BLOCK,
+          txs=len(txs), equal=True,
+          records=n_records, objects_wall_s=round(walls["objects"], 4),
+          objects_txs_per_sec=len(txs) / walls["objects"],
+          packed_wall_s=round(walls["packed"], 4),
+          packed_txs_per_sec=len(txs) / walls["packed"],
+          check_s=round(time.perf_counter() - t0, 2),
+          **{f"launches_{k}": v for k, v in launches.items()},
+          **{f"objects_host_{k}": v
+             for k, v in obj.stats["profile"].items()},
+          **{f"packed_host_{k}": v for k, v in pk.stats["profile"].items()})
+    return launches
+
+
+def _sq_path(state) -> tuple:
+    """The sorted-queue functions on one state: (fingerprints lo, hi,
+    valid, lane products lo, hi, block product lo, hi, the five sorted
+    arrays)."""
+    (lo, hi), valid = sorted_queue.log_queue_fingerprints(state)
+    lanes = sorted_queue.grand_product(lo, hi, valid)
+    return (lo, hi, valid, *lanes, *sorted_queue.block_grand_product(*lanes),
+            *sorted_queue.sort_log_queue(state))
+
+
+def _gl_ints(lo: torch.Tensor, hi: torch.Tensor) -> list[int]:
+    return [a | (b << 32) for a, b in zip(lo.tolist(), hi.tolist())]
+
+
+def sorted_queue_phase(dev, wave_words: list) -> int:
+    """sorted-queue: the witness wave's first segment at B = 4096, then the
+    sorted-queue path on the card with the launch counts set to 0 just
+    before it, equal to the same functions on a CPU copy of the state; the
+    first SQ_HOST_LANES lanes against the host references, the permutation
+    identity over every lane; CUDA-event ms a step.  Returns K3's
+    launches on the path."""
+    t_phase = time.perf_counter()
+    config = wave_config(B_WAVE)
+    st = make_entry_state(config, wave_words, ergs=FULL_ERGS, device=dev)
+    fused_cycle.run_cycles(st, config, WAVE_SEGMENT, k_inner=WAVE_SEGMENT)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = _sq_path(st)
+    torch.cuda.synchronize()
+    k3 = keccak.K3_LAUNCHES
+    if k3 != 1:
+        raise AssertionError(f"sorted-queue: {k3} K3 launches, not 1")
+    host = dataclasses.replace(st, **{n: getattr(st, n).cpu()
+                                      for n in FIELD_NAMES})
+    t0 = time.perf_counter()
+    want = _sq_path(host)
+    cpu_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"sorted-queue: output {i} card != CPU")
+    lo, hi, valid, plo, phi = (t.cpu() for t in got[:5])
+    products = _gl_ints(plo, phi)
+    # the sorted copy, written back through the reference view: its
+    # products (the permutation identity) and its streams (the host sort)
+    sorted_st = clone_state(st)
+    ref = reference_view(sorted_st)
+    for name, arr in zip(("lq_meta", "lq_addr", "lq_key", "lq_read",
+                          "lq_written"), got[7:]):
+        getattr(ref, name).copy_(arr)
+    (slo, shi), svalid = sorted_queue.log_queue_fingerprints(sorted_st)
+    if _gl_ints(*(t.cpu() for t in sorted_queue.grand_product(
+            slo, shi, svalid))) != products:
+        raise AssertionError("sorted-queue: sorted product != emission "
+                             "order's")
+    t0 = time.perf_counter()
+    n = SQ_HOST_LANES
+    streams = device_log_streams(st)[:n]
+    sorted_streams = device_log_streams(sorted_st)[:n]
+    for b in range(n):
+        fps = [x | (y << 32) for x, y, v in zip(
+            lo[b].tolist(), hi[b].tolist(), valid[b].tolist()) if v]
+        if fps != [sorted_queue.host_fingerprint(q) for q in streams[b]] \
+                or products[b] != sorted_queue.host_grand_product(
+                    streams[b]) \
+                or sorted_streams[b] != sorted(
+                    streams[b], key=sorted_queue.host_sort_key):
+            raise AssertionError(f"sorted-queue: lane {b} != the host "
+                                 "references")
+    host_s = time.perf_counter() - t0
+    fp_dev, gp_dev = got[:3], got[3:5]
+    steps = {"sort": lambda: sorted_queue.sort_log_queue(st),
+             "fingerprints": lambda: sorted_queue.log_queue_fingerprints(st),
+             "grand_product": lambda: sorted_queue.grand_product(*fp_dev),
+             "block_product": lambda: sorted_queue.block_grand_product(
+                 *gp_dev)}
+    ms = {}
+    for name, fn in steps.items():
+        fn()
+        ms[name] = min(timed_ms(fn) for _ in range(3))
+    phase("sorted-queue", **card_fields(t_phase), batch=B_WAVE,
+          rows_per_lane=config.log_queue_capacity,
+          records=int(valid.sum()), equal_to_cpu=True,
+          equal_to_host_lanes=n, permutation_identity=True, k3_launches=k3,
+          **{f"{k}_ms": round(v, 4) for k, v in ms.items()},
+          cpu_copy_s=round(cpu_s, 2), host_refs_s=round(host_s, 2),
+          block_product=_gl_ints(got[5].cpu()[None], got[6].cpu()[None])[0])
+    return k3
+
+
+def net_states_phase(dev) -> int:
+    """net-states-by-tx: the bootloader block at B = 4096 on K1 (launch
+    counts set to 0 just before it), its per-tx net states and final net
+    states; every lane's buckets hold the expected markers, the first
+    NET_CPU_LANES lanes equal to a plain CPU run.  Returns K1's
+    launches."""
+    t_phase = time.perf_counter()
+    wp = witness_programs
+    config = wp.bootloader_config(B_WAVE)
+    st = wp.bootloader_state(config, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fused_cycle.run_cycles(st, config, wp.MAX_CYCLES)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    k1 = fused_cycle.K1_LAUNCHES
+    if k1 == 0 or not bool(st.done.all()) or bool(st.lane_error.any()):
+        raise AssertionError(f"net-states-by-tx: K1 launches {k1}, "
+                             f"{int(st.done.sum())} lanes done")
+    t0 = time.perf_counter()
+    logs = device_log_streams(st)
+    by_tx = net_states.net_states_by_tx(st, config, logs)
+    nets = net_states.device_net_states(st, config, logs)
+    extract_s = time.perf_counter() - t0
+    for b, per_tx in enumerate(by_tx):
+        ok = sorted(per_tx) == list(range(len(wp.TX_SEQUENCE)))
+        for tx_i, contract_i in enumerate(wp.TX_SEQUENCE):
+            bucket = per_tx.get(tx_i, {"events": [], "storage_writes": []})
+            ev = bucket["events"]
+            writes = [q for q in bucket["storage_writes"]
+                      if q.address == wp.TX_ADDRS[contract_i]]
+            ok = ok and len(ev) == 1 and ev[0].value \
+                == wp.TX_MARKS[contract_i] and ev[0].address \
+                == wp.TX_ADDRS[contract_i] and len(writes) == 1 \
+                and writes[0].written_value == wp.TX_MARKS[contract_i]
+        if not ok:
+            raise AssertionError(f"net-states-by-tx: lane {b}'s buckets")
+    n = NET_CPU_LANES
+    cpu_config = wp.bootloader_config(n)
+    cpu = wp.bootloader_state(cpu_config, "cpu")
+    fused_cycle.run_cycles(cpu, cpu_config, wp.MAX_CYCLES)
+    cpu_logs = device_log_streams(cpu)
+    if by_tx[:n] != net_states.net_states_by_tx(cpu, cpu_config, cpu_logs) \
+            or nets[:n] != net_states.device_net_states(cpu, cpu_config,
+                                                        cpu_logs):
+        raise AssertionError("net-states-by-tx: lanes differ from the CPU")
+    phase("net-states-by-tx", **card_fields(t_phase), batch=B_WAVE,
+          cycles=wp.MAX_CYCLES,
+          txs_per_lane=len(wp.TX_SEQUENCE), equal_to_cpu_lanes=n,
+          k1_launches=k1, run_s=round(run_s, 4),
+          extract_s=round(extract_s, 3),
+          log_records=sum(len(s) for s in logs))
+    return k1
 
 
 def sponge_blocks(streams) -> list:
@@ -1687,6 +1925,9 @@ def main() -> int:
     del blk, st
     phase("block-commit", **{f"{tag[6:]}_{k}": v for tag, fields
                              in commits.items() for k, v in fields.items()})
+    objects = objects_phase(dev)
+    sq_k3 = sorted_queue_phase(dev, wave_words)
+    boot_k1 = net_states_phase(dev)
     sponge = sponge_phase(dev, sm_mhz, memory_streams, log_records)
     del memory_streams, log_records
     # block-tiny's commitments: one sponge launch for every family's
@@ -1705,6 +1946,9 @@ def main() -> int:
           K1_ecrecover=blocks["block-ecrecover"]["K1_ecrecover"],
           K3_block_ecrecover=blocks["block-ecrecover"]["K3"],
           K3_block_realistic=launches_r["K3"],
+          K3_sorted_queue=sq_k3, K1_block_objects=objects["K1"],
+          K3_block_objects=objects["K3"],
+          sponge_block_objects=objects["sponge"], K1_bootloader=boot_k1,
           **{f"sponge_{tag.replace('-', '_')}": v["sponge"]
              for tag, v in list(blocks.items())
              + [("block-realistic", launches_r)]})
@@ -1748,7 +1992,8 @@ def main() -> int:
                k2_ms, k2_plain_ms, k2_bound),
         kernel("K3/K4 keccak_f", "keccak_f.cu",
                "era_zk_evm_tpu/ops/keccak.py:292, era_zk_evm_tpu/ops/"
-               "keccak.py:371", blocks["block-tiny"]["K3"], k3_err, k3_ms,
+               "keccak.py:371", blocks["block-tiny"]["K3"] + sq_k3, k3_err,
+               k3_ms,
                k3_plain_ms,
                k3_bound),
         kernel("K3S keccak256 ragged sponge", "keccak_sponge.cu keccak.cuh",

@@ -7,13 +7,17 @@ The port of `era_zk_evm_tpu/block.py`.  The whole block is one call:
 * transactions run over `config.batch` lanes with continuous refill
   (`models/scheduler.py`) on the port's engine, `fused_cycle.run_cycles`:
   the K1 kernel on the card, its plain torch version on the CPU;
-* every tx gets its ordered witness streams as packed record arrays (the
-  memory, log, decommit and precompile families), its net states (final
-  storage, net events, net L1 messages) and per-family keccak256
-  commitments, computed on the device (`commit_block`: the ragged sponge
-  of `witness/packed.py` on the card);
+* every tx gets its ordered witness streams (the memory, log, decommit and
+  precompile families), its net states (final storage, net events, net L1
+  messages) and per-family keccak256 commitments, computed on the device
+  (`commit_block`: the ragged sponge of `witness/packed.py` on the card);
 * the block gets per-family folds over the tx digests in tx order and the
   sorted-log grand products (per tx and for the block).
+
+`streams` picks the streams' form, as in the reference: "packed" (record
+arrays) or "objects" (the reference's query structs, `witness/queries.py`).
+The block is committed from the packed records either way; the objects form
+then reads each tx's records into structs (`packed.queries_from_packed`).
 
 Per-tx results do not depend on the batch or the scheduling policy;
 `tests/test_torch_block.py` holds them equal to the JAX pipeline's.
@@ -32,7 +36,7 @@ from .models.scheduler import TxResult, TxSpec, run_block_refill
 from .models.state import DEFAULT_DEVICE
 from .witness.packed import (
     RECORD_WORDS, block_grand_product, digest_bytes, fold_digest_rows,
-    packed_grand_products, stream_digests,
+    packed_grand_products, queries_from_packed, stream_digests,
 )
 
 __all__ = ["BlockResult", "TxResult", "TxSpec", "commit_block",
@@ -79,15 +83,14 @@ def execute_block(config: VmConfig, txs: list[TxSpec], engine: str = "auto",
     at chunk boundaries).  `tile` is accepted and ignored: it sets the TPU
     kernel's lanes per VMEM tile, and the Hopper kernel runs one thread per
     lane.  `adaptive_chunk` gets a `run_dyn_fn` built on the same
-    `run_cycles` (one kernel for every length, nothing recompiles).  Only
-    `streams="packed"` is ported.  Scheduling-policy knobs pass through to
-    `run_block_refill`."""
+    `run_cycles` (one kernel for every length, nothing recompiles).
+    `streams` is "packed" or "objects" (see the module docstring).
+    Scheduling-policy knobs pass through to `run_block_refill`."""
     del tile
     if engine not in ("auto", "fused", "jnp"):
         raise ValueError(f"unknown engine {engine!r}")
-    if streams != "packed":
-        raise NotImplementedError(
-            f"streams={streams!r}: only the packed streams are ported")
+    if streams not in ("packed", "objects"):
+        raise ValueError(f"unknown streams {streams!r}")
     check_slice(config)
 
     def run_fn(state, config, n):
@@ -109,6 +112,10 @@ def execute_block(config: VmConfig, txs: list[TxSpec], engine: str = "auto",
                                       **sched_kwargs)
     tx_commitments, commitments, sorted_products = commit_block(
         config, results, device)
+    if streams == "objects":
+        results = [dataclasses.replace(r, streams={
+            name: queries_from_packed(name, words)
+            for name, words in r.streams.items()}) for r in results]
     return BlockResult(txs=results, tx_commitments=tx_commitments,
                        commitments=commitments,
                        sorted_log_products=sorted_products,

@@ -1,11 +1,13 @@
-"""Final net states of a transaction from its host-read state rows.
+"""Final net states (`get_final_net_states`) from the device state.
 
-A copy of the host functions of `era_zk_evm_tpu/models/net_states.py`
-that the scheduler needs (`storage_map_of` :32, `event_entries_of` :44,
-`messages_from_join` :82, `messages_from_entries` :109), with the
-`EventMessage` record of `era_zk_evm_tpu/golden/queries.py` and the limb
-reader of `era_zk_evm_tpu/utils/u256_host.py`; numpy only.
-`tests/test_torch_scheduler.py` holds the copy equal to its source.
+The port of `era_zk_evm_tpu/models/net_states.py`, with the limb reader of
+`era_zk_evm_tpu/utils/u256_host.py`: the row readers the scheduler needs
+(`storage_map_of`, `event_entries_of`, `messages_from_join`,
+`messages_from_entries`, numpy only) and the whole-batch extraction
+(`device_storage_maps`, `device_event_entries`, `device_net_states`, and
+`net_states_by_tx` for the bootloader block shape, where one VM runs many
+transactions).  `tests/test_torch_scheduler.py` and
+`tests/test_torch_net_states.py` hold them equal to their sources.
 
 On the device the nets are materialised by construction: the final
 storage is the lane's KV table (journal rollbacks were replayed on panic),
@@ -16,23 +18,11 @@ from the drained log stream on the (unique) emission timestamp.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 
 from ..isa import params
-
-
-@dataclasses.dataclass(frozen=True)
-class EventMessage:
-    """Flattened event / L1 message (reference_impls/event_sink.rs:7-14)."""
-
-    shard_id: int
-    is_first: bool
-    tx_number_in_block: int
-    address: int
-    key: int
-    value: int
+from ..witness.queries import EventMessage
+from .state import reference_view
 
 
 def from_limbs(limbs) -> int:
@@ -100,3 +90,82 @@ def messages_from_entries(entries, log_stream) -> tuple[list, list]:
     `timestamp`, `address` and `shard_id` attributes."""
     return messages_from_join(
         entries, {q.timestamp: (q.address, q.shard_id) for q in log_stream})
+
+
+def _host(state, names: tuple) -> dict:
+    """The state's fields `names` on the host in the reference layout, u32
+    fields as uint32."""
+    ref = reference_view(state)
+    out = {}
+    for name in names:
+        a = getattr(ref, name).cpu().numpy()
+        out[name] = a if a.dtype == bool or name == "ev_count" \
+            else a.view(np.uint32)
+    return out
+
+
+def device_storage_maps(state, config) -> list[dict]:
+    """Per-lane final storage maps (net values: rollbacks already
+    replayed)."""
+    if config.storage_slots == 0:
+        return [dict() for _ in range(config.batch)]
+    h = _host(state, ("st_key", "st_val", "st_used"))
+    return [storage_map_of(h["st_key"], h["st_val"], h["st_used"], b)
+            for b in range(config.batch)]
+
+
+def device_event_entries(state) -> list[list[tuple]]:
+    """Per-lane uncancelled event-journal entries in emission order."""
+    h = _host(state, ("ev_meta", "ev_key", "ev_val", "ev_cancelled",
+                      "ev_count"))
+    return [event_entries_of(h["ev_meta"], h["ev_key"], h["ev_val"],
+                             h["ev_cancelled"], h["ev_count"], b)
+            for b in range(h["ev_count"].shape[0])]
+
+
+def net_states_by_tx(state, config, log_streams) -> list[dict]:
+    """Per-lane net outcomes grouped by `tx_number_in_block`: the
+    bootloader block shape's extraction (one VM runs a bootloader that
+    far-calls every transaction and advances the tx counter between them;
+    the counter is stamped onto every log query and event at emission).
+
+    Returns per lane {tx_number: {"events", "l1_messages",
+    "storage_writes"}}, storage_writes that tx's storage-write log queries
+    from the drained stream (`log_streams`, lane-indexed)."""
+    entries = device_event_entries(state)
+    out = []
+    for b in range(config.batch):
+        stream = log_streams[b] if b < len(log_streams) else []
+        ev, l1 = messages_from_entries(entries[b], stream)
+        lane: dict[int, dict] = {}
+
+        def bucket(tx):
+            return lane.setdefault(
+                tx, {"events": [], "l1_messages": [], "storage_writes": []})
+
+        for m in ev:
+            bucket(m.tx_number_in_block)["events"].append(m)
+        for m in l1:
+            bucket(m.tx_number_in_block)["l1_messages"].append(m)
+        for q in stream:
+            if q.aux_byte == params.STORAGE_AUX_BYTE and q.rw_flag:
+                bucket(q.tx_number_in_block)["storage_writes"].append(q)
+        out.append(lane)
+    return out
+
+
+def device_net_states(state, config, log_streams) -> list[dict]:
+    """Per-lane net outcomes, shaped like `get_final_net_states` minus the
+    histories (the drained queue streams are the ordered histories):
+    {"final_storage", "events", "l1_messages"}.  `log_streams` is the
+    lane-indexed drained log-query stream, which gives the events their
+    address and shard."""
+    storage = device_storage_maps(state, config)
+    entries = device_event_entries(state)
+    out = []
+    for b in range(config.batch):
+        ev, l1 = messages_from_entries(
+            entries[b], log_streams[b] if b < len(log_streams) else [])
+        out.append({"final_storage": storage[b],
+                    "events": ev, "l1_messages": l1})
+    return out

@@ -25,10 +25,11 @@ The round protocol keeps the host off the device's critical path:
   5. queue-capacity pressure forces a drain before a launch that would not
      fit, from a host-side cycle count.
 
-Only the packed stream form (`collect="packed"`) is ported.  The default
-of `collect` is the reference's, `"objects"`, which raises until that form
-is ported (ROADMAP Queue 1 item 3), so a call copied from the reference
-never gets packed arrays in its place.
+`collect` picks the streams' form, as in the reference: "packed" (uint32
+record arrays) or "objects" (the default: the reference-shaped query
+structs, `witness/queries.py`).  Both run the same drains; the objects form
+converts each tx's records once, at the end (`packed.queries_from_packed`,
+the reader of the reference's object drain).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from ..isa import params
 from ..isa.assembler import assemble_to_code_words
 from ..witness.packed import (
     RECORD_WORDS, HostCopy, drain_witness_queues_packed_async,
-    log_join_columns,
+    log_join_columns, queries_from_packed,
 )
 from .net_states import event_entries_of, messages_from_join, storage_map_of
 from .spill import QUEUE_FIELDS
@@ -82,7 +83,9 @@ class TxResult:
     status: str                             # "ok" | "error"
     cycles: int                             # cycles this tx executed
     registers: np.ndarray                   # u32[15, 8] final register file
-    streams: dict                           # {family: uint32[n, W] records}
+    #: {family: records}: query structs (collect="objects") or
+    #: uint32[n, W] record arrays (collect="packed")
+    streams: dict
     #: net outcomes at tx finish (get_final_net_states shape; None when the
     #: config has neither storage_slots nor event_slots)
     net_states: dict | None = None
@@ -247,22 +250,16 @@ def run_block_refill(config: VmConfig, txs: list[TxSpec], run_cycles_fn,
     {family: fraction} dict) and `adaptive_chunk` with `run_dyn_fn` and
     `min_chunk` are pure policies: the `TxResult`s do not depend on them.
     `run_dyn_fn(state, config, n)` runs any n <= chunk without a new
-    compile (`fused_cycle.run_cycles`: one kernel for every length).  Only
-    `collect="packed"` is ported: TxResult.streams holds uint32 record
-    arrays per family (`witness/packed.py`).  The default, the reference's
-    `"objects"`, raises NotImplementedError until ROADMAP Queue 1 item 3
-    ports the query structs.
+    compile (`fused_cycle.run_cycles`: one kernel for every length).
+    `collect` is "objects" (TxResult.streams holds per-family lists of
+    query structs, `witness/queries.py`) or "packed" (uint32 record arrays
+    per family, `witness/packed.py`); any other name raises ValueError.
 
     Returns (results, stats); stats["lane_cycles"] counts every launched
     lane-cycle, so utilization = useful_cycles / lane_cycles, and
     stats["profile"] splits the host's time by step."""
-    if collect == "objects":
-        raise NotImplementedError(
-            'collect="objects" (the reference\'s default) is not ported yet '
-            '(ROADMAP Queue 1 item 3); pass collect="packed"')
-    if collect != "packed":
-        raise NotImplementedError(
-            f"collect={collect!r}: only the packed streams are ported")
+    if collect not in ("objects", "packed"):
+        raise ValueError(f"unknown collect {collect!r}")
     B = config.batch
     if fresh_builder is None:
         def fresh_builder(sp):
@@ -528,6 +525,9 @@ def run_block_refill(config: VmConfig, txs: list[TxSpec], run_cycles_fn,
                        (storage_map_of(g["st_key"], g["st_val"],
                                        g["st_used"], i) if want_st else {}),
                        "events": ev, "l1_messages": l1}
+            if collect == "objects":
+                tx_streams = {name: queries_from_packed(name, words)
+                              for name, words in tx_streams.items()}
             results[tx_i] = TxResult(
                 tx=tx_i, status="error" if (status[lane] & 2) else "ok",
                 cycles=int(mono[lane]), registers=g["regs"][i],

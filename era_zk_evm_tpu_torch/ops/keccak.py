@@ -17,6 +17,9 @@ streams concatenated in one buffer: on a CUDA tensor one launch of the
 sponge kernel (`csrc/keccak_sponge.cu`, K3 as the witness commitments drive
 it), counted in `K3S_LAUNCHES`; on a CPU tensor its plain version
 `keccak256_ragged_plain`, a loop over the rate blocks.
+
+`keccak256(bytes)` is the host reference over one byte string, on Python
+ints (`keccak_f1600_ints`, a copy of the golden permutation).
 """
 
 from __future__ import annotations
@@ -62,6 +65,10 @@ for _x in range(5):
     for _y in range(5):
         _PI_SRC[_y + 5 * ((2 * _x + 3 * _y) % 5)] = _x + 5 * _y
 _ROT_SRC = [KECCAK_ROTATIONS[s] for s in _PI_SRC]
+#: chi's operands of lane i: (i, i + 1, i + 2 within its row)
+_CHI = [(i, i - i % 5 + (i + 1) % 5, i - i % 5 + (i + 2) % 5)
+        for i in range(25)]
+_U64 = (1 << 64) - 1
 
 
 def _rotl(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -273,18 +280,35 @@ def keccak256_ragged(words: torch.Tensor, offsets: torch.Tensor,
     return digests
 
 
+def keccak_f1600_ints(state: list[int]) -> list[int]:
+    """One permutation of 25 u64 lanes held as Python ints (flat x + 5y),
+    a copy of era_zk_evm_tpu/golden/precompiles.py keccak_f1600: the host
+    reference's permutation, where a torch call a step costs more than the
+    step."""
+    a = list(state)
+    for rc in KECCAK_RC:
+        c = [a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20]
+             for x in range(5)]
+        d = [c[x - 1] ^ (((c[(x + 1) % 5] << 1) | (c[(x + 1) % 5] >> 63))
+                         & _U64) for x in range(5)]
+        a = [v ^ d[i % 5] for i, v in enumerate(a)]
+        b = [((a[s] << r) | (a[s] >> (64 - r))) & _U64
+             for s, r in zip(_PI_SRC, _ROT_SRC)]
+        a = [b[i] ^ (~b[j] & b[k]) for i, j, k in _CHI]
+        a[0] ^= rc
+    return a
+
+
 def keccak256(data: bytes) -> bytes:
     """keccak256 of a byte string (the 0x01 padding of the original keccak,
-    not SHA3), on the CPU with the plain permutation."""
+    not SHA3), on the host with `keccak_f1600_ints`."""
     rate = 136
     padded = bytearray(data) + b"\x01" + bytes(-(len(data) + 1) % rate)
     padded[-1] |= 0x80
-    lanes = torch.zeros((25, 1), dtype=torch.int64)
+    lanes = [0] * 25
     for start in range(0, len(padded), rate):
-        block = padded[start:start + rate]
-        lanes[:17, 0] ^= torch.tensor(
-            [int.from_bytes(block[8 * i:8 * i + 8], "little", signed=True)
-             for i in range(17)], dtype=torch.int64)
-        lanes = keccak_f1600_lanes(lanes)
-    return b"".join(int(x).to_bytes(8, "little", signed=True)
-                    for x in lanes[:4, 0])
+        for i in range(17):
+            lanes[i] ^= int.from_bytes(
+                padded[start + 8 * i:start + 8 * i + 8], "little")
+        lanes = keccak_f1600_ints(lanes)
+    return b"".join(x.to_bytes(8, "little") for x in lanes[:4])

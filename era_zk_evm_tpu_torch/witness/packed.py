@@ -37,14 +37,10 @@ from ..models.state import DEFAULT_DEVICE, BatchedVmState, reference_view
 from ..ops.goldilocks import GOLDILOCKS_P, gl_reduce64
 from ..ops.keccak import RATE_WORDS, keccak256_ragged, keccak_f1600_
 from ..ops.u256 import narrow, wide
+from .queries import DecommittmentQuery, LogQuery, MemoryQuery, MemoryType
 
 #: record width in u32 words per family (the pinned serializations)
 RECORD_WORDS = {"memory": 16, "log": 32, "decommit": 16, "precompile": 16}
-
-#: the pinned test and bench gamma, a copy of
-#: era_zk_evm_tpu/witness/sorted_queue.py DEFAULT_GAMMA (a real prover
-#: derives gamma by Fiat-Shamir)
-DEFAULT_GAMMA = 0xA5A55A5A_DEADBEEF % GOLDILOCKS_P
 
 
 def _bswap(x: torch.Tensor) -> torch.Tensor:
@@ -427,8 +423,9 @@ def grand_products_from_fingerprints(fp: np.ndarray, counts: list[int],
                                      gamma: int | None = None) -> list[int]:
     """Per-stream prod(gamma + fingerprint) mod p, the streams' records
     being consecutive runs of `counts` entries of `fp`; Python ints on the
-    host."""
+    host; `gamma` None is `sorted_queue.DEFAULT_GAMMA`."""
     if gamma is None:
+        from .sorted_queue import DEFAULT_GAMMA    # it imports this module
         gamma = DEFAULT_GAMMA
     out = []
     pos = 0
@@ -476,3 +473,56 @@ def log_join_columns(words: np.ndarray):
         address = address + (bsv(words[:, 3 + i]).astype(object)
                              << (32 * (4 - i)))
     return ts, address, shard
+
+
+# ---------------------------------------------------------------------------
+# Query structs from packed records
+# ---------------------------------------------------------------------------
+
+def _bs(x) -> int:
+    """A little-endian u32 record word -> the big-endian field it holds."""
+    return int.from_bytes(int(x).to_bytes(4, "little"), "big")
+
+
+def queries_from_packed(family: str, words: np.ndarray) -> list:
+    """Packed records (uint32[n, W]) -> the reference-shaped query objects,
+    equal to `era_zk_evm_tpu.witness.packed.queries_from_packed`; the
+    precompile family reads as the memory family."""
+    out = []
+    if family in ("memory", "precompile"):
+        for r in words.tolist():
+            w1, w2, w3 = r[1], r[2], r[3]
+            out.append(MemoryQuery(
+                timestamp=_bs(r[0]), memory_type=MemoryType(w1 & 0xFF),
+                page=(((w1 >> 8) & 0xFF) << 24) | (((w1 >> 16) & 0xFF) << 16)
+                | (((w1 >> 24) & 0xFF) << 8) | (w2 & 0xFF),
+                index=(((w2 >> 8) & 0xFF) << 24) | (((w2 >> 16) & 0xFF) << 16)
+                | (((w2 >> 24) & 0xFF) << 8) | (w3 & 0xFF),
+                value=sum(_bs(r[8 + i]) << (32 * (7 - i)) for i in range(8)),
+                rw_flag=bool((w3 >> 8) & 1),
+                value_is_pointer=bool((w3 >> 9) & 1)))
+    elif family == "log":
+        for r in words.tolist():
+            w1 = r[1]
+            out.append(LogQuery(
+                timestamp=_bs(r[0]),
+                tx_number_in_block=((w1 >> 24) << 8) | (r[2] & 0xFF),
+                aux_byte=w1 & 0xFF, shard_id=(w1 >> 8) & 0xFF,
+                address=sum(_bs(r[3 + i]) << (32 * (4 - i))
+                            for i in range(5)),
+                key=sum(_bs(r[8 + i]) << (32 * (7 - i)) for i in range(8)),
+                read_value=sum(_bs(r[16 + i]) << (32 * (7 - i))
+                               for i in range(8)),
+                written_value=sum(_bs(r[24 + i]) << (32 * (7 - i))
+                                  for i in range(8)),
+                rw_flag=bool((w1 >> 16) & 1), rollback=False,
+                is_service=bool((w1 >> 18) & 1)))
+    elif family == "decommit":
+        for r in words.tolist():
+            out.append(DecommittmentQuery(
+                hash=sum(_bs(r[i]) << (32 * (7 - i)) for i in range(8)),
+                timestamp=_bs(r[8]), memory_page=_bs(r[9]),
+                decommitted_length=_bs(r[10]), is_fresh=bool(r[11] & 1)))
+    else:
+        raise ValueError(f"unknown queue family {family!r}")
+    return out

@@ -3,11 +3,14 @@
 commitment and both grand products, bit for bit, on the six transactions
 of `tests/test_block.py` (storage and events, a rolled-back frame, a far
 call, arithmetic) at `test_block._config(2)`.  The port runs on CPU tensors.
-The precompile block is in `tests/test_torch_precompile.py`, which shares
-its config."""
+The objects form (`streams="objects"`) is held against the JAX pipeline's
+objects block (the same jnp cycle program) and against the port's own
+packed block.  The precompile block is in `tests/test_torch_precompile.py`,
+which shares its config."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 
 import test_block
@@ -17,8 +20,13 @@ from era_zk_evm_tpu_torch import block
 from era_zk_evm_tpu_torch.config import from_jax_config
 from era_zk_evm_tpu_torch.isa.assembler import assemble_to_code_words
 from era_zk_evm_tpu_torch.testing import block_programs as bp
+from era_zk_evm_tpu_torch.witness.packed import (
+    RECORD_WORDS, queries_from_packed,
+)
 
-from test_torch_scheduler import assert_same_results
+from test_torch_packed import as_tuples
+from test_torch_scheduler import assert_same_object_results, \
+    assert_same_results
 from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
 
 
@@ -60,9 +68,37 @@ def test_execute_block_matches_jax(reference, knobs):
 
 
 def test_streams_other_than_packed_raise():
-    with pytest.raises(NotImplementedError):
+    # "packed" and "objects" are the two forms; any other name raises
+    with pytest.raises(ValueError, match="unknown streams"):
         block.execute_block(from_jax_config(test_block._config(2)),
-                            bp.block_txs(), streams="objects", device="cpu")
+                            bp.block_txs(), streams="dicts", device="cpu")
+
+
+def test_objects_block_matches_jax_and_the_packed_block(reference):
+    txs = [JTxSpec(**dataclasses.asdict(t)) for t in bp.block_txs()]
+    ref = jax_execute_block(test_block._config(2), txs, engine="jnp",
+                            chunk=test_block.CHUNK, streams="objects")
+    config = from_jax_config(test_block._config(2))
+    got = block.execute_block(config, bp.block_txs(), chunk=test_block.CHUNK,
+                              streams="objects", device="cpu")
+    assert got.all_ok
+    assert_same_object_results(ref.txs, got.txs)
+    for name in ("tx_commitments", "commitments", "sorted_log_products",
+                 "block_log_product"):
+        assert getattr(ref, name) == getattr(got, name), name
+    # the objects form commits to what the packed form does (the JAX
+    # package's packed block is `reference`), and its structs are the
+    # packed records read back
+    assert got.commitments == reference.commitments
+    assert got.tx_commitments == reference.tx_commitments
+    assert got.sorted_log_products == reference.sorted_log_products
+    for r_obj, r_pk in zip(got.txs, reference.txs):
+        assert r_obj.streams, r_obj.tx
+        for name, stream in r_obj.streams.items():
+            words = r_pk.streams.get(name, np.zeros((0, RECORD_WORDS[name]),
+                                                    np.uint32))
+            assert as_tuples(queries_from_packed(name, words)) \
+                == as_tuples(stream), (r_obj.tx, name)
 
 
 def test_block_program_copies_equal_their_sources():

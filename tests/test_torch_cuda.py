@@ -1,7 +1,8 @@
 """K1 (all four instances), K2, K3, the ragged sponge and the probes P1-P7
-against their plain versions on a CUDA card, and execute_block on the card
+against their plain versions on a CUDA card, execute_block on the card
 against the same call on the CPU (the keccak256 / sha256 mix and the
-signed-transfer mix).
+signed-transfer mix), its objects form against its packed form on the
+card, and the sorted queue and device fold on the card against the CPU.
 
 Imports no jax, so it also runs on the GPU machine, where the suite's
 conftest (which configures jax) cannot load:
@@ -20,8 +21,9 @@ from era_zk_evm_tpu_torch.ops import keccak
 from era_zk_evm_tpu_torch import block
 from era_zk_evm_tpu_torch.tools import bisect_fold, probe_keccak, probe_uniform
 from era_zk_evm_tpu_torch.testing import (
-    block_programs, ec_programs, log_programs, programs,
+    block_programs, ec_programs, log_programs, programs, witness_programs,
 )
+from era_zk_evm_tpu_torch.witness import device_fold, packed, sorted_queue
 from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb_rows
 
 
@@ -350,6 +352,58 @@ def test_execute_block_ecrecover_on_the_card_matches_the_cpu(cuda):
                                   "precompile": 0.5})
     _block_on_card_and_cpu(cuda, _ec_config(8), txs, kw,
                            "K1_ECRECOVER_LAUNCHES")
+
+
+@pytest.mark.cuda
+def test_objects_block_on_the_card_matches_the_packed_block(cuda):
+    txs = [block.TxSpec(program=programs.assemble(src), ergs=1 << 22,
+                        entry_address=entry, cost_hint=n)
+           for entry, src, n, _ in block_programs.precompile_mix(40, seed=5)]
+    config = _precompile_config(8)
+    obj = block.execute_block(config, txs, chunk=32, device=cuda,
+                              streams="objects")
+    pk = block.execute_block(config, txs, chunk=32, device=cuda)
+    assert obj.all_ok and pk.all_ok
+    for name in ("tx_commitments", "commitments", "sorted_log_products",
+                 "block_log_product"):
+        assert getattr(obj, name) == getattr(pk, name), name
+    for a, b in zip(obj.txs, pk.txs):
+        assert (a.cycles, a.net_states) == (b.cycles, b.net_states)
+        assert (a.registers == b.registers).all()
+        assert sorted(a.streams) == sorted(b.streams)
+        for name, stream in a.streams.items():
+            assert packed.queries_from_packed(name, b.streams[name]) \
+                == stream, (a.tx, name)
+
+
+@pytest.mark.cuda
+def test_sorted_queue_on_the_card_matches_the_cpu(cuda):
+    config = witness_programs.sorted_queue_config(8)
+    words = [programs.assemble(p) for p in (witness_programs.PROG,
+                                            witness_programs.PROG2)] * 4
+    st = pstate.make_entry_state(config, words, ergs=1 << 20, device="cpu")
+    fused_cycle.run_cycles(st, config, 32)
+    card = pstate.state_from_numpy(pstate.state_to_numpy(st), cuda)
+
+    def run(s):
+        (lo, hi), valid = sorted_queue.log_queue_fingerprints(s)
+        lanes = sorted_queue.grand_product(lo, hi, valid)
+        return (lo, hi, valid, *lanes,
+                *sorted_queue.block_grand_product(*lanes),
+                *sorted_queue.sort_log_queue(s))
+
+    before = keccak.K3_LAUNCHES
+    got = run(card)
+    assert keccak.K3_LAUNCHES == before + 1
+    for a, b in zip(got, run(st)):
+        assert torch.equal(a.cpu(), b)
+    rows = device_fold.finalize_rolling_device(
+        _random_i32(9, (33, 25, 2)), _random_i32(10, (33,)))
+    before = keccak.K3S_LAUNCHES
+    digest = device_fold.keccak256_device_stream(rows.to(cuda))
+    assert keccak.K3S_LAUNCHES == before + 1
+    assert torch.equal(digest.cpu(),
+                       device_fold.keccak256_device_stream(rows))
 
 
 def _random_i32(seed, shape):

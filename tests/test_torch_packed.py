@@ -3,25 +3,35 @@ package's: the record serializers, the dense and compacted drains, the
 per-stream keccak256 digests, the block folds and the sorted-log grand
 products, all bit for bit; then the log family's witness path end to end, a
 tiny-mix wave run to its end with compacted drains (`testing/wave.py`).
+The objects form too: the query structs (`witness/queries.py`, a copy of
+the golden module), the `device_*_streams` readers, the round counts, the
+host commitments and the object drain (`models/spill.py`) against the JAX
+package's on the same state, and `queries_from_packed` of the packed
+drain against the object drain.
 
 The port side runs on the CPU, so its K3 wrapper takes the plain
 permutation."""
 
 import dataclasses
+import enum
 
 import jax
 import numpy as np
 import pytest
 
+from era_zk_evm_tpu.golden import queries as jqueries
 from era_zk_evm_tpu.isa.assembler import assemble_to_code_words
 from era_zk_evm_tpu.models import VmConfig, make_entry_state, run_cycles
+from era_zk_evm_tpu.models import spill as jspill
 from era_zk_evm_tpu.ops.goldilocks import GOLDILOCKS_P
+from era_zk_evm_tpu.witness import commitment as jcommitment
 from era_zk_evm_tpu.witness import packed as jpacked
 from era_zk_evm_tpu_torch.config import from_jax_config
+from era_zk_evm_tpu_torch.models import spill
 from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.testing import programs
 from era_zk_evm_tpu_torch.testing.wave import run_wave, wave_commitments
-from era_zk_evm_tpu_torch.witness import packed
+from era_zk_evm_tpu_torch.witness import commitment, packed, queries
 
 from test_packed import _rich_state
 from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
@@ -30,6 +40,22 @@ FAMILIES = ("memory", "log", "decommit", "precompile")
 #: bench.py bench_block's drain budget fractions
 FRACS = {"memory": 0.125, "log": 0.5}
 SEGMENT = 256
+
+
+def as_tuples(stream) -> list[tuple]:
+    """Query structs of either package as comparable tuples: the class
+    name, then the fields, enums as ints (a frozen dataclass compares
+    equal to its own class only)."""
+    return [(type(q).__name__,) + tuple(
+        int(v) if isinstance(v, enum.Enum) else v
+        for v in dataclasses.astuple(q)) for q in stream]
+
+
+def assert_same_streams(ref: list, got: list, what: str = "") -> None:
+    """Per-lane (or per-tx) query-struct streams equal as tuples."""
+    assert len(ref) == len(got), what
+    for i, (a, b) in enumerate(zip(ref, got)):
+        assert as_tuples(a) == as_tuples(b), (what, i)
 
 
 def _jax_numpy(state):
@@ -165,3 +191,56 @@ def test_wave_matches_jax():
     for p in products:
         block = block * p % GOLDILOCKS_P
     assert out["block_product"] == block
+
+
+def test_query_structs_equal_their_source():
+    for name in ("MemoryType", "MemoryQuery", "LogQuery",
+                 "DecommittmentQuery", "RefundType", "EventMessage"):
+        mine, theirs = getattr(queries, name), getattr(jqueries, name)
+        if issubclass(theirs, enum.Enum):
+            assert [(m.name, m.value) for m in mine] \
+                == [(m.name, m.value) for m in theirs], name
+        else:
+            assert [(f.name, f.type) for f in dataclasses.fields(mine)] \
+                == [(f.name, f.type) for f in dataclasses.fields(theirs)], name
+    assert queries.RefundType.REPEATED_WRITE.pubdata_refund() == 0
+    q = queries.LogQuery(*range(11))
+    assert q.with_(key=70).key == 70 and q.key == 5
+
+
+_READERS = ("device_queue_streams", "device_log_streams",
+            "device_decommit_streams", "device_precompile_streams")
+
+
+def test_device_streams_match_jax(rich):
+    state, config, port, pc = rich
+    for name in _READERS:
+        ref = getattr(jcommitment, name)(state)
+        got = getattr(commitment, name)(port)
+        assert any(ref), f"{name} not exercised"
+        assert_same_streams(ref, got, name)
+    rounds = commitment.device_precompile_rounds(port, pc)
+    assert any(rounds)
+    assert rounds == jcommitment.device_precompile_rounds(state, config)
+    assert commitment.commit_all_device_queues(port) \
+        == jcommitment.commit_all_device_queues(state)
+    assert commitment.commit_device_queues(port) \
+        == jcommitment.commit_device_queues(state)
+
+
+def test_object_drain_matches_jax_and_the_packed_drain(rich):
+    state, config, port, pc = rich
+    _, ref = jspill.drain_witness_queues(state, config)
+    st, got = spill.drain_witness_queues(pstate.clone_state(port), pc)
+    assert not st.lq_count.any() and not st.wq_meta.any()     # rewound
+    assert sorted(got) == sorted(ref)
+    for name in ref:
+        assert_same_streams(ref[name], got[name], name)
+    _, dense = packed.drain_witness_queues_packed(pstate.clone_state(port),
+                                                  pc)
+    for name, rec in packed.fetch_dense_records(dense).items():
+        lanes = packed.split_records_by_lane(*rec)
+        assert [packed.queries_from_packed(name, w) for w in lanes] \
+            == got[name], name
+    with pytest.raises(ValueError, match="family"):
+        packed.queries_from_packed("storage", lanes[0])

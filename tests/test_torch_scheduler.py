@@ -95,6 +95,32 @@ def _messages(msgs):
     return [dataclasses.astuple(m) for m in msgs]
 
 
+def _assert_same_nets(a, b):
+    if a.net_states is None:
+        assert b.net_states is None
+        return
+    assert a.net_states["final_storage"] == b.net_states["final_storage"]
+    for key in ("events", "l1_messages"):
+        assert _messages(a.net_states[key]) \
+            == _messages(b.net_states[key]), (a.tx, key)
+
+
+def assert_same_object_results(ref_results, got_results):
+    """TxResults of the objects form: streams of query structs compared as
+    tuples (the classes differ across the packages)."""
+    from test_torch_packed import as_tuples
+
+    assert len(ref_results) == len(got_results)
+    for a, b in zip(ref_results, got_results):
+        assert (a.tx, a.status, a.cycles) == (b.tx, b.status, b.cycles)
+        assert np.array_equal(a.registers, b.registers), a.tx
+        assert sorted(a.streams) == sorted(b.streams), a.tx
+        for name in a.streams:
+            assert as_tuples(a.streams[name]) == as_tuples(b.streams[name]), \
+                (a.tx, name)
+        _assert_same_nets(a, b)
+
+
 def assert_same_results(ref_results, got_results):
     assert len(ref_results) == len(got_results)
     for a, b in zip(ref_results, got_results):
@@ -105,13 +131,7 @@ def assert_same_results(ref_results, got_results):
         for name in a.streams:
             assert np.array_equal(a.streams[name], b.streams[name]), \
                 (a.tx, name)
-        if a.net_states is None:
-            assert b.net_states is None
-            continue
-        assert a.net_states["final_storage"] == b.net_states["final_storage"]
-        for key in ("events", "l1_messages"):
-            assert _messages(a.net_states[key]) \
-                == _messages(b.net_states[key]), (a.tx, key)
+        _assert_same_nets(a, b)
 
 
 @pytest.mark.parametrize("refill", [True, False])
@@ -200,24 +220,30 @@ def test_txspec_ergs_out_of_range_rejected():
     with pytest.raises(ValueError, match="TxSpec.ergs"):
         scheduler.run_block_refill(config, [bad], _port_run, chunk=16,
                                    collect="packed", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown collect"):
         scheduler.run_block_refill(config, [], _port_run, chunk=16,
-                                   collect="objects", device="cpu")
+                                   collect="arrays", device="cpu")
 
 
 def test_default_collect_is_the_references_and_raises():
-    """A call without `collect` takes the reference's default, "objects",
-    which is not ported: it raises instead of returning packed streams."""
+    """A call without `collect` takes the reference's default, "objects":
+    the query structs, equal to the JAX scheduler's default run on this
+    file's config (its one compiled chunk)."""
     import inspect
 
     default = inspect.signature(scheduler.run_block_refill) \
         .parameters["collect"].default
     assert default == inspect.signature(jax_refill) \
         .parameters["collect"].default == "objects"
-    config = from_jax_config(dataclasses.replace(_config(), batch=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        scheduler.run_block_refill(config, _txs([1, 2]), _port_run,
-                                   chunk=16, device="cpu")
+    txs = _txs(bp.SCHEDULER_LENGTHS)
+    ref, rs = jax_refill(_config(), [JTxSpec(**dataclasses.asdict(t))
+                                     for t in txs], run_cycles, CHUNK)
+    got, gs = scheduler.run_block_refill(from_jax_config(_config()), txs,
+                                         _port_run, CHUNK, device="cpu")
+    assert all(r.status == "ok" and r.streams["memory"] for r in got)
+    assert_same_object_results(ref, got)
+    for key in ("rounds", "lane_cycles", "useful_cycles"):
+        assert rs[key] == gs[key], key
 
 
 def test_merge_lanes_replaces_only_the_given_lanes():

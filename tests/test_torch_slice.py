@@ -72,8 +72,9 @@ def test_workload_copy_equals_bench():
 
 def test_port_imports_no_jax():
     # the CPU paths of the slices, a precompile block through execute_block
-    # and the tool probes included, then sys.modules: no jax and no module
-    # of the JAX package
+    # in both stream forms, the sorted queue, the bootloader block's net
+    # states and the tool probes included, then sys.modules: no jax and no
+    # module of the JAX package
     code = (
         "import sys, torch\n"
         "from era_zk_evm_tpu_torch.config import VmConfig\n"
@@ -124,6 +125,26 @@ def test_port_imports_no_jax():
         "r = block.execute_block(cfg, txs, chunk=16, device='cpu')\n"
         "assert r.all_ok and sorted(r.commitments) == [\n"
         "    'log', 'memory', 'precompile']\n"
+        "o = block.execute_block(cfg, txs, chunk=16, device='cpu',\n"
+        "                        streams='objects')\n"
+        "assert o.commitments == r.commitments and o.all_ok\n"
+        "from era_zk_evm_tpu_torch.models import net_states\n"
+        "from era_zk_evm_tpu_torch.testing import witness_programs as wp\n"
+        "from era_zk_evm_tpu_torch.witness import commitment, sorted_queue\n"
+        "cfg = wp.sorted_queue_config(2)\n"
+        "st = state.make_entry_state(cfg, [assemble(wp.PROG)] * 2,\n"
+        "                            ergs=1 << 20, device='cpu')\n"
+        "fused_cycle.run_cycles(st, cfg, 32)\n"
+        "(lo, hi), valid = sorted_queue.log_queue_fingerprints(st)\n"
+        "sorted_queue.block_grand_product(\n"
+        "    *sorted_queue.grand_product(lo, hi, valid))\n"
+        "sorted_queue.sort_log_queue(st)\n"
+        "cfg = wp.bootloader_config(1)\n"
+        "st = wp.bootloader_state(cfg, 'cpu')\n"
+        "fused_cycle.run_cycles(st, cfg, wp.MAX_CYCLES)\n"
+        "per_tx = net_states.net_states_by_tx(\n"
+        "    st, cfg, commitment.device_log_streams(st))[0]\n"
+        "assert sorted(per_tx) == [0, 1, 2, 3]\n"
         "from era_zk_evm_tpu_torch.tools import (\n"
         "    bisect_fold, probe_keccak, probe_uniform)\n"
         "probe_keccak.main(['--cpu', '--batch', '256', '--iters', '1',\n"
