@@ -110,13 +110,31 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 B = 4096, 160 cycles on K1: every lane's per-tx buckets
                 hold their markers, the first 64 lanes equal to a plain CPU
                 run;
+  segmented-block  the segmented executor (models/executor.py) on K1 at
+                B = 4096: tests/test_executor.py's program with per-lane
+                depth, rounds, keys and callee order on tight geometry
+                (max_depth 31, 8 storage slots, 3 code pages, 4 heap
+                frames, 14-cycle segments), so that every spill protocol
+                fires, equal to a one-shot K1 run on big geometry on every
+                lane (streams, registers, merged storage); the first 32
+                lanes of the one-shot run against the plain engine on the
+                card; counts of what moved, the host split by step, K1's
+                device time and the device's idle share;
+  checkpoint    the segmented state saved halfway, loaded onto the card
+                and run to the end: equal to the uninterrupted run; save
+                and load seconds and the file size;
+  debug-trace   trace_cycles on 4 lanes of bench_farcall's program at
+                B = 4096, 64 cycles, one K1 launch a cycle, equal to the
+                plain step's trace on the CPU; cycles/s;
   K3-sponge     the ragged keccak256 sponge against its plain version on
                 the card, bit for bit: the edge lengths of a rate block and
                 a mixed batch, a T = 1 fold of 8192 digests, block-
-                realistic's memory-family streams; times beside the bound
-                and the serial floor (the longest stream's blocks at one
-                permutation's single-thread latency); the log fingerprints
-                through K3 and through the sponge, timed and equal;
+                realistic's memory-family streams cut to their first 2048
+                blocks; times beside the bound and the serial floor (the
+                longest stream's blocks at one permutation's single-thread
+                latency), and the kernel's time on the whole streams; the
+                log fingerprints through K3 and through the sponge, timed
+                and equal;
   launches      K1 (each instance), K2, K3 and the sponge launched on their
                 main paths; block-tiny's sponge and K3 launches at most two
                 a queue family and one; K3's on block-tiny and the sorted
@@ -128,11 +146,14 @@ record.  The script imports no JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -143,8 +164,13 @@ from era_zk_evm_tpu_torch.block import TxSpec, commit_block, execute_block
 from era_zk_evm_tpu_torch.config import VmConfig, precompile_queue_slots
 from era_zk_evm_tpu_torch.isa import params
 from era_zk_evm_tpu_torch.isa.abi import code_hash_for_bytecode
-from era_zk_evm_tpu_torch.models import batched_vm, fused_cycle, net_states
-from era_zk_evm_tpu_torch.models.spill import rewind_queues
+from era_zk_evm_tpu_torch.models import (
+    batched_vm, executor, fused_cycle, net_states,
+)
+from era_zk_evm_tpu_torch.models.checkpoint import (
+    load_checkpoint, save_checkpoint,
+)
+from era_zk_evm_tpu_torch.models.spill import extend_streams, rewind_queues
 from era_zk_evm_tpu_torch.models.state import (
     FIELD_NAMES, LANE_AXIS, clone_state, make_entry_state, populate_code_bank,
     populate_storage, reference_view,
@@ -153,9 +179,10 @@ from era_zk_evm_tpu_torch.ops import keccak, secp256k1
 from era_zk_evm_tpu_torch.ops.goldilocks import gl_reduce64
 from era_zk_evm_tpu_torch.ops.u256 import wide
 from era_zk_evm_tpu_torch.testing import (
-    block_programs, ec_programs, fuzz_programs, log_programs,
+    block_programs, ec_programs, fuzz_programs, log_programs, spill_programs,
     witness_programs,
 )
+from era_zk_evm_tpu_torch.testing.debug_trace import trace_cycles
 from era_zk_evm_tpu_torch.testing.programs import (
     FAMILY_PROGRAMS, FARCALL_CALLEE_ADDRESS, STORAGE_WORKLOAD, WORKLOAD,
     assemble, farcall_callee, farcall_caller, tiny_mix_program,
@@ -165,7 +192,10 @@ from era_zk_evm_tpu_torch.tools import (
     bisect_fold, k1_times, probe_keccak, probe_uniform,
 )
 from era_zk_evm_tpu_torch.witness import packed, sorted_queue
-from era_zk_evm_tpu_torch.witness.commitment import device_log_streams
+from era_zk_evm_tpu_torch.witness.commitment import (
+    device_log_streams, serialize_decommittment, serialize_log_query,
+    serialize_memory_query,
+)
 from era_zk_evm_tpu_torch.witness.rolling import (
     compact_slot_rows, finalize_rolling, rolling_absorb_rows,
 )
@@ -219,9 +249,20 @@ SECTOR = 32                                   # bytes of one DRAM sector
 SPONGE_EDGE, SPONGE_MIXED, FOLD_DIGESTS = (0, 1, 33, 34, 35, 67, 68), 64, 8192
 #: K3 chained at N = 1: one permutation's latency on one thread
 SERIAL_ITERS = 20000
+#: the sponge's plain version takes one step a rate block of the longest
+#: stream (block-realistic's memory family: 16954 blocks, 150-220 s on the
+#: card); it checks each stream's first SPONGE_PLAIN_BLOCKS blocks, so that
+#: the script stays under 800 s, and the kernel is also timed on the whole
+#: streams
+SPONGE_PLAIN_BLOCKS = 2048
 #: block-objects: the tiny mix's txs; sorted-queue: lanes held against the
 #: host references; net-states-by-tx: lanes held against a CPU run
 OBJECTS_TXS, SQ_HOST_LANES, NET_CPU_LANES = 2 * 4096, 256, 64
+#: segmented-block: the segment (max_depth 31: segment <= (31 - 3) // 2),
+#: the one-shot run's cycles (more than the slowest lane needs), the lanes
+#: held against the plain engine; debug-trace: lanes and cycles traced
+SEG_LEN, SEG_BOUND, SEG_PLAIN_LANES = 14, 424, 32
+TRACE_LANES, TRACE_CYCLES = (0, 1, B_BLOCK // 2, B_BLOCK - 1), 64
 #: the probes' shapes: the JAX tools' defaults (tools/probe_keccak.py main,
 #: probe_vpu_rate, probe_round_rate; tools/probe_mosaic_uniform.py;
 #: tools/bisect_fold.py), and card-filling sizes where the tool's is a
@@ -911,6 +952,357 @@ def net_states_phase(dev) -> int:
     return k1
 
 
+#: the segmented block's stream families and their struct serializers
+SERIALIZERS = {"memory": serialize_memory_query, "log": serialize_log_query,
+               "decommit": serialize_decommittment}
+
+
+def segment_config(batch: int, big: bool = False) -> VmConfig:
+    """The segmented block's geometry (bench_farcall's stack): tight, with
+    max_depth 31, 8 storage slots, 3 code pages and 4 heap frames, a memory
+    queue of 8 rows a cycle and log and decommit queues at
+    tests/test_executor.py's 16 rows for 6 cycles; or big enough that
+    nothing spills in SEG_BOUND cycles."""
+    kw = dict(batch=batch, code_words=64, stack_words=256, sweep_gating=False,
+              stack_abs_words=64, stack_sp_base=960, heap_words=16,
+              aux_heap_words=8, journal_slots=64, event_slots=64)
+    if big:
+        return VmConfig(max_depth=56, queue_capacity=SEG_BOUND * 8,
+                        storage_slots=40, log_queue_capacity=SEG_BOUND,
+                        heap_frames=18, code_pages=6,
+                        decommit_queue_capacity=SEG_BOUND, **kw)
+    rows = -(-SEG_LEN * 16 // 6)
+    return VmConfig(max_depth=31, queue_capacity=SEG_LEN * 8,
+                    storage_slots=8, log_queue_capacity=rows, heap_frames=4,
+                    code_pages=3, decommit_queue_capacity=rows, **kw)
+
+
+def segment_programs(batch: int) -> list:
+    """Lane b runs tests/test_executor.py's caller with key_base
+    1000 (b + 1), recursion depth 32 + b % 17 and 8 + b % 7 rounds over the
+    4 callees rotated by b % 4."""
+    callees = spill_programs.callees(4)
+    return [spill_programs.caller(callees[b % 4:] + callees[:b % 4],
+                                  1000 * (b + 1), 32 + b % 17, 8 + b % 7)
+            for b in range(batch)]
+
+
+def _frame_counts(spilled) -> np.ndarray:
+    return np.array([len(f) for f in spilled.frames])
+
+
+def _map_sizes(host) -> np.ndarray:
+    return np.array([len(m) for m in host.maps])
+
+
+#: the executor's steps, as `models/executor.py` names them: (name, step,
+#: a probe of what the call moves, the counters of its rise and fall)
+EXECUTOR_STEPS = (
+    ("normalize_callstack", "normalize", lambda a: _frame_counts(a[2]),
+     "frames_spilled", "frames_restored"),
+    ("_touched_in_log_queue", "detect", None, None, None),
+    ("drain_witness_queues", "drain", None, None, None),
+    ("compact_log_state_host", "compact", None, None, None),
+    ("spill_storage_kv", "kv_spill", lambda a: _map_sizes(a[2]),
+     "keys_spilled", None),
+    ("rehydrate_keys", "kv_spill", lambda a: _map_sizes(a[2]), None,
+     "keys_rehydrated"),
+    ("spill_code_bank", "code_spill", lambda a: _map_sizes(a[2]),
+     "contracts_spilled", None),
+    ("rehydrate_code", "code_spill", lambda a: _map_sizes(a[2]), None,
+     "contracts_rehydrated"),
+    ("reclaim_heap_frames", "reclaim",
+     lambda a: int(a[0].frame_count.sum()), None, "heap_frames_reclaimed"),
+    ("clone_state", "clone", None, None, None),
+)
+
+
+@contextlib.contextmanager
+def executor_split(seconds: dict, counts: dict):
+    """Time each step of run_block_segments (between two synchronisations)
+    into `seconds` by EXECUTOR_STEPS's step, count its calls and what it
+    moves into `counts`; the module's names are restored on exit."""
+    saved = {name: getattr(executor, name) for name, *_ in EXECUTOR_STEPS}
+
+    def wrap(name, step, probe, rise, fall):
+        fn = saved[name]
+
+        def run(*args, **kw):
+            before = probe(args) if probe else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds[step] = seconds.get(step, 0.0) + time.perf_counter() - t0
+            counts[name] = counts.get(name, 0) + 1
+            if probe:
+                d = np.asarray(probe(args)) - before
+                for key, moved in ((rise, d.clip(min=0)),
+                                   (fall, (-d).clip(min=0))):
+                    if key:
+                        counts[key] = counts.get(key, 0) + int(moved.sum())
+            return out
+        return run
+
+    for entry in EXECUTOR_STEPS:
+        setattr(executor, entry[0], wrap(*entry))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(executor, name, fn)
+
+
+def k1_timed(events: list):
+    """fused_cycle.run_cycles, each call between two CUDA events."""
+    def run(state, config, n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fused_cycle.run_cycles(state, config, n)
+        end.record()
+        events.append((start, end))
+        return state
+    return run
+
+
+def merged_storage(state, host_maps) -> list[dict]:
+    """Each lane's storage map: the host overflow map, then the device KV
+    table's used entries (key and value limb tuples)."""
+    ref = reference_view(state)
+    keys = ref.st_key.cpu().numpy().view(np.uint32)
+    vals = ref.st_val.cpu().numpy().view(np.uint32)
+    used = ref.st_used.cpu().numpy()
+    out = []
+    for b in range(used.shape[0]):
+        m = {k: tuple(int(x) for x in v) for k, v in host_maps[b].items()}
+        for i in np.nonzero(used[b])[0]:
+            m[tuple(keys[b, i].tolist())] = tuple(vals[b, i].tolist())
+        out.append(m)
+    return out
+
+
+def copy_hosts(hosts):
+    """A copy of a segmented run's host stores that the run can go on
+    changing: the protocols add, pop and replace entries and frames, and
+    never change one in place, so copying the lists and maps suffices."""
+    return executor.BlockHosts(
+        storage=type(hosts.storage)([dict(m) for m in hosts.storage.maps]),
+        code=type(hosts.code)([dict(m) for m in hosts.code.maps]),
+        frames=type(hosts.frames)([list(f) for f in hosts.frames.frames]))
+
+
+def host_stores(hosts) -> tuple:
+    """A segmented run's host stores as plain values, to compare two
+    runs."""
+    def plain(v):
+        return v.tolist() if isinstance(v, np.ndarray) else v
+    return ([[{k: plain(v) for k, v in f.items()} for f in lane]
+             for lane in hosts.frames.frames],
+            [{k: plain(v) for k, v in m.items()} for m in hosts.storage.maps],
+            [{k: {f: plain(x) for f, x in e.items()} for k, e in m.items()}
+             for m in hosts.code.maps])
+
+
+def segmented_phase(dev) -> tuple:
+    """segmented-block: run_block_segments on K1 at B_BLOCK lanes, every
+    spill protocol firing, in two calls split at a segment boundary (the
+    second from the first's state and hosts, as a resumed block runs),
+    against a one-shot K1 run on big geometry: the concatenated memory,
+    log and decommit streams, the final registers and the merged storage
+    maps of every lane; the first SEG_PLAIN_LANES lanes of the one-shot
+    run against the plain engine on the card.  The segmented run's host
+    split, K1's CUDA-event time, the device's idle share (torch.profiler,
+    device activity only).  Returns (K1's launches in the segmented run,
+    the plain check's max abs err, what the checkpoint phase resumes
+    from)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    programs = segment_programs(B_BLOCK)
+    callees = spill_programs.callees(4)
+    assemble_s = time.perf_counter() - t0
+    # the one-shot reference, on geometry where nothing spills
+    big_cfg = segment_config(B_BLOCK, big=True)
+    big = spill_programs.stage(big_cfg, programs, callees, callees, dev)
+    t0 = time.perf_counter()
+    fused_cycle.run_cycles(big, big_cfg, SEG_BOUND)
+    torch.cuda.synchronize()
+    oneshot_s = time.perf_counter() - t0
+    n_cycles = int(big.monotonic_cycle_counter.max())
+    if not bool(big.done.all()) or bool(big.lane_error.any()) \
+            or n_cycles >= SEG_BOUND:
+        raise AssertionError(f"segmented-block: the one-shot run ends at "
+                             f"{n_cycles} cycles, {int(big.done.sum())} "
+                             "lanes done")
+    n = SEG_PLAIN_LANES
+    t0 = time.perf_counter()
+    plain_cfg = dataclasses.replace(big_cfg, batch=n)
+    plain = spill_programs.stage(plain_cfg, programs[:n], callees, callees,
+                                 dev)
+    batched_vm.run_cycles(plain, plain_cfg, SEG_BOUND)
+    plain_err = require_equal("segmented-block one-shot B=32",
+                              lanes(state_tensors(big), n),
+                              state_tensors(plain))
+    del plain
+    plain_s = time.perf_counter() - t0
+    # the one-shot streams as each lane's record bytes, which are the
+    # bytes of its query structs serialized (a struct costs ~8x to build)
+    t0 = time.perf_counter()
+    want_regs = big.regs.clone()
+    want = {}
+    for fam, (words, valid) in packed.serialize_all(big, SERIALIZERS).items():
+        rows = words[valid].cpu().numpy().view(np.uint32)
+        counts = valid.sum(1).cpu().numpy()
+        want[fam] = [r.tobytes()
+                     for r in np.split(rows, np.cumsum(counts)[:-1])]
+    want_storage = merged_storage(big, [{}] * B_BLOCK)
+    del big
+    oneshot_read_s = time.perf_counter() - t0
+
+    # the segmented run on tight geometry, 2 callees staged in the bank
+    # and 2 in the host code map from t = 0
+    config = segment_config(B_BLOCK)
+    st = spill_programs.stage(config, programs, callees, callees[:2], dev)
+    hosts = spill_programs.cold_code_hosts(config, callees[2:])
+    first = SEG_LEN * (n_cycles // SEG_LEN // 2)
+    seconds, counts, events, got, second = {}, {}, [], {}, {}
+    run = k1_timed(events)
+    prof, resume = [], {}
+
+    def segments(part: int, acc: dict) -> None:
+        nonlocal st, hosts
+        st, hosts, streams = executor.run_block_segments(
+            st, config, run, part, SEG_LEN, hosts=hosts)
+        extend_streams(acc, streams, B_BLOCK)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with executor_split(seconds, counts):
+        prof.append(profiled(lambda: segments(first, got)))
+        resume.update(state=clone_state(st), hosts=copy_hosts(hosts),
+                      cycles=n_cycles - first)
+        prof.append(profiled(lambda: segments(n_cycles - first, second)))
+    k1 = fused_cycle.K1_LAUNCHES
+    k1_ms = sum(a.elapsed_time(b) for a, b in events)
+    extend_streams(got, second, B_BLOCK)
+    resume.update(config=config, final=st, final_hosts=hosts,
+                  streams=second)
+
+    t0 = time.perf_counter()
+    if not bool(st.done.all()) or bool(st.lane_error.any()):
+        raise AssertionError("segmented-block: lanes not done or in error")
+    if not torch.equal(st.regs, want_regs):
+        raise AssertionError("segmented-block: registers != one-shot")
+    for fam, ser in SERIALIZERS.items():
+        bad = [b for b in range(B_BLOCK)
+               if b"".join(map(ser, got[fam][b])) != want[fam][b]]
+        if bad:
+            raise AssertionError(f"segmented-block: {fam} streams of "
+                                 f"{len(bad)} lanes != one-shot ({bad[:4]})")
+    if merged_storage(st, hosts.storage.maps) != want_storage:
+        raise AssertionError("segmented-block: storage maps != one-shot")
+    moved = ("frames_spilled", "frames_restored", "keys_spilled",
+             "keys_rehydrated", "contracts_spilled", "contracts_rehydrated",
+             "heap_frames_reclaimed")
+    if k1 == 0 or any(counts.get(k, 0) == 0 for k in moved):
+        raise AssertionError(f"segmented-block: K1 {k1}, {counts}")
+    check_s = time.perf_counter() - t0
+    wall = sum(p["profiled_wall_s"] for p in prof)
+    busy = sum(p["device_busy_s"] for p in prof)
+    segments_run = counts["normalize_callstack"] - 2
+    phase("segmented-block", **card_fields(t_phase), batch=B_BLOCK,
+          cycles=n_cycles, segment=SEG_LEN, segments=segments_run,
+          replays=counts["clone_state"] - segments_run,
+          storage_replays=counts.get("rehydrate_keys", 0),
+          code_replays=counts.get("rehydrate_code", 0),
+          **{k: counts[k] for k in moved}, k1_launches=k1,
+          run_wall_s=round(wall, 3), k1_device_ms=round(k1_ms, 3),
+          device_busy_s=round(busy, 4), idle_share=round(1 - busy / wall, 4),
+          **{f"host_{k}_s": round(v, 3) for k, v in sorted(seconds.items())},
+          records=sum(len(s) for fam in got.values() for s in fam),
+          equal_lanes=B_BLOCK, plain_lanes=n, oneshot_k1_s=round(oneshot_s, 3),
+          assemble_s=round(assemble_s, 2), plain_s=round(plain_s, 2),
+          oneshot_read_s=round(oneshot_read_s, 2),
+          check_s=round(check_s, 2))
+    return k1, plain_err, resume
+
+
+def checkpoint_phase(dev, resume: dict) -> None:
+    """checkpoint: the segmented state saved halfway (save_checkpoint),
+    loaded back onto the card (load_checkpoint's default device) and run
+    to the end with the halfway host stores: every field of the final
+    state, the host stores and the second half's streams equal to the
+    uninterrupted run's.  The host stores are host objects; they are not
+    part of the checkpoint format."""
+    t_phase = time.perf_counter()
+    config = resume["config"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "ckpt"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, resume["state"], config)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in path.iterdir())
+        t0 = time.perf_counter()
+        st, loaded_cfg = load_checkpoint(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    if loaded_cfg != config or st.done.device.type != dev.type:
+        raise AssertionError("checkpoint: config or device differs")
+    reset_counts()
+    t0 = time.perf_counter()
+    st, hosts, streams = executor.run_block_segments(
+        st, config, fused_cycle.run_cycles, resume["cycles"], SEG_LEN,
+        hosts=resume["hosts"])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    k1 = fused_cycle.K1_LAUNCHES
+    err = require_equal("checkpoint: resumed != uninterrupted",
+                        state_tensors(st), state_tensors(resume["final"]))
+    if host_stores(hosts) != host_stores(resume["final_hosts"]) \
+            or streams != resume["streams"] or k1 == 0:
+        raise AssertionError("checkpoint: host stores or streams differ")
+    phase("checkpoint", **card_fields(t_phase), batch=config.batch,
+          resumed_cycles=resume["cycles"], save_s=round(save_s, 3),
+          load_s=round(load_s, 3), file_bytes=size,
+          resume_s=round(resume_s, 3), k1_launches=k1, max_abs_err=err,
+          equal=True)
+
+
+def trace_phase(dev) -> int:
+    """debug-trace: trace_cycles over TRACE_LANES of bench_farcall's
+    program at B_BLOCK lanes, one K1 launch (k = 1) a cycle, equal to the
+    same lanes' trace through the plain step on the CPU.  Returns K1's
+    launches."""
+    t_phase = time.perf_counter()
+    config, st = farcall_entry(B_BLOCK, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    st, traces = trace_cycles(st, config, TRACE_CYCLES,
+                              lanes=list(TRACE_LANES), with_registers=True)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    k1 = fused_cycle.K1_LAUNCHES
+    t0 = time.perf_counter()
+    cpu_cfg, cpu = farcall_entry(len(TRACE_LANES), "cpu")
+    _, want = trace_cycles(cpu, cpu_cfg, TRACE_CYCLES,
+                           lanes=list(range(len(TRACE_LANES))),
+                           with_registers=True)
+    cpu_s = time.perf_counter() - t0
+    far_calls = sum("far_call" in s.asm for s in traces[0])
+    if k1 != TRACE_CYCLES or traces != want or not far_calls:
+        raise AssertionError(f"debug-trace: K1 launches {k1}, far calls "
+                             f"{far_calls}, equal {traces == want}")
+    phase("debug-trace", **card_fields(t_phase), batch=B_BLOCK,
+          lanes=",".join(map(str, TRACE_LANES)), cycles=TRACE_CYCLES,
+          k1_launches=k1, trace_s=round(trace_s, 3),
+          cycles_per_sec=round(TRACE_CYCLES / trace_s, 1),
+          cpu_trace_s=round(cpu_s, 2), far_calls=far_calls,
+          equal_to_cpu=True)
+    return k1
+
+
 def sponge_blocks(streams) -> list:
     """Each stream's rate blocks in the sponge: n // 34 + 1 for n words."""
     return [int(s.size) // 34 + 1 for s in streams]
@@ -920,20 +1312,23 @@ def sponge_phase(dev, sm_mhz: float, memory_streams: list,
                  log_records: np.ndarray) -> tuple:
     """K3-sponge: the ragged sponge against its plain version on the card,
     bit for bit, on the edge lengths and a mixed batch, on a T = 1 fold of
-    8192 digests and on block-realistic's memory-family streams; CUDA-event
-    times (best of 3) beside the bound and the serial floor (the longest
-    stream's blocks at one permutation's single-thread latency, K3 at N = 1
-    chained SERIAL_ITERS times); and the log fingerprints through K3 (the
-    path's) and through the sponge, both timed and equal.  Returns the
-    kernels line's (max abs err, ms, plain ms, bound) at block-realistic's
-    memory streams."""
+    8192 digests and on block-realistic's memory-family streams (each cut
+    to its first SPONGE_PLAIN_BLOCKS blocks); CUDA-event times (best of 3)
+    beside the bound and the serial floor (the longest stream's blocks at
+    one permutation's single-thread latency, K3 at N = 1 chained
+    SERIAL_ITERS times), and the kernel's time on the whole streams; and
+    the log fingerprints through K3 (the path's) and through the sponge,
+    both timed and equal.  Returns the kernels line's (max abs err, ms,
+    plain ms, bound) at block-realistic's cut memory streams."""
     rng = np.random.default_rng(7)
     lengths = SPONGE_EDGE + tuple(rng.integers(0, 12 * 34, SPONGE_MIXED))
     sets = (("edge", [rng.integers(0, 1 << 32, int(n), dtype=np.uint32)
                       for n in lengths]),
             ("fold", [rng.integers(0, 1 << 32, 8 * FOLD_DIGESTS,
                                    dtype=np.uint32)]),
-            ("realistic_memory", memory_streams))
+            ("realistic_memory", [
+                s.reshape(-1)[:SPONGE_PLAIN_BLOCKS * packed.RATE_WORDS - 1]
+                for s in memory_streams]))
     one = torch.zeros((1, 25, 2), dtype=torch.int32, device=dev)
     keccak.keccak_f1600_(one, 16)
     perm_ms = timed_ms(lambda: keccak.keccak_f1600_(one, SERIAL_ITERS)) \
@@ -962,6 +1357,21 @@ def sponge_phase(dev, sm_mhz: float, memory_streams: list,
                        f"{name}_serial_floor_ms": round(max(nbs) * perm_ms,
                                                         4)})
         del args, box
+    # the kernel alone on block-realistic's whole memory streams
+    args = packed.ragged_words(memory_streams, dev)
+    keccak.keccak256_ragged(*args)                               # warm
+    nbs = sponge_blocks(memory_streams)
+    n_bytes = sum(4 * t.numel() * (2 if t.dtype == torch.int64 else 1)
+                  for t in args) + 32 * len(memory_streams)
+    bound = bound_ms(n_bytes, sum(nbs) * KECCAK_OPS, sm_mhz)
+    fields.update({
+        "realistic_whole_blocks": sum(nbs),
+        "realistic_whole_longest": max(nbs),
+        "realistic_whole_ms": round(min(timed_ms(
+            lambda: keccak.keccak256_ragged(*args)) for _ in range(3)), 4),
+        "realistic_whole_bound_ms": round(bound[0], 4),
+        "realistic_whole_serial_floor_ms": round(max(nbs) * perm_ms, 4)})
+    del args
     # the fingerprints: K3 on one padded block a record (packed.fingerprints)
     # against the sponge on 32-word streams at offsets 32 i
     recs = torch.from_numpy(log_records.view(np.int32)).to(dev)
@@ -1928,6 +2338,10 @@ def main() -> int:
     objects = objects_phase(dev)
     sq_k3 = sorted_queue_phase(dev, wave_words)
     boot_k1 = net_states_phase(dev)
+    seg_k1, seg_err, resume = segmented_phase(dev)
+    checkpoint_phase(dev, resume)
+    del resume
+    trace_k1 = trace_phase(dev)
     sponge = sponge_phase(dev, sm_mhz, memory_streams, log_records)
     del memory_streams, log_records
     # block-tiny's commitments: one sponge launch for every family's
@@ -1949,6 +2363,7 @@ def main() -> int:
           K3_sorted_queue=sq_k3, K1_block_objects=objects["K1"],
           K3_block_objects=objects["K3"],
           sponge_block_objects=objects["sponge"], K1_bootloader=boot_k1,
+          K1_segmented_block=seg_k1, K1_debug_trace=trace_k1,
           **{f"sponge_{tag.replace('-', '_')}": v["sponge"]
              for tag, v in list(blocks.items())
              + [("block-realistic", launches_r)]})
@@ -1974,7 +2389,7 @@ def main() -> int:
                main_k1, k1_err, k1_ms, k1_plain_ms, k1_bound),
         kernel("K1 cycle_kernel, slices (b) LOG and (c) FAR_CALL",
                "cycle_kernel.cu", k1_src, blocks["block-tiny"]["K1"],
-               max(ks_err, kf_err, kw_err),
+               max(ks_err, kf_err, kw_err, seg_err),
                ks2_ms, ks_plain_ms, ks_bound),
         kernel("K1 cycle_kernel, slice (d) keccak256/sha256 precompiles",
                "cycle_kernel.cu", "era_zk_evm_tpu/models/fused_cycle.py:2794"

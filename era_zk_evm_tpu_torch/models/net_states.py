@@ -1,7 +1,7 @@
 """Final net states (`get_final_net_states`) from the device state.
 
-The port of `era_zk_evm_tpu/models/net_states.py`, with the limb reader of
-`era_zk_evm_tpu/utils/u256_host.py`: the row readers the scheduler needs
+The port of `era_zk_evm_tpu/models/net_states.py` (limbs read with the
+port's copy of `utils/u256_host.py`): the row readers the scheduler needs
 (`storage_map_of`, `event_entries_of`, `messages_from_join`,
 `messages_from_entries`, numpy only) and the whole-batch extraction
 (`device_storage_maps`, `device_event_entries`, `device_net_states`, and
@@ -21,15 +21,9 @@ from __future__ import annotations
 import numpy as np
 
 from ..isa import params
+from ..utils import from_limbs
 from ..witness.queries import EventMessage
 from .state import reference_view
-
-
-def from_limbs(limbs) -> int:
-    """uint32[8] -> Python int."""
-    arr = np.asarray(limbs, dtype=np.uint32)
-    assert arr.shape[-1] == 8
-    return sum(int(arr[..., i]) << (32 * i) for i in range(8))
 
 
 def storage_map_of(st_key, st_val, st_used, b) -> dict:

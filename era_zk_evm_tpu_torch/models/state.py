@@ -278,6 +278,14 @@ def reference_view(state: BatchedVmState) -> BatchedVmState:
                              for n in FIELD_NAMES})
 
 
+def arena_word_major(arr, config: VmConfig):
+    """An arena in the reference layout as word-major `[B, W, 8]` (numpy
+    or torch; a view): the flat stack `[B, SW*8]` is reshaped, the word
+    arenas already are.  The port's copy of the JAX helper, without its
+    `limb_major_arenas` branch (the port refuses that layout)."""
+    return arr.reshape(arr.shape[0], -1, 8) if arr.ndim == 2 else arr
+
+
 def clone_state(state: BatchedVmState) -> BatchedVmState:
     return BatchedVmState(**{n: getattr(state, n).clone() for n in FIELD_NAMES})
 

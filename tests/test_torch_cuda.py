@@ -2,7 +2,9 @@
 against their plain versions on a CUDA card, execute_block on the card
 against the same call on the CPU (the keccak256 / sha256 mix and the
 signed-transfer mix), its objects form against its packed form on the
-card, and the sorted queue and device fold on the card against the CPU.
+card, the sorted queue and device fold on the card against the CPU, the
+segmented executor on K1 against the plain engine, a checkpoint loaded
+onto the card, and a debug trace on the card against the CPU's.
 
 Imports no jax, so it also runs on the GPU machine, where the suite's
 conftest (which configures jax) cannot load:
@@ -11,18 +13,25 @@ Without a card every test here skips.  The full-size comparison is
 chip_smoke.py.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
 from era_zk_evm_tpu_torch.config import VmConfig
-from era_zk_evm_tpu_torch.models import batched_vm, fused_cycle
+from era_zk_evm_tpu_torch.models import batched_vm, executor, fused_cycle
 from era_zk_evm_tpu_torch.models import state as pstate
+from era_zk_evm_tpu_torch.models.checkpoint import (
+    load_checkpoint, save_checkpoint,
+)
 from era_zk_evm_tpu_torch.ops import keccak
 from era_zk_evm_tpu_torch import block
 from era_zk_evm_tpu_torch.tools import bisect_fold, probe_keccak, probe_uniform
 from era_zk_evm_tpu_torch.testing import (
-    block_programs, ec_programs, log_programs, programs, witness_programs,
+    block_programs, ec_programs, log_programs, programs, spill_programs,
+    witness_programs,
 )
+from era_zk_evm_tpu_torch.testing.debug_trace import trace_cycles
 from era_zk_evm_tpu_torch.witness import device_fold, packed, sorted_queue
 from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb_rows
 
@@ -488,3 +497,90 @@ def test_p7_matches_plain(cuda, variant):
     st[50] = torch.randint(0, 4, (700,), generator=gen, dtype=torch.int32)
     _on_card_and_cpu(cuda, lambda f, s: bisect_fold.fold(f, s, variant),
                      (bisect_fold, "P7_LAUNCHES"), flags, st)
+
+
+def _segment_config(batch):
+    # tests/test_executor.py's tight geometry with bench_farcall's stack
+    return VmConfig(batch=batch, code_words=64, stack_words=256,
+                    stack_abs_words=64, stack_sp_base=960, heap_words=16,
+                    aux_heap_words=8, max_depth=15, queue_capacity=6 * 8,
+                    storage_slots=8, journal_slots=64, event_slots=64,
+                    log_queue_capacity=16, heap_frames=4, code_pages=3,
+                    decommit_queue_capacity=16)
+
+
+def _segment_programs(batch, callees):
+    return [spill_programs.caller(callees[b % 4:] + callees[:b % 4],
+                                  1000 * (b + 1), 12 + b % 5, 4 + b % 3)
+            for b in range(batch)]
+
+
+@pytest.mark.cuda
+def test_segmented_executor_k1_matches_plain(cuda):
+    # every segment and replay on K1 against the plain engine on the CPU:
+    # every state field, host store and drained stream
+    callees = spill_programs.callees(4)
+    config = _segment_config(8)
+    runs = []
+    for dev, engine in ((cuda, fused_cycle.run_cycles),
+                        ("cpu", batched_vm.run_cycles)):
+        st = spill_programs.stage(config, _segment_programs(8, callees),
+                                  callees, callees[:2], dev)
+        hosts = spill_programs.cold_code_hosts(config, callees[2:])
+        before = fused_cycle.K1_LAUNCHES
+        runs.append(executor.run_block_segments(st, config, engine, 240, 6,
+                                                hosts=hosts)
+                    + (fused_cycle.K1_LAUNCHES - before,))
+    (k_st, k_hosts, k_got, k1), (p_st, p_hosts, p_got, _) = runs
+    assert k1 >= 240 // 6 and bool(k_st.done.all())
+    assert not bool(k_st.lane_error.any())
+    a, b = pstate.state_to_numpy(k_st), pstate.state_to_numpy(p_st)
+    bad = [k for k in a if not (a[k] == b[k]).all()]
+    assert not bad, f"kernel/plain mismatch in fields: {bad}"
+    assert k_got == p_got
+    for kh, ph in ((k_hosts.storage, p_hosts.storage),
+                   (k_hosts.code, p_hosts.code)):
+        assert [sorted(m) for m in kh.maps] == [sorted(m) for m in ph.maps]
+    assert all(k_hosts.storage.maps) and all(k_hosts.code.maps)
+
+
+@pytest.mark.cuda
+def test_load_checkpoint_onto_the_card(cuda, tmp_path):
+    config = VmConfig(batch=4, queue_capacity=512, heap_words=16,
+                      stack_words=2048, code_words=16, max_depth=4,
+                      rolling_commitment=True)
+    words = [programs.assemble(programs.WORKLOAD)] * 4
+    cpu = pstate.make_entry_state(config, words, ergs=1 << 20, device="cpu")
+    fused_cycle.run_cycles(cpu, config, 15)
+    save_checkpoint(tmp_path / "ckpt", cpu, config)
+    loaded, loaded_cfg = load_checkpoint(tmp_path / "ckpt")
+    assert loaded_cfg == config and loaded.done.device.type == "cuda"
+    before = fused_cycle.K1_LAUNCHES
+    fused_cycle.run_cycles(loaded, config, 25)
+    assert fused_cycle.K1_LAUNCHES > before
+    fused_cycle.run_cycles(cpu, config, 25)
+    a, b = pstate.state_to_numpy(loaded), pstate.state_to_numpy(cpu)
+    bad = [k for k in a if not (a[k] == b[k]).all()]
+    assert not bad, f"resumed on the card != CPU in fields: {bad}"
+
+
+@pytest.mark.cuda
+def test_trace_on_the_card_matches_the_cpu(cuda):
+    callees = spill_programs.callees(4)
+    config = dataclasses.replace(_segment_config(4), queue_capacity=64 * 8,
+                                 log_queue_capacity=64, code_pages=5,
+                                 storage_slots=32, heap_frames=8,
+                                 decommit_queue_capacity=64)
+    words = [spill_programs.caller(callees, 1000 * (b + 1), 3, 4)
+             for b in range(4)]
+    traces = []
+    for dev in (cuda, "cpu"):
+        st = spill_programs.stage(config, words, callees, callees, dev)
+        before = fused_cycle.K1_LAUNCHES
+        traces.append(trace_cycles(st, config, 64, lanes=[0, 3],
+                                   with_registers=True)[1])
+        launches = fused_cycle.K1_LAUNCHES - before
+        assert launches == (64 if dev is cuda else 0)
+    assert traces[0] == traces[1]
+    assert any("far_call" in s.asm for s in traces[0][0])
+    assert not any(s.lane_error for s in traces[0][1])

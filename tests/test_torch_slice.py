@@ -73,8 +73,9 @@ def test_workload_copy_equals_bench():
 def test_port_imports_no_jax():
     # the CPU paths of the slices, a precompile block through execute_block
     # in both stream forms, the sorted queue, the bootloader block's net
-    # states and the tool probes included, then sys.modules: no jax and no
-    # module of the JAX package
+    # states, the tool probes, a segmented run, a checkpoint and a debug
+    # trace included, then sys.modules: no jax and no module of the JAX
+    # package
     code = (
         "import sys, torch\n"
         "from era_zk_evm_tpu_torch.config import VmConfig\n"
@@ -153,6 +154,26 @@ def test_port_imports_no_jax():
         "probe_uniform.main(['--cpu', '--w', '48', '--tb', '8',\n"
         "                    '--reps', '2'])\n"
         "bisect_fold.main(['--cpu', '--batch', '8'])\n"
+        "import tempfile\n"
+        "from era_zk_evm_tpu_torch.models import checkpoint, executor\n"
+        "from era_zk_evm_tpu_torch.testing import debug_trace, spill_programs\n"
+        "callees = spill_programs.callees(2)\n"
+        "cfg = VmConfig(batch=2, code_words=64, stack_words=256,\n"
+        "               stack_abs_words=64, stack_sp_base=960, heap_words=16,\n"
+        "               aux_heap_words=8, max_depth=15, queue_capacity=48,\n"
+        "               storage_slots=8, journal_slots=16, event_slots=16,\n"
+        "               log_queue_capacity=16, heap_frames=4, code_pages=3,\n"
+        "               decommit_queue_capacity=16)\n"
+        "st = spill_programs.stage(cfg, [spill_programs.caller(callees, 1, 3,\n"
+        "                          2)] * 2, callees, callees[:1], 'cpu')\n"
+        "st, hosts, got = executor.run_block_segments(\n"
+        "    st, cfg, fused_cycle.run_cycles, 12, 6,\n"
+        "    hosts=spill_programs.cold_code_hosts(cfg, callees[1:]))\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    checkpoint.save_checkpoint(d, st, cfg)\n"
+        "    st, cfg = checkpoint.load_checkpoint(d, device='cpu')\n"
+        "st, traces = debug_trace.trace_cycles(st, cfg, 2, lanes=[0])\n"
+        "assert len(traces[0]) == 2 and got['log'][0]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'era_zk_evm_tpu' or m.startswith('era_zk_evm_tpu.')]\n"
         "assert not bad, f'the port imported {bad}'\n"
