@@ -10,6 +10,10 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 B = 4096 and 32768 (its grid must span the card's SMs);
   K1-small      K1 against its plain torch version on the family programs
                 (both memory-witness modes), every state field equal;
+  units-off     configs X and Y of testing/units_off.py (the precompile
+                units, ecrecover or a precompile queue asked for without
+                what they need) at 96 lanes through K1, every field equal
+                to the plain engine on the CPU, and their lane_error;
   K1            WORKLOAD at B = 32768, one 128-cycle call, kernel vs plain;
   K1-b / K2     mode (b) at B = 32768: a second 128-cycle K1 chunk alone,
                 timed, against the plain engine (every field, and K1's
@@ -24,6 +28,14 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 B = 32768, WORKLOAD): 8 chained 128-cycle calls with a queue
                 rewind between them, both modes; lanes 0..7 equal to a plain
                 CPU run of the same calls;
+  mesh          parallel.run_block on 4 shards of the card (8192 lanes a
+                shard), main-a's and main-b's calls again: every gathered
+                field equal to the unsharded main-path state, the aggregates
+                to its sums, the rolling block commitment (K2's sponges, the
+                digests gathered, one sponge launch) to the host fold of its
+                lanes' digests; run_block_fused on fresh shards to the same;
+                the walls of one call on 1 and 4 shards (shards of one card
+                share it: not a scaling figure);
   K1-log-small  K1's storage-enabled instance (LOG family, FAR_CALL, log
                 and decommit queues) against plain on the LOG and far-call
                 program sets, 2 x 16 lanes, with their contracts;
@@ -123,9 +135,24 @@ Phases, one line each; any failure raises and the exit code is nonzero:
   checkpoint    the segmented state saved halfway, loaded onto the card
                 and run to the end: equal to the uninterrupted run; save
                 and load seconds and the file size;
+  checkpoint-mesh  the same file loaded with mesh= (4 shards of the card)
+                and run 217 cycles with run_block, equal to the file
+                loaded unsharded and run with run_cycles;
   debug-trace   trace_cycles on 4 lanes of bench_farcall's program at
                 B = 4096, 64 cycles, one K1 launch a cycle, equal to the
                 plain step's trace on the CPU; cycles/s;
+  dryrun-multichip  parallel.dryrun_multichip on 8 shards of the card, its
+                lines equal to the JAX run's in MULTICHIP_r05.json (the
+                aggregates and both block commitments); then measure(1) and
+                measure(4) on shards of the card, printed as the throughput
+                the shards of one card retain;
+  differential  testing/differential.diff_run with the engine on the card
+                against the port's golden oracle: the far-call programs
+                with their contracts, the keccak256 precompile programs with
+                and without the round-witness queue;
+  batched-hashes  ops.keccak.keccak256_batched (a K3 launch a rate block)
+                on 3072 messages against the golden keccak256, and
+                ops.sha256.sha256_blocks on 4096 against hashlib;
   K3-sponge     the ragged keccak256 sponge against its plain version on
                 the card, bit for bit: the edge lengths of a rate block and
                 a mixed batch, a T = 1 fold of 8192 digests, block-
@@ -148,6 +175,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
+import io
 import json
 import math
 import pathlib
@@ -162,6 +191,9 @@ import torch
 from era_zk_evm_tpu_torch import _build
 from era_zk_evm_tpu_torch.block import TxSpec, commit_block, execute_block
 from era_zk_evm_tpu_torch.config import VmConfig, precompile_queue_slots
+from era_zk_evm_tpu_torch.golden.precompiles import (
+    keccak256 as golden_keccak256,
+)
 from era_zk_evm_tpu_torch.isa import params
 from era_zk_evm_tpu_torch.isa.abi import code_hash_for_bytecode
 from era_zk_evm_tpu_torch.models import (
@@ -177,12 +209,19 @@ from era_zk_evm_tpu_torch.models.state import (
 )
 from era_zk_evm_tpu_torch.ops import keccak, secp256k1
 from era_zk_evm_tpu_torch.ops.goldilocks import gl_reduce64
+from era_zk_evm_tpu_torch.ops.sha256 import sha256_blocks
 from era_zk_evm_tpu_torch.ops.u256 import wide
+from era_zk_evm_tpu_torch.parallel import make_mesh, run_block, shard_state
+from era_zk_evm_tpu_torch.parallel.dryrun import dryrun_multichip
+from era_zk_evm_tpu_torch.parallel.fused import run_block_fused
+from era_zk_evm_tpu_torch.parallel.mesh import block_aggregates
+from era_zk_evm_tpu_torch.parallel.scaling import measure
 from era_zk_evm_tpu_torch.testing import (
     block_programs, ec_programs, fuzz_programs, log_programs, spill_programs,
-    witness_programs,
+    units_off, witness_programs,
 )
 from era_zk_evm_tpu_torch.testing.debug_trace import trace_cycles
+from era_zk_evm_tpu_torch.testing.differential import diff_run
 from era_zk_evm_tpu_torch.testing.programs import (
     FAMILY_PROGRAMS, FARCALL_CALLEE_ADDRESS, STORAGE_WORKLOAD, WORKLOAD,
     assemble, farcall_callee, farcall_caller, tiny_mix_program,
@@ -193,13 +232,14 @@ from era_zk_evm_tpu_torch.tools import (
 )
 from era_zk_evm_tpu_torch.witness import packed, sorted_queue
 from era_zk_evm_tpu_torch.witness.commitment import (
-    device_log_streams, serialize_decommittment, serialize_log_query,
-    serialize_memory_query,
+    block_commitment, device_log_streams, device_rolling_commitments,
+    serialize_decommittment, serialize_log_query, serialize_memory_query,
 )
 from era_zk_evm_tpu_torch.witness.rolling import (
     compact_slot_rows, finalize_rolling, rolling_absorb_rows,
 )
 
+ROOT = pathlib.Path(__file__).resolve().parent
 DEVICE = "cuda:0"
 B_FULL = 32768
 K = 128            # cycles per call
@@ -1247,7 +1287,15 @@ def checkpoint_phase(dev, resume: dict) -> None:
         st, loaded_cfg = load_checkpoint(path)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-    if loaded_cfg != config or st.done.device.type != dev.type:
+        _resume_phase(t_phase, resume, st, loaded_cfg, save_s, load_s, size)
+        checkpoint_mesh_phase(dev, path, config, resume["cycles"])
+
+
+def _resume_phase(t_phase, resume, st, loaded_cfg, save_s, load_s,
+                  size) -> None:
+    """The checkpoint phase's resume from the loaded state, and its line."""
+    config = resume["config"]
+    if loaded_cfg != config or st.done.device.type != "cuda":
         raise AssertionError("checkpoint: config or device differs")
     reset_counts()
     t0 = time.perf_counter()
@@ -1301,6 +1349,270 @@ def trace_phase(dev) -> int:
           cpu_trace_s=round(cpu_s, 2), far_calls=far_calls,
           equal_to_cpu=True)
     return k1
+
+
+MESH_SHARDS = 4                          # shards of one card in the mesh phase
+UNITS_OFF_BATCH = 96                     # configs X and Y: 32 x the 3 lanes
+DRYRUN_DEVICES = 8
+HASH_MESSAGES = 1024                     # a message length in batched-hashes
+HASH_LENGTHS = (0, 136, 200)             # keccak256: 1, 2 and 2 rate blocks
+SHA_MESSAGES, SHA_LENGTH = 4096, 100     # sha256: 2 blocks a message
+
+
+def units_off_phase(dev) -> None:
+    """units-off: configs X and Y (testing/units_off.py: the precompile
+    units, ecrecover or a precompile queue asked for without what they
+    need, which run with the units off) through K1 on the card, every
+    field equal to the plain engine on the CPU, with the lane_error
+    pattern the units give."""
+    t_phase = time.perf_counter()
+    reps = UNITS_OFF_BATCH // len(units_off.PROGRAMS)
+    words = [assemble(s) for s in units_off.PROGRAMS] * reps
+    entry = units_off.ENTRY * reps
+    launches = {}
+    for name, config in units_off.configs(UNITS_OFF_BATCH).items():
+        ks, ps = (make_entry_state(config, words, ergs=units_off.ERGS,
+                                   entry_address=entry, device=d)
+                  for d in (dev, "cpu"))
+        reset_counts()
+        fused_cycle.run_cycles(ks, config, units_off.N_CYCLES)
+        torch.cuda.synchronize()
+        launches[name] = fused_cycle.K1_LAUNCHES
+        fused_cycle.run_cycles(ps, config, units_off.N_CYCLES)
+        require_equal(f"units-off config {name}",
+                      {k: v.cpu() for k, v in state_tensors(ks).items()},
+                      state_tensors(ps))
+        if ks.lane_error.tolist() != units_off.LANE_ERRORS[name] * reps \
+                or launches[name] == 0:
+            raise AssertionError(f"units-off {name}: lane_error or launches")
+    phase("units-off", **card_fields(t_phase), batch=UNITS_OFF_BATCH,
+          cycles=units_off.N_CYCLES, configs="X,Y", equal_to_plain=True,
+          k1_launches_x=launches["X"], k1_launches_y=launches["Y"])
+
+
+def mesh_phase(dev, results: dict, entries: dict) -> dict:
+    """mesh: parallel.run_block on MESH_SHARDS shards of the card (8192
+    lanes a shard), main-a's and main-b's calls again (the same count of
+    K-cycle calls, a queue rewind between them): every gathered field
+    equal to the unsharded main-path state, the aggregates equal to the
+    unsharded state's, the rolling block commitment equal to the host fold
+    of the unsharded lanes' digests; then run_block_fused on fresh shards,
+    in 64-cycle launches, to the same state.  The walls are of one
+    K-cycle call, synchronised, on one shard of B_FULL lanes and on the
+    MESH_SHARDS shards: shards of one card share it, so this is no
+    scaling figure.  Returns the launches of the sharded run_block calls."""
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[dev] * MESH_SHARDS)
+    fields, launches = {}, {"K1": 0, "K2": 0, "sponge": 0}
+    for mode, cfg in (("a", bench_config(B_FULL, rolling=False)),
+                      ("b", bench_config(B_FULL, rolling=True))):
+        want, n_calls = results[mode][0], results[mode][1]
+        one = clone_state(entries[mode])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_block(one, cfg, K, k_inner=K)
+        torch.cuda.synchronize()
+        wall_1 = time.perf_counter() - t0
+        del one
+        for fused in (False, True):
+            sharded = shard_state(entries[mode], mesh)
+            reset_counts()
+            fused_cycle.K2_LAUNCHES = 0
+            walls = []
+            for call in range(n_calls):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if fused:
+                    sharded, agg = run_block_fused(sharded, cfg, K, mesh)
+                else:
+                    sharded, agg = run_block(sharded, cfg, K, k_inner=K)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                for shard in sharded.shards:
+                    rewind_queues(shard)
+            if not fused:
+                got = {"K1": fused_cycle.K1_LAUNCHES,
+                       "K2": fused_cycle.K2_LAUNCHES,
+                       "sponge": keccak.K3S_LAUNCHES}
+                if got["K1"] == 0 or mode == "b" and (
+                        got["K2"] == 0 or got["sponge"] == 0):
+                    raise AssertionError(f"mesh {mode}: launches {got}")
+                launches = {k: launches[k] + v for k, v in got.items()}
+            how = "run_block_fused" if fused else "run_block"
+            require_equal(f"mesh mode {mode} {how}: gathered != unsharded",
+                          state_tensors(sharded.gather(dev)),
+                          state_tensors(want))
+            # the queues were rewound after the last call, on both sides
+            after = block_aggregates(sharded, cfg)
+            whole = block_aggregates(want, cfg)
+            # the last call's own aggregates: all but its witness queries
+            # outlive the rewind
+            bad = [k for k in whole if not torch.equal(after[k], whole[k])
+                   or k != "witness_queries"
+                   and not torch.equal(agg[k], whole[k])]
+            if bad:
+                raise AssertionError(f"mesh {mode} {how}: aggregates {bad}")
+            if mode == "a" and int(agg["witness_queries"]) == 0:
+                raise AssertionError("mesh a: no witness queries")
+        if mode == "b":
+            got = agg["memory_block_commitment"].cpu().numpy().view(np.uint8)
+            if got.tobytes() != block_commitment(
+                    device_rolling_commitments(want)):
+                raise AssertionError("mesh b: block commitment != host fold")
+            fields["commitment"] = got.tobytes().hex()[:16]
+        fields[f"{mode}_calls"] = n_calls
+        fields[f"{mode}_wall_1_shard_ms"] = round(wall_1 * 1e3, 3)
+        fields[f"{mode}_wall_{MESH_SHARDS}_shards_ms"] = round(
+            float(np.median(walls)) * 1e3, 3)
+        fields[f"{mode}_root_ergs"] = float(agg["root_ergs"])
+        fields[f"{mode}_cycles_retired"] = float(agg["cycles_retired"])
+    phase("mesh", **card_fields(t_phase), batch=B_FULL, shards=MESH_SHARDS,
+          lanes_a_shard=B_FULL // MESH_SHARDS, cycles_per_call=K,
+          equal_to_unsharded=True, walls="shards of one card share it: "
+          "not a scaling figure", **fields,
+          **{f"launches_{k}": v for k, v in launches.items()})
+    return launches
+
+
+def dryrun_phase(dev) -> None:
+    """dryrun-multichip: parallel.dryrun_multichip on DRYRUN_DEVICES shards
+    of the card; its aggregates and both block commitments equal to the
+    JAX run recorded in MULTICHIP_r05.json (read from the file), then
+    measure(1) and measure(4) on shards of the card, as the throughput
+    the shards of one card retain."""
+    t_phase = time.perf_counter()
+    record = json.loads((ROOT / "MULTICHIP_r05.json").read_text())
+    want = [ln for ln in record["tail"].splitlines()
+            if not ln.startswith("dryrun_multichip scaling")]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        dryrun_multichip(DRYRUN_DEVICES, devices=[dev] * DRYRUN_DEVICES,
+                         scaling=False)
+    got = out.getvalue().splitlines()
+    if got != want:
+        raise AssertionError(f"dryrun-multichip: {got} != {want}")
+    rates = {1: measure(1), MESH_SHARDS: measure(MESH_SHARDS,
+                                                 devices=[dev] * MESH_SHARDS)}
+    phase("dryrun-multichip", **card_fields(t_phase),
+          devices=DRYRUN_DEVICES, equal_to_record="MULTICHIP_r05.json",
+          commitment=got[1].rsplit("=", 1)[1][:16],
+          rate_1_shard=round(rates[1], 1),
+          **{f"rate_{MESH_SHARDS}_shards": round(rates[MESH_SHARDS], 1)},
+          shared_card_retention=round(rates[MESH_SHARDS] / rates[1], 4))
+
+
+def checkpoint_mesh_phase(dev, path: pathlib.Path, config,
+                          n_cycles: int) -> None:
+    """checkpoint-mesh: the checkpoint phase's file loaded with mesh=
+    (MESH_SHARDS shards of the card) and run n_cycles with run_block,
+    equal to the same file loaded unsharded and run with run_cycles, every
+    field and the aggregates."""
+    t_phase = time.perf_counter()
+    one, _ = load_checkpoint(path)
+    t0 = time.perf_counter()
+    sharded, loaded_cfg = load_checkpoint(
+        path, mesh=make_mesh(devices=[dev] * MESH_SHARDS))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if loaded_cfg != config or len(sharded.shards) != MESH_SHARDS:
+        raise AssertionError("checkpoint-mesh: config or shards differ")
+    reset_counts()
+    sharded, agg = run_block(sharded, config, n_cycles)
+    torch.cuda.synchronize()
+    k1 = fused_cycle.K1_LAUNCHES
+    fused_cycle.run_cycles(one, config, n_cycles)
+    err = require_equal("checkpoint-mesh: sharded != unsharded resume",
+                        state_tensors(sharded.gather(dev)),
+                        state_tensors(one))
+    whole = block_aggregates(one, config)
+    if k1 == 0 or any(not torch.equal(agg[k], whole[k]) for k in whole):
+        raise AssertionError("checkpoint-mesh: launches or aggregates")
+    phase("checkpoint-mesh", **card_fields(t_phase), batch=config.batch,
+          shards=MESH_SHARDS, cycles=n_cycles, load_s=round(load_s, 3),
+          k1_launches=k1, max_abs_err=err, equal=True)
+
+
+def differential_phase(dev) -> int:
+    """differential: testing/differential.diff_run with the engine on the
+    card (K1's kLog and kPrecomp instances) against the port's golden
+    oracle, on the far-call programs with their contracts and the
+    keccak256 precompile programs (with and without the round-witness
+    queue).  Returns K1's launches."""
+    t_phase = time.perf_counter()
+    keccak_addr = params.KECCAK256_ROUND_FUNCTION_PRECOMPILE_ADDRESS
+
+    def pp_config(batch, cycles, **kw):
+        # tests/test_batched_precompiles.py::_config
+        return VmConfig(
+            batch=batch, queue_capacity=cycles * 8, heap_words=64,
+            stack_words=2048, code_words=64, max_depth=8, storage_slots=16,
+            journal_slots=32, event_slots=32, log_queue_capacity=cycles,
+            heap_frames=2, code_pages=2, decommit_queue_capacity=cycles,
+            precompile_keccak_blocks=3, precompile_sha_rounds=3, **kw)
+
+    runs = {
+        "far_calls": (log_programs.FAR_PROGRAMS,
+                      dict(contracts=log_programs.CONTRACTS, max_cycles=128)),
+        "precompile": (block_programs.KECCAK_PROGRAMS, dict(
+            config=pp_config(len(block_programs.KECCAK_PROGRAMS), 128),
+            max_cycles=128, entry_address=keccak_addr)),
+        "round_witness": (block_programs.ROUND_WITNESS_PROGRAMS, dict(
+            config=pp_config(len(block_programs.ROUND_WITNESS_PROGRAMS), 96,
+                             precompile_queue_capacity=15 * 4),
+            max_cycles=96, entry_address=keccak_addr)),
+    }
+    reset_counts()
+    lanes = 0
+    for programs_, kw in runs.values():
+        diff_run(programs_, device=dev, **kw)
+        lanes += len(programs_)
+    k1 = fused_cycle.K1_LAUNCHES
+    if k1 == 0 or fused_cycle.K1_PRECOMPILE_LAUNCHES == 0:
+        raise AssertionError("differential: K1 did not run on the card")
+    phase("differential", **card_fields(t_phase), sets=",".join(runs),
+          lanes=lanes, k1_launches=k1,
+          k1_precompile_launches=fused_cycle.K1_PRECOMPILE_LAUNCHES,
+          equal_to_golden=True)
+    return k1
+
+
+def batched_hashes_phase(dev) -> int:
+    """batched-hashes: ops.keccak.keccak256_batched (one K3 launch a rate
+    block) over HASH_MESSAGES messages of each HASH_LENGTHS length, against
+    the golden keccak256, and ops.sha256.sha256_blocks over SHA_MESSAGES
+    messages, against hashlib, on the card.  Returns K3's launches."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(17)
+    reset_counts()
+    n_blocks = 0
+    for length in HASH_LENGTHS:
+        msgs = [rng.bytes(length) for _ in range(HASH_MESSAGES)]
+        blocks = keccak.pad_messages(msgs)
+        n_blocks += blocks.shape[1]
+        got = keccak.digest_from_state(keccak.keccak256_batched(
+            torch.from_numpy(blocks.view(np.int32)).to(dev)))
+        if got != [golden_keccak256(m) for m in msgs]:
+            raise AssertionError(f"batched-hashes: keccak256 at {length} B")
+    k3 = keccak.K3_LAUNCHES
+    if k3 != n_blocks:
+        raise AssertionError(f"batched-hashes: {k3} K3 launches, "
+                             f"{n_blocks} blocks")
+    msgs = [rng.bytes(SHA_LENGTH) for _ in range(SHA_MESSAGES)]
+    padded = [m + b"\x80" + bytes((55 - len(m)) % 64)
+              + (8 * len(m)).to_bytes(8, "big") for m in msgs]
+    words = np.frombuffer(b"".join(padded), dtype=">u4").astype(np.uint32)
+    blocks = torch.from_numpy(words.view(np.int32).reshape(
+        SHA_MESSAGES, -1, 16)).to(dev)
+    out = sha256_blocks(blocks).cpu().numpy().view(np.uint32).astype(">u4")
+    if [row.tobytes() for row in out] != [hashlib.sha256(m).digest()
+                                          for m in msgs]:
+        raise AssertionError("batched-hashes: sha256")
+    phase("batched-hashes", **card_fields(t_phase),
+          keccak_messages=HASH_MESSAGES * len(HASH_LENGTHS),
+          keccak_lengths=",".join(map(str, HASH_LENGTHS)), k3_launches=k3,
+          sha256_messages=SHA_MESSAGES, sha256_blocks=blocks.shape[1],
+          equal_to_golden_and_hashlib=True)
+    return k3
 
 
 def sponge_blocks(streams) -> list:
@@ -1733,6 +2045,7 @@ def main() -> int:
         if errs != expect:
             raise AssertionError(f"lane_error {errs} != {expect}")
     phase("K1-small", programs=len(progs), cycles=48, modes="a,b", equal=True)
+    units_off_phase(dev)
 
     cfg_a = bench_config(B_FULL, rolling=False)
     wl = assemble(WORKLOAD)
@@ -1912,6 +2225,7 @@ def main() -> int:
               cycles_per_sec_sync=B_FULL * K / sync_s,
               plain_cycles_per_sec=plain_rate[mode], lane_errors=errors,
               equal_to_plain_lanes=n_ref, **extra)
+    mesh_k = mesh_phase(dev, results, {"a": entry_a, "b": entry_b})
     del results, entry_a, entry_b
 
     # -- K1's storage-enabled instance against plain --------------------
@@ -2342,6 +2656,9 @@ def main() -> int:
     checkpoint_phase(dev, resume)
     del resume
     trace_k1 = trace_phase(dev)
+    dryrun_phase(dev)
+    diff_k1 = differential_phase(dev)
+    hash_k3 = batched_hashes_phase(dev)
     sponge = sponge_phase(dev, sm_mhz, memory_streams, log_records)
     del memory_streams, log_records
     # block-tiny's commitments: one sponge launch for every family's
@@ -2364,6 +2681,9 @@ def main() -> int:
           K3_block_objects=objects["K3"],
           sponge_block_objects=objects["sponge"], K1_bootloader=boot_k1,
           K1_segmented_block=seg_k1, K1_debug_trace=trace_k1,
+          K1_mesh=mesh_k["K1"], K2_mesh=mesh_k["K2"],
+          sponge_mesh=mesh_k["sponge"], K1_differential=diff_k1,
+          K3_batched_hashes=hash_k3,
           **{f"sponge_{tag.replace('-', '_')}": v["sponge"]
              for tag, v in list(blocks.items())
              + [("block-realistic", launches_r)]})
@@ -2386,7 +2706,7 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": [
         kernel("K1 cycle_kernel, slice (a)", "cycle_kernel.cu", k1_src,
-               main_k1, k1_err, k1_ms, k1_plain_ms, k1_bound),
+               main_k1 + mesh_k["K1"], k1_err, k1_ms, k1_plain_ms, k1_bound),
         kernel("K1 cycle_kernel, slices (b) LOG and (c) FAR_CALL",
                "cycle_kernel.cu", k1_src, blocks["block-tiny"]["K1"],
                max(ks_err, kf_err, kw_err, seg_err),
@@ -2403,18 +2723,19 @@ def main() -> int:
                blocks["block-ecrecover"]["K1_ecrecover"],
                max(kes_err, ke_err), ke_ms, ke_plain_ms, ke_bound),
         kernel("K2 rolling_fold", "rolling_fold.cu",
-               "era_zk_evm_tpu/models/fused_cycle.py:3205", main_k2, k2_err,
-               k2_ms, k2_plain_ms, k2_bound),
+               "era_zk_evm_tpu/models/fused_cycle.py:3205",
+               main_k2 + mesh_k["K2"], k2_err, k2_ms, k2_plain_ms, k2_bound),
         kernel("K3/K4 keccak_f", "keccak_f.cu",
                "era_zk_evm_tpu/ops/keccak.py:292, era_zk_evm_tpu/ops/"
-               "keccak.py:371", blocks["block-tiny"]["K3"] + sq_k3, k3_err,
+               "keccak.py:371", blocks["block-tiny"]["K3"] + sq_k3 + hash_k3,
+               k3_err,
                k3_ms,
                k3_plain_ms,
                k3_bound),
         kernel("K3S keccak256 ragged sponge", "keccak_sponge.cu keccak.cuh",
                "era_zk_evm_tpu/ops/keccak.py:292, :371 (K3/K4) as driven by "
                "era_zk_evm_tpu/witness/packed.py:304 _absorb_ragged",
-               blocks["block-tiny"]["sponge"], *sponge),
+               blocks["block-tiny"]["sponge"] + mesh_k["sponge"], *sponge),
     ] + [kernel(f"{p} {name}", source, replaces, *probes[p])
          for p, name, source, replaces in (
         ("P1", "keccak_rows2d", "probe_keccak.cu keccak.cuh",

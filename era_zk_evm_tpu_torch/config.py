@@ -95,33 +95,22 @@ def from_jax_config(cfg) -> VmConfig:
 
 
 def check_slice(config: VmConfig) -> None:
-    """Raise NotImplementedError for configs outside the ported slice.
+    """Raise NotImplementedError for the one config outside the port: the
+    TPU-only `limb_major_arenas` layout.
 
-    The port covers the memory-witness path (every opcode family but LOG,
-    FAR_CALL and the precompiles, with the memory queue or the rolling
-    commitment) and, with `storage_slots > 0`, the LOG family and FAR_CALL
-    with their storage, journal and event slots, the log and decommit
-    witness queues, several heap frames and code pages, and the keccak256,
-    sha256 and ecrecover precompile units with their round-witness queue.
-    LOG and FAR_CALL set `lane_error` when `storage_slots == 0`, and
-    `log.precompile` does while `precompile_keccak_blocks == 0`, exactly as
-    the JAX engines do (they turn the units on by the keccak block count
-    alone; sha256 then runs at least one round, and an ecrecover config
-    with sha256 rounds but no keccak blocks runs no unit at all).
-
-    The couplings of the JAX `fused_cycle.supported()` hold: ecrecover, the
-    other units and the precompile queue each need the units and the LOG
-    unit (`storage_slots > 0`).  The rolling commitment may run beside the
-    memory queue, as in the JAX jnp engine (its fused engine refuses that
-    pair).  Still outside: the TPU-only `limb_major_arenas` layout.
+    Every other config runs as in the JAX jnp engine.  The LOG unit (the
+    LOG family and FAR_CALL, with their storage, journal and event slots
+    and the log and decommit witness queues) is on when `storage_slots >
+    0`; without it every LOG opcode and FAR_CALL sets `lane_error`.  The
+    precompile units (keccak256, sha256 and, with `precompile_ecrecover`,
+    ecrecover, with their round-witness queue) are on when the LOG unit is
+    and `precompile_keccak_blocks > 0` (the JAX engines turn them on by the
+    keccak block count alone: sha256 then runs at least one round, and
+    sha256 rounds without keccak blocks run no unit).  Without the units,
+    `log.precompile` sets `lane_error`, `precompile_ecrecover` is inert and
+    the precompile queue (`pq_*`) keeps its shapes and initial values.  The
+    rolling commitment may run beside the memory queue, as in the JAX jnp
+    engine (its fused engine refuses that pair).
     """
-    units = config.precompile_keccak_blocks > 0 \
-        or config.precompile_sha_rounds > 0
-    if units and config.storage_slots == 0:
-        raise NotImplementedError(
-            "the precompile units need the LOG unit (storage_slots > 0)")
-    for name in ("precompile_ecrecover", "precompile_queue_capacity"):
-        if getattr(config, name) and not (units and config.storage_slots):
-            raise NotImplementedError(f"{name} needs the precompile units")
     if config.limb_major_arenas:
         raise NotImplementedError("limb_major_arenas (a TPU-only layout)")

@@ -54,8 +54,11 @@ M16 = 0xFFFF
 
 
 def _rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """arr[b, idx[b]] per lane; an index outside [0, N) reads zeros."""
+    """arr[b, idx[b]] per lane; an index outside [0, N) reads zeros (N may
+    be 0: a config without journal or event slots)."""
     n = arr.shape[1]
+    if n == 0:
+        return arr.new_zeros((arr.shape[0],) + arr.shape[2:])
     ok = (idx >= 0) & (idx < n)
     lanes = torch.arange(arr.shape[0], device=arr.device)
     got = arr[lanes, idx.clamp(0, n - 1)]
@@ -68,6 +71,8 @@ def _put_rows(arr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     """arr[b, idx[b]] = val[b] in place where mask[b]; an index outside
     [0, N) writes nothing."""
     n = arr.shape[1]
+    if n == 0:
+        return
     m = mask & (idx >= 0) & (idx < n)
     lanes = torch.arange(arr.shape[0], device=arr.device)
     i = idx.clamp(0, n - 1)

@@ -6,10 +6,8 @@ reference layout with the JAX package's dtypes (`state.state_to_numpy`),
 and `config.json`, `dataclasses.asdict` of the `VmConfig`.  The two
 packages' `VmConfig`s have the same fields, so a checkpoint written by
 either package loads in the other.  Resume is bit-exact: the cycle step is
-a function of (state, config) alone.
-
-The JAX loader's `mesh=` re-shard on load belongs to the multi-device
-slice, which the port does not have yet.
+a function of (state, config) alone.  Multi-device runs re-shard on load
+by passing a mesh (`parallel.make_mesh`).
 """
 
 from __future__ import annotations
@@ -35,13 +33,18 @@ def save_checkpoint(path: str | pathlib.Path, state: BatchedVmState,
     (path / "config.json").write_text(json.dumps(dataclasses.asdict(config)))
 
 
-def load_checkpoint(path: str | pathlib.Path,
-                    device: torch.device | str = DEFAULT_DEVICE
-                    ) -> tuple[BatchedVmState, VmConfig]:
+def load_checkpoint(path: str | pathlib.Path, mesh=None,
+                    axis_name: str = "dp",
+                    device: torch.device | str = DEFAULT_DEVICE):
     """-> (state, config), the state on `device` (the card unless the
-    caller asks for another)."""
+    caller asks for another), or, given a mesh, a `parallel.ShardedState`
+    over it."""
     path = pathlib.Path(path)
     config = VmConfig(**json.loads((path / "config.json").read_text()))
     with np.load(path / "state.npz") as data:
-        state = state_from_numpy(data, device)
-    return state, config
+        if mesh is None:
+            return state_from_numpy(data, device), config
+        state = state_from_numpy(data, "cpu")
+    from ..parallel import shard_state
+
+    return shard_state(state, mesh, axis_name), config

@@ -18,8 +18,15 @@ sponge kernel (`csrc/keccak_sponge.cu`, K3 as the witness commitments drive
 it), counted in `K3S_LAUNCHES`; on a CPU tensor its plain version
 `keccak256_ragged_plain`, a loop over the rate blocks.
 
+The batched equal-length keccak256 of the JAX module: `pad_messages`
+(host, numpy) pads byte messages into rate blocks, `absorb_blocks` /
+`keccak256_batched` absorb them (the rate words XORed in with torch, then
+one K3 launch a block on the card, the plain version on the CPU) and
+`digest_from_state` reads the digests.
+
 `keccak256(bytes)` is the host reference over one byte string, on Python
-ints (`keccak_f1600_ints`, a copy of the golden permutation).
+ints (`keccak_f1600_ints`, the golden permutation's formulation with its
+index maps computed once).
 """
 
 from __future__ import annotations
@@ -27,31 +34,15 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
+# the iota round constants (FIPS 202) and the rho rotation offsets (flat
+# index x + 5 * y) are the port's golden oracle's
+from ..golden.precompiles import (
+    KECCAK_RATE_BYTES, KECCAK_RC, KECCAK_ROTATIONS,
+)
 from .u256 import M32, narrow
-
-#: iota round constants (FIPS 202), a copy of
-#: era_zk_evm_tpu/golden/precompiles.py KECCAK_RC
-KECCAK_RC = [
-    0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
-    0x8000000080008000, 0x000000000000808B, 0x0000000080000001,
-    0x8000000080008081, 0x8000000000008009, 0x000000000000008A,
-    0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
-    0x000000008000808B, 0x800000000000008B, 0x8000000000008089,
-    0x8000000000008003, 0x8000000000008002, 0x8000000000000080,
-    0x000000000000800A, 0x800000008000000A, 0x8000000080008081,
-    0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
-]
-
-#: rho rotation offsets, flat index x + 5 * y (KECCAK_ROTATIONS there)
-KECCAK_ROTATIONS = [
-    0, 1, 62, 28, 27,
-    36, 44, 6, 55, 20,
-    3, 10, 43, 25, 39,
-    41, 45, 15, 21, 8,
-    18, 2, 61, 56, 14,
-]
 
 K3_LAUNCHES = 0
 K3S_LAUNCHES = 0
@@ -282,7 +273,8 @@ def keccak256_ragged(words: torch.Tensor, offsets: torch.Tensor,
 
 def keccak_f1600_ints(state: list[int]) -> list[int]:
     """One permutation of 25 u64 lanes held as Python ints (flat x + 5y),
-    a copy of era_zk_evm_tpu/golden/precompiles.py keccak_f1600: the host
+    golden's `keccak_f1600` with the rho + pi and chi index maps computed
+    once (`tests/test_torch_golden.py` holds the two equal): the host
     reference's permutation, where a torch call a step costs more than the
     step."""
     a = list(state)
@@ -312,3 +304,64 @@ def keccak256(data: bytes) -> bytes:
                 padded[start + 8 * i:start + 8 * i + 8], "little")
         lanes = keccak_f1600_ints(lanes)
     return b"".join(x.to_bytes(8, "little") for x in lanes[:4])
+
+
+def pad_messages(messages: bytes | list[bytes]) -> np.ndarray:
+    """Host helper: pad byte messages (all the same length) into rate
+    blocks, keccak256's 0x01 ... 0x80 padding.
+
+    Returns uint32[B, n_blocks, 34] for `absorb_blocks`: each block is 17
+    u64 lanes as (lo, hi) pairs (lane k -> columns 2k, 2k + 1)."""
+    if isinstance(messages, (bytes, bytearray)):
+        messages = [bytes(messages)]
+    length = len(messages[0])
+    if any(len(m) != length for m in messages):
+        raise ValueError("pad_messages: uniform length required")
+    pad_len = KECCAK_RATE_BYTES - (length % KECCAK_RATE_BYTES)
+    if pad_len == 1:
+        pad = b"\x81"
+    else:
+        pad = b"\x01" + b"\x00" * (pad_len - 2) + b"\x80"
+    n_blocks = (length + pad_len) // KECCAK_RATE_BYTES
+    out = np.zeros((len(messages), n_blocks, 34), dtype=np.uint32)
+    for b, m in enumerate(messages):
+        padded = m + pad
+        for blk in range(n_blocks):
+            chunk = padded[blk * KECCAK_RATE_BYTES:
+                           (blk + 1) * KECCAK_RATE_BYTES]
+            for k in range(KECCAK_RATE_BYTES // 8):
+                lane = int.from_bytes(chunk[8 * k:8 * k + 8], "little")
+                out[b, blk, 2 * k] = lane & 0xFFFFFFFF
+                out[b, blk, 2 * k + 1] = lane >> 32
+    return out
+
+
+def absorb_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """Absorb padded rate blocks and return the final sponge states.
+
+    blocks: int32[B, n_blocks, 34] (`pad_messages`' words, u32 as int32)
+    -> int32[B, 25, 2].  Each block's rate words are XORed into the states
+    with torch, then permuted by `keccak_f1600_`: one K3 launch a block on
+    the card, the plain version on the CPU."""
+    if blocks.dim() != 3 or blocks.shape[2] != 34 \
+            or blocks.dtype != torch.int32:
+        raise ValueError(f"blocks: expected int32[B, n_blocks, 34], got "
+                         f"{blocks.dtype}{list(blocks.shape)}")
+    B, n_blocks, _ = blocks.shape
+    state = torch.zeros((B, 25, 2), dtype=torch.int32, device=blocks.device)
+    for blk in range(n_blocks):
+        state[:, :17] ^= blocks[:, blk].reshape(B, 17, 2)
+        keccak_f1600_(state)
+    return state
+
+
+def keccak256_batched(blocks: torch.Tensor) -> torch.Tensor:
+    """Full sponge over pre-padded blocks -> final states int32[B, 25, 2]."""
+    return absorb_blocks(blocks)
+
+
+def digest_from_state(state: torch.Tensor) -> list[bytes]:
+    """int32[B, 25, 2] -> per-lane 32-byte keccak256 digests (on the
+    host)."""
+    words = np.ascontiguousarray(state[:, :4].detach().cpu().numpy())
+    return [row.view(np.uint32).astype("<u4").tobytes() for row in words]

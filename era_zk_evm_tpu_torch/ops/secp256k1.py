@@ -27,10 +27,11 @@ to mirror the JAX formulas step by step:
     points) are resolved by selects, as in the JAX package.  Inversions and
     the square root are fixed-exponent powers over 4-bit windows.
 
-Python-int references, a copy of `era_zk_evm_tpu/golden/precompiles.py`'s
-secp256k1 section (`ecrecover_scalar` is its `ecrecover_inner`) and a
-signer, serve the test programs.  Inputs are u32 limbs `[B, 8]` (int32 or
-int64, see `ops/u256.py`); limb outputs are int64 holding u32.
+The curve constants and the Python-int references are the port's golden
+oracle's (`golden/precompiles.py`'s secp256k1 section: `ecrecover_scalar`
+is its `ecrecover_inner`); they and a signer serve the test programs.
+Inputs are u32 limbs `[B, 8]` (int32 or int64, see `ops/u256.py`); limb
+outputs are int64 holding u32.
 """
 
 from __future__ import annotations
@@ -38,13 +39,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..golden.precompiles import (  # noqa: F401 (re-exported references)
+    SECP_GX as GX_INT, SECP_GY as GY_INT, SECP_N as N_INT, SECP_P as P_INT,
+    _ec_mul as ec_mul, _inv_mod as inv_mod,
+    ecrecover_inner as ecrecover_scalar,
+)
 from .keccak import keccak256, keccak_f1600_lanes
 from .u256 import M32, wide
-
-P_INT = 2**256 - 2**32 - 977
-N_INT = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
-GX_INT = 0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798
-GY_INT = 0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8
 
 
 def to_limbs(x: int) -> list[int]:
@@ -417,69 +418,9 @@ def _ecrecover(digest, v, r, s):
 
 
 # ---------------------------------------------------------------------------
-# Python-int references: a copy of era_zk_evm_tpu/golden/precompiles.py's
-# secp256k1 section, and a signer for test vectors
+# a signer for test vectors (the Python-int references are golden's:
+# `ec_mul`, `inv_mod`, `ecrecover_scalar`, imported above)
 # ---------------------------------------------------------------------------
-
-def inv_mod(a: int, m: int) -> int:
-    return pow(a, -1, m)
-
-
-def ec_add(p, q):
-    if p is None:
-        return q
-    if q is None:
-        return p
-    (x1, y1), (x2, y2) = p, q
-    if x1 == x2 and (y1 + y2) % P_INT == 0:
-        return None
-    if p == q:
-        lam = (3 * x1 * x1) * inv_mod(2 * y1, P_INT) % P_INT
-    else:
-        lam = (y2 - y1) * inv_mod(x2 - x1, P_INT) % P_INT
-    x3 = (lam * lam - x1 - x2) % P_INT
-    y3 = (lam * (x1 - x3) - y1) % P_INT
-    return (x3, y3)
-
-
-def ec_mul(k: int, point):
-    result = None
-    addend = point
-    while k:
-        if k & 1:
-            result = ec_add(result, addend)
-        addend = ec_add(addend, addend)
-        k >>= 1
-    return result
-
-
-def ecrecover_scalar(digest: int, v: int, r: int, s: int) -> int | None:
-    """The recovered address as an int, or None on failure (v is the
-    recovery bit, 0 or 1)."""
-    if not (1 <= r < N_INT and 1 <= s < N_INT) or v not in (0, 1):
-        return None
-    x = r
-    if x >= P_INT:
-        return None
-    y_sq = (pow(x, 3, P_INT) + 7) % P_INT
-    y = pow(y_sq, (P_INT + 1) // 4, P_INT)
-    if (y * y) % P_INT != y_sq:
-        return None
-    if (y & 1) != v:
-        y = P_INT - y
-    r_point = (x, y)
-    r_inv = inv_mod(r, N_INT)
-    e = digest % N_INT
-    # Q = r^-1 (s*R - e*G)
-    q_point = ec_mul(
-        r_inv, ec_add(ec_mul(s, r_point), ec_mul((N_INT - e) % N_INT,
-                                                 (GX_INT, GY_INT))))
-    if q_point is None:
-        return None
-    qx, qy = q_point
-    pub = qx.to_bytes(32, "big") + qy.to_bytes(32, "big")
-    return int.from_bytes(keccak256(pub)[12:], "big")
-
 
 def _g_mul(k: int):
     """k G for 0 < k < n, in Jacobian Python ints with one inversion (the

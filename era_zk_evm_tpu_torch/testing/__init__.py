@@ -1,1 +1,3 @@
-"""Programs for driving the port without the JAX package's tests."""
+"""Programs for driving the port without the JAX package's tests, the
+golden-backed harness (`harness.py`, `differential.py`) and the debug
+trace."""

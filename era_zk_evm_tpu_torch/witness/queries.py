@@ -1,80 +1,14 @@
 """Witness query records and aux types (surface of `zk_evm_abstractions`).
 
-A copy of `era_zk_evm_tpu/golden/queries.py`: MemoryQuery / LogQuery /
-DecommittmentQuery, the aux enums and the flattened EventMessage.  U256
-values are Python ints.  `tests/test_torch_packed.py` holds the copy equal
-to its source.
+The port's one set of query classes is `golden/queries.py` (a copy of
+`era_zk_evm_tpu/golden/queries.py`): MemoryQuery / LogQuery /
+DecommittmentQuery, the aux enums and the flattened EventMessage, with U256
+values as Python ints.  This module re-exports them, so a stream the golden
+oracle builds and one the device readers build compare equal.
+`tests/test_torch_golden.py` holds the copy equal to its source.
 """
 
-from __future__ import annotations
-
-import dataclasses
-import enum
-
-
-class MemoryType(enum.IntEnum):
-    STACK = 0
-    HEAP = 1
-    AUX_HEAP = 2
-    FAT_POINTER = 3
-    CODE = 4
-
-
-@dataclasses.dataclass(frozen=True)
-class MemoryQuery:
-    timestamp: int
-    memory_type: MemoryType
-    page: int
-    index: int
-    value: int
-    value_is_pointer: bool
-    rw_flag: bool
-
-
-@dataclasses.dataclass(frozen=True)
-class LogQuery:
-    timestamp: int
-    tx_number_in_block: int
-    aux_byte: int
-    shard_id: int
-    address: int          # 160-bit address as int
-    key: int
-    read_value: int
-    written_value: int
-    rw_flag: bool
-    rollback: bool
-    is_service: bool
-
-    def with_(self, **kw) -> "LogQuery":
-        return dataclasses.replace(self, **kw)
-
-
-@dataclasses.dataclass(frozen=True)
-class DecommittmentQuery:
-    hash: int
-    timestamp: int
-    memory_page: int
-    decommitted_length: int
-    is_fresh: bool
-
-
-class RefundType(enum.Enum):
-    NONE = "none"
-    REPEATED_WRITE = "repeated_write"
-
-    def pubdata_refund(self) -> int:
-        # reference testing impl always returns None => refund 0
-        # (testing/storage.rs:80-86, log.rs:99-103)
-        return 0
-
-
-@dataclasses.dataclass(frozen=True)
-class EventMessage:
-    """Flattened event / L1 message (reference_impls/event_sink.rs:7-14)."""
-
-    shard_id: int
-    is_first: bool
-    tx_number_in_block: int
-    address: int
-    key: int
-    value: int
+from ..golden.queries import (  # noqa: F401
+    DecommittmentQuery, EventMessage, LogQuery, MemoryQuery, MemoryType,
+    RefundType,
+)

@@ -4,7 +4,10 @@ against the same call on the CPU (the keccak256 / sha256 mix and the
 signed-transfer mix), its objects form against its packed form on the
 card, the sorted queue and device fold on the card against the CPU, the
 segmented executor on K1 against the plain engine, a checkpoint loaded
-onto the card, and a debug trace on the card against the CPU's.
+onto the card, a debug trace on the card against the CPU's, the mesh's
+run_block on two shards of the card against one unsharded run, a config
+with the precompile units asked for and off on the card against the plain
+engine, and the golden differential harness with the engine on the card.
 
 Imports no jax, so it also runs on the GPU machine, where the suite's
 conftest (which configures jax) cannot load:
@@ -584,3 +587,65 @@ def test_trace_on_the_card_matches_the_cpu(cuda):
     assert traces[0] == traces[1]
     assert any("far_call" in s.asm for s in traces[0][0])
     assert not any(s.lane_error for s in traces[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rolling", [False, True])
+def test_run_block_on_two_shards_matches_unsharded(cuda, rolling):
+    """parallel.run_block on a mesh of [cuda:0] * 2 equals one unsharded
+    run on the card, every field and the aggregates."""
+    from era_zk_evm_tpu_torch.parallel import make_mesh, run_block, shard_state
+    from era_zk_evm_tpu_torch.parallel.mesh import block_aggregates
+
+    words = [programs.assemble(p) for p in programs.FAMILY_PROGRAMS.values()]
+    words += words[:len(words) % 2]
+    config = _config(len(words), rolling)
+    one = pstate.make_entry_state(config, words, ergs=1 << 20, device=cuda)
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * 2)
+    sharded = shard_state(pstate.clone_state(one), mesh)
+    before = fused_cycle.K1_LAUNCHES
+    sharded, agg = run_block(sharded, config, 48, k_inner=24)
+    assert fused_cycle.K1_LAUNCHES - before == 4
+    fused_cycle.run_cycles(one, config, 48, k_inner=24)
+    a = pstate.state_to_numpy(one)
+    b = pstate.state_to_numpy(sharded.gather(cuda))
+    bad = [k for k in a if not (a[k] == b[k]).all()]
+    assert not bad, f"sharded/unsharded mismatch in fields: {bad}"
+    want = block_aggregates(one, config)
+    for k in want:
+        assert torch.equal(agg[k].cpu(), want[k].cpu()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["X", "Y"])
+def test_units_off_config_on_the_card_matches_plain(cuda, name):
+    """Configs X and Y (testing/units_off.py: the precompile units,
+    ecrecover or a precompile queue asked for without what they need)
+    through K1 on the card, equal to the plain engine on the CPU."""
+    from era_zk_evm_tpu_torch.testing import units_off
+
+    config = units_off.configs(3)[name]
+    words = [programs.assemble(s) for s in units_off.PROGRAMS]
+    ks, ps = (pstate.make_entry_state(config, words, ergs=units_off.ERGS,
+                                      entry_address=units_off.ENTRY,
+                                      device=d) for d in (cuda, "cpu"))
+    before = fused_cycle.K1_LAUNCHES
+    fused_cycle.run_cycles(ks, config, units_off.N_CYCLES)
+    assert fused_cycle.K1_LAUNCHES - before == 1
+    fused_cycle.run_cycles(ps, config, units_off.N_CYCLES)
+    a, b = pstate.state_to_numpy(ks), pstate.state_to_numpy(ps)
+    bad = [k for k in a if not (a[k] == b[k]).all()]
+    assert not bad, f"kernel/plain mismatch in fields: {bad}"
+    assert a["lane_error"].tolist() == units_off.LANE_ERRORS[name]
+
+
+@pytest.mark.cuda
+def test_diff_run_on_the_card(cuda):
+    """The golden-backed differential harness with the engine on the card
+    (K1's kLog instance), on the far-call programs and their contracts."""
+    from era_zk_evm_tpu_torch.testing.differential import diff_run
+
+    before = fused_cycle.K1_LAUNCHES
+    diff_run(log_programs.FAR_PROGRAMS, contracts=log_programs.CONTRACTS,
+             max_cycles=128, device=cuda)
+    assert fused_cycle.K1_LAUNCHES > before

@@ -56,6 +56,7 @@ from test_torch_block import assert_same_block
 from test_torch_log import _words
 from test_torch_precompile import _assert_same, _jax_numpy, _method_programs
 from test_torch_secp256k1 import _nine_cases, one_intra_op_thread  # noqa: F401
+from test_torch_units_off import expect_lane_errors
 
 #: the block's chunk and the programs' one call: the programs end by cycle
 #: 35, and one chunk length keeps XLA at one compiled cycle program
@@ -211,14 +212,17 @@ def test_ecrecover_configs_are_in_the_slice(kw):
                                 {"precompile_ecrecover": True,
                                  "precompile_keccak_blocks": 2}])
 def test_ecrecover_without_its_couplings_raises(kw):
-    # supported() refuses ecrecover without the units or the LOG unit
+    # the JAX fused supported() refuses ecrecover without the units or the
+    # LOG unit; the JAX jnp engine runs it with the unit off, and so does
+    # the port (tests/test_torch_units_off.py holds that against JAX)
     storage = {"storage_slots": 4} if len(kw) == 1 else {}
     from era_zk_evm_tpu.models import VmConfig
 
     jc = VmConfig(batch=1, **storage, **kw)
     assert not supported(jc)
-    with pytest.raises(NotImplementedError):
-        check_slice(PVmConfig(batch=1, **storage, **kw))
+    pc = PVmConfig(batch=1, **storage, **kw)
+    assert not fused_cycle.ecrecover_instance(pc)
+    expect_lane_errors(pc)
 
 
 def test_ec_program_copies_equal_their_sources():

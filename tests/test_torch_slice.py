@@ -74,8 +74,9 @@ def test_port_imports_no_jax():
     # the CPU paths of the slices, a precompile block through execute_block
     # in both stream forms, the sorted queue, the bootloader block's net
     # states, the tool probes, a segmented run, a checkpoint and a debug
-    # trace included, then sys.modules: no jax and no module of the JAX
-    # package
+    # trace, a checkpoint loaded onto a mesh and run there, the multichip
+    # dry run, the batched hashes and a golden differential run included,
+    # then sys.modules: no jax and no module of the JAX package
     code = (
         "import sys, torch\n"
         "from era_zk_evm_tpu_torch.config import VmConfig\n"
@@ -174,6 +175,24 @@ def test_port_imports_no_jax():
         "    st, cfg = checkpoint.load_checkpoint(d, device='cpu')\n"
         "st, traces = debug_trace.trace_cycles(st, cfg, 2, lanes=[0])\n"
         "assert len(traces[0]) == 2 and got['log'][0]\n"
+        "from era_zk_evm_tpu_torch.parallel import make_mesh, shard_state\n"
+        "from era_zk_evm_tpu_torch.parallel.dryrun import dryrun_multichip\n"
+        "from era_zk_evm_tpu_torch.parallel.fused import run_block_fused\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    checkpoint.save_checkpoint(d, st, cfg)\n"
+        "    sh, cfg = checkpoint.load_checkpoint(\n"
+        "        d, mesh=make_mesh(devices=['cpu'] * 2))\n"
+        "sh, agg = run_block_fused(sh, cfg, 2, sh.mesh)\n"
+        "assert int(agg['error_lanes']) == 0\n"
+        "dryrun_multichip(2, devices=['cpu'] * 2, scaling=False)\n"
+        "from era_zk_evm_tpu_torch.ops import keccak as k, sha256 as h\n"
+        "k.digest_from_state(k.keccak256_batched(torch.from_numpy(\n"
+        "    k.pad_messages([b'abc']).view('int32'))))\n"
+        "h.sha256_blocks(torch.zeros((1, 1, 16), dtype=torch.int32))\n"
+        "from era_zk_evm_tpu_torch.testing import differential\n"
+        "from era_zk_evm_tpu_torch.testing import vm_programs as vp\n"
+        "differential.diff_run(vp.BASIC_PROGRAMS[:1], max_cycles=16,\n"
+        "                      device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'era_zk_evm_tpu' or m.startswith('era_zk_evm_tpu.')]\n"
         "assert not bad, f'the port imported {bad}'\n"
