@@ -8,6 +8,9 @@ Phases, one line each; any failure raises and the exit code is nonzero:
   build         compiles K1, K2, K3, the sponge and the probes from the
                 sources in this tree; the ptxas lines and K1's block size at
                 B = 4096 and 32768 (its grid must span the card's SMs);
+  native        the port's copy of the C++ scalar oracle (native/), built
+                with g++ on the card's host beside the nvcc build: the g++
+                version and the build's seconds;
   K1-small      K1 against its plain torch version on the family programs
                 (both memory-witness modes), every state field equal;
   units-off     configs X and Y of testing/units_off.py (the precompile
@@ -28,6 +31,11 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 B = 32768, WORKLOAD): 8 chained 128-cycle calls with a queue
                 rewind between them, both modes; lanes 0..7 equal to a plain
                 CPU run of the same calls;
+  native-baseline  the oracle's single-core witness-traced cycles/s on the
+                card's host, run on WORKLOAD as bench.py's
+                measure_native_baseline runs it (one call), with the host's
+                CPU model and vs_native, main-a's pipelined cycles/s over
+                it;
   mesh          parallel.run_block on 4 shards of the card (8192 lanes a
                 shard), main-a's and main-b's calls again: every gathered
                 field equal to the unsharded main-path state, the aggregates
@@ -48,9 +56,14 @@ Phases, one line each; any failure raises and the exit code is nonzero:
   K1-fuzz       tests/test_torch_fuzz.py's two campaigns (random
                 programs; random far-call scenarios with their contracts),
                 each cycled over B = 4096 lanes, 160 cycles kernel vs plain;
+                each distinct program's first lane against the native
+                oracle (native.compare.compare_lanes: status, cycles,
+                registers, tags, flags, heap, the memory, log and decommit
+                streams);
   K3            chained keccak-f against plain at N = 131072 x 1 and
                 65536 x 4; times at bench_keccak's and
-                bench_keccak_u32pair's shapes;
+                bench_keccak_u32pair's shapes, and the plain version's
+                at the second, equal;
   P1 ... P7     the tool probes (era_zk_evm_tpu_torch/tools/): each kernel
                 against its plain version on the card, small and at the
                 tools' shapes where the plain version is quick; then the
@@ -77,14 +90,18 @@ Phases, one line each; any failure raises and the exit code is nonzero:
   K1-precompile-small  K1's precompile instance (keccak256 / sha256 units,
                 round-witness rows spliced at the block clock) against plain
                 on the precompile test programs and the precompile mix,
-                chunks of 8 cycles, every field;
+                chunks of 8 cycles, every field; every lane against the
+                native oracle as in K1-fuzz;
   K1-precompile bench_storage's geometry with the units on, B = 32768, the
                 precompile mix: one 128-cycle call kernel vs plain over the
                 whole batch, timed, with its bound;
   K1-ecrecover-small  K1's ecrecover instance (the secp256k1 unit in the
                 cycle, two round-witness out rows) against plain on the
                 ecrecover test programs and the signed-transfer mix, chunks
-                of 8 cycles, every field;
+                of 8 cycles, every field; EC_ORACLE_LANES of them against
+                the native oracle (its recovery is correctness-grade
+                shift-add arithmetic, seconds a signature: the rejected
+                edge cases and one signed transfer);
   K1-ecrecover  the same geometry with ecrecover on, B = 32768, every lane a
                 signed transfer whose recovery falls in cycle 9: one
                 128-cycle call kernel vs plain over the whole batch, then
@@ -183,12 +200,13 @@ import pathlib
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
-from era_zk_evm_tpu_torch import _build
+from era_zk_evm_tpu_torch import _build, native
 from era_zk_evm_tpu_torch.block import TxSpec, commit_block, execute_block
 from era_zk_evm_tpu_torch.config import VmConfig, precompile_queue_slots
 from era_zk_evm_tpu_torch.golden.precompiles import (
@@ -207,6 +225,7 @@ from era_zk_evm_tpu_torch.models.state import (
     FIELD_NAMES, LANE_AXIS, clone_state, make_entry_state, populate_code_bank,
     populate_storage, reference_view,
 )
+from era_zk_evm_tpu_torch.native.compare import compare_lanes
 from era_zk_evm_tpu_torch.ops import keccak, secp256k1
 from era_zk_evm_tpu_torch.ops.goldilocks import gl_reduce64
 from era_zk_evm_tpu_torch.ops.sha256 import sha256_blocks
@@ -250,10 +269,13 @@ FULL_ERGS = (1 << 31) - 1
 B_FARCALL, FARCALL_CYCLES = 16384, 144
 B_WAVE, WAVE_SEGMENT = 4096, 256
 WAVE_FRACS = {"memory": 0.125, "log": 0.5}   # bench_block's drain budgets
-#: K3 against plain at (states, iters); K3 timed at bench.py's keccak shapes
+#: K3 against plain at (states, iters); K3 timed at bench.py's keccak
+#: shapes, and its plain version at the second (one plain call at the
+#: first takes seconds)
 K3_CHECKS = ((131072, 1), (65536, 4))
 K3_BENCH = (("bench_keccak", 65536, 2048),
             ("bench_keccak_u32pair", 131072, 128))
+K3_PLAIN_BENCH = "bench_keccak_u32pair"
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
 INT32_LANES = 132 * 64                        # SMs x int32 lanes per SM
 #: a lower count of the int32 operations of one lane-cycle of K1: fetching
@@ -298,6 +320,15 @@ SPONGE_PLAIN_BLOCKS = 2048
 #: block-objects: the tiny mix's txs; sorted-queue: lanes held against the
 #: host references; net-states-by-tx: lanes held against a CPU run
 OBJECTS_TXS, SQ_HOST_LANES, NET_CPU_LANES = 2 * 4096, 256, 64
+#: K1-ecrecover-small's lanes held against the native oracle: the edge
+#: cases it rejects before recovering (short of ergs, r or s zero or n, r
+#: off the curve; the output window past the frame, lane 14, stops out of
+#: bounds on both sides and is compared on its status alone) and the first
+#: signed transfer of the mix, one recovery (seconds of host time)
+EC_ORACLE_LANES = (3, 4, 5, 6, 7, 8, 14, 15)
+#: bench.py's measure_native_baseline (bench.py:112-125)
+BASELINE_RUN = dict(ergs=(1 << 31) - 1, max_cycles=350_000,
+                    witness_cap=1 << 21, collect_witness=True)
 #: segmented-block: the segment (max_depth 31: segment <= (31 - 3) // 2),
 #: the one-shot run's cycles (more than the slowest lane needs), the lanes
 #: held against the plain engine; debug-trace: lanes and cycles traced
@@ -502,6 +533,43 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def cpu_model() -> str:
+    """The host CPU's model name from /proc/cpuinfo, with its vendor,
+    family, model and stepping (a virtualised host may name it "unknown")
+    and the processor count."""
+    fields, n = {}, 0
+    for line in pathlib.Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, value = (x.strip() for x in line.partition(":"))
+        n += key == "processor"
+        fields.setdefault(key, value)
+    return (f"{fields.get('model name', '?')} ({fields.get('vendor_id', '?')}"
+            f" family {fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')} stepping "
+            f"{fields.get('stepping', '?')}, {n} processors)")
+
+
+def oracle_lanes(words: list, entries: list, config: VmConfig,
+                 max_cycles: int, lanes) -> tuple[list, float]:
+    """The native oracle on the programs of `lanes` (ergs 1 << 20, the
+    config's heap), and its seconds."""
+    t0 = time.perf_counter()
+    out = [native.run_oracle(words[i], entry_address=entries[i],
+                             ergs=1 << 20, max_cycles=max_cycles,
+                             heap_words=config.heap_words)
+           for i in lanes]
+    return out, time.perf_counter() - t0
+
+
+def require_oracle_equal(what: str, state, results: list, lanes) -> int:
+    """K1's `lanes` against the oracle's results; the number of lanes
+    compared in full (the rest erred on both sides: status alone)."""
+    diffs, full = compare_lanes(state, results, lanes)
+    if diffs:
+        raise AssertionError(f"{what}: K1 != native oracle in {len(diffs)} "
+                             f"observables: {diffs[:8]}")
+    return full
 
 
 def pow_modmuls(e: int) -> int:
@@ -2013,6 +2081,19 @@ def main() -> int:
           cuda=torch.version.cuda, sm_max_mhz=sm_mhz)
 
     # -- build ---------------------------------------------------------
+    # the oracle's g++ build runs beside nvcc's
+    oracle = {}
+
+    def build_oracle():
+        t = time.perf_counter()
+        try:
+            oracle["lib"] = native.build()
+        except Exception as exc:       # raised on the main thread below
+            oracle["error"] = exc
+        oracle["seconds"] = time.perf_counter() - t
+
+    oracle_thread = threading.Thread(target=build_oracle)
+    oracle_thread.start()
     t0 = time.time()
     lib_path = _build.build()
     _build.load()
@@ -2027,6 +2108,14 @@ def main() -> int:
     phase("build", seconds=round(time.time() - t0, 2),
           lib=lib_path.parent.name, ptxas=" | ".join(regs), sms=sms,
           k1_threads=threads)
+    t0 = time.time()
+    oracle_thread.join()
+    if "error" in oracle:
+        raise oracle["error"]
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    phase("native", gxx=repr(gxx), build_seconds=round(oracle["seconds"], 2),
+          lib=oracle["lib"].parent.name, seconds=round(time.time() - t0, 2))
 
     # -- K1 against plain, memory-witness slice -------------------------
     progs = list(FAMILY_PROGRAMS.values())
@@ -2225,6 +2314,22 @@ def main() -> int:
               cycles_per_sec_sync=B_FULL * K / sync_s,
               plain_cycles_per_sec=plain_rate[mode], lane_errors=errors,
               equal_to_plain_lanes=n_ref, **extra)
+
+    # -- the native oracle's single-core baseline on the card's host -----
+    t0 = time.time()
+    base = native.run_oracle(wl, **BASELINE_RUN)
+    if base["status"] != native.ST_DONE or base["run_seconds"] <= 0:
+        raise AssertionError(f"native baseline: status {base['status']}")
+    native_rate = base["cycles"] / base["run_seconds"]
+    main_a_rate = B_FULL * K / results["a"][2]
+    phase("native-baseline", cycles=base["cycles"],
+          witness_records=base["witness_count"],
+          run_seconds=base["run_seconds"], cycles_per_sec=native_rate,
+          cpu=repr(cpu_model()), card=repr(card),
+          main_a_cycles_per_sec=main_a_rate,
+          vs_native=main_a_rate / native_rate,
+          seconds=round(time.time() - t0, 2))
+    del base
     mesh_k = mesh_phase(dev, results, {"a": entry_a, "b": entry_b})
     del results, entry_a, entry_b
 
@@ -2322,8 +2427,10 @@ def main() -> int:
 
     # -- the fuzz campaigns (tests/test_torch_fuzz.py's programs) ---------
     # kernel against plain, each campaign's programs cycled over B_BLOCK
-    # lanes; the CPU tests hold the plain engine to the native oracle
+    # lanes, and each distinct program's first lane against the native
+    # oracle, as tests/test_torch_fuzz.py holds the plain engine
     fz_err, fz_fields = 0, {}
+    fz_native, fz_native_s = 0, 0.0
     for name in ("random", "far_call"):
         cfg_z, ks = fuzz_programs.entry_state(name, B_BLOCK, dev)
         ps = clone_state(ks)
@@ -2339,26 +2446,51 @@ def main() -> int:
                                  f"{done} done")
         fz_fields[f"{name}_log_rows"] = int(ks.lq_count.sum())
         fz_fields[f"{name}_decommits"] = int(ks.dq_count.sum())
+        t0 = time.perf_counter()
+        _, words_z, bank, entries = fuzz_programs.campaign(name)
+        want = [native.run_oracle(
+            w, ergs=fuzz_programs.ERGS, max_cycles=fuzz_programs.MAX_CYCLES,
+            witness_cap=fuzz_programs.MAX_CYCLES * 8, contracts=bank,
+            storage_entries=list(entries)) for w in words_z]
+        if any(w["status"] != native.ST_DONE for w in want):
+            raise AssertionError(f"K1 fuzz {name}: oracle statuses "
+                                 f"{[w['status'] for w in want]}")
+        fz_native += require_oracle_equal(f"K1 fuzz {name}", ks, want,
+                                          range(len(words_z)))
+        fz_native_s += time.perf_counter() - t0
         del ks, ps
     kf_err = max(kf_err, fz_err)
     phase("K1-fuzz", batch=B_BLOCK, cycles=fuzz_programs.MAX_CYCLES,
-          equal=True, **fz_fields)
+          equal=True, native_equal_lanes=fz_native,
+          native_seconds=round(fz_native_s, 3), **fz_fields)
 
     # -- K1's precompile instance against plain -------------------------
     pp_lanes = list(block_programs.PRECOMPILE_LANES) + [
         (e, src) for e, src, *_ in block_programs.precompile_mix(17, seed=3)]
     cfg_ps = precompile_small_config(len(pp_lanes))
-    ks = make_entry_state(cfg_ps, [assemble(src) for _, src in pp_lanes],
-                          ergs=1 << 20,
-                          entry_address=[e for e, _ in pp_lanes], device=dev)
+    pp_words = [assemble(src) for _, src in pp_lanes]
+    pp_entries = [e for e, _ in pp_lanes]
+    ks = make_entry_state(cfg_ps, pp_words, ergs=1 << 20,
+                          entry_address=pp_entries, device=dev)
     ps = clone_state(ks)
     fused_cycle.run_cycles(ks, cfg_ps, 96, k_inner=8)
     batched_vm.run_cycles(ps, cfg_ps, 96)
     torch.cuda.synchronize()
     kps_err = require_equal("K1 precompile programs", state_tensors(ks),
                             state_tensors(ps))
+    want, pp_native_s = oracle_lanes(pp_words, pp_entries, cfg_ps, 96,
+                                     range(len(pp_lanes)))
+    pp_full = require_oracle_equal("K1 precompile programs", ks, want,
+                                   range(len(pp_lanes)))
+    if pp_full != len(pp_lanes):
+        raise AssertionError(f"K1 precompile programs: {pp_full} of "
+                             f"{len(pp_lanes)} lanes compared in full")
     phase("K1-precompile-small", lanes=len(pp_lanes), cycles=96, k_inner=8,
-          equal=True, pq_rows=int(ks.pq_count.sum()),
+          equal=True, native_equal_lanes=pp_full,
+          native_max_cycles_lanes=sum(
+              w["status"] == native.ST_MAX_CYCLES for w in want),
+          native_seconds=round(pp_native_s, 3),
+          pq_rows=int(ks.pq_count.sum()),
           pq_blocks=int(ks.pq_blocks[0]),
           lane_errors=int(ks.lane_error.sum()))
     del ks, ps
@@ -2411,9 +2543,10 @@ def main() -> int:
     ec_lanes = ec_programs.EC_LANES + [
         (e, src) for e, src, *_ in ec_programs.ecrecover_mix(17, seed=3)]
     cfg_es = ecrecover_small_config(len(ec_lanes))
-    ks = make_entry_state(cfg_es, [assemble(src) for _, src in ec_lanes],
-                          ergs=1 << 20,
-                          entry_address=[e for e, _ in ec_lanes], device=dev)
+    ec_words = [assemble(src) for _, src in ec_lanes]
+    ec_entries = [e for e, _ in ec_lanes]
+    ks = make_entry_state(cfg_es, ec_words, ergs=1 << 20,
+                          entry_address=ec_entries, device=dev)
     ps = clone_state(ks)
     fused_cycle.run_cycles(ks, cfg_es, 96, k_inner=8)
     batched_vm.run_cycles(ps, cfg_es, 96)
@@ -2424,8 +2557,15 @@ def main() -> int:
     if int(ks.lane_error.sum()) != 1 or int(ks.pq_count.sum()) == 0:
         raise AssertionError(f"K1-ecrecover-small: lane_error "
                              f"{ks.lane_error.tolist()}")
+    want, ec_native_s = oracle_lanes(ec_words, ec_entries, cfg_es, 96,
+                                     EC_ORACLE_LANES)
+    ec_full = require_oracle_equal("K1 ecrecover programs", ks, want,
+                                   EC_ORACLE_LANES)
     phase("K1-ecrecover-small", lanes=len(ec_lanes), cycles=96, k_inner=8,
-          equal=True, pq_rows=int(ks.pq_count.sum()),
+          equal=True, native_equal_lanes=ec_full,
+          native_status_only_lanes=len(EC_ORACLE_LANES) - ec_full,
+          native_seconds=round(ec_native_s, 3),
+          pq_rows=int(ks.pq_count.sum()),
           pq_blocks=int(ks.pq_blocks[0]),
           lane_errors=int(ks.lane_error.sum()))
     del ks, ps
@@ -2492,20 +2632,29 @@ def main() -> int:
         if iters == 1:
             k3_n, k3_ms, k3_plain_ms = n, ms, plain_ms
     k3_bound = bound_ms(2 * k3_n * 200, k3_n * KECCAK_OPS, sm_mhz)
-    rates = {}
+    rates, bench_plain_ms = {}, None
     for name, n, iters in K3_BENCH:
         states = torch.ones((n, 25, 2), dtype=torch.int32, device=dev)
         keccak.keccak_f1600(states, iters)
-        ms = timed_ms(lambda: keccak.keccak_f1600(states, iters))
+        box = {}
+        ms = timed_ms(lambda: box.setdefault(
+            "k", keccak.keccak_f1600(states, iters)))
+        if name == K3_PLAIN_BENCH:
+            bench_plain_ms = timed_ms(lambda: box.setdefault(
+                "p", keccak.keccak_f1600_plain(states, iters)))
+            k3_err = max(k3_err, require_equal(
+                f"K3 {name}", {"states": box["k"]}, {"states": box["p"]}))
         rates[name] = (ms, n * iters / (ms / 1e3),
                        bound_ms(2 * n * 200, n * iters * KECCAK_OPS,
                                 sm_mhz)[0])
+        del box
     phase("K3", equal=True, checked=K3_CHECKS, n_x1=k3_n,
           ms_x1=round(k3_ms, 4), plain_ms_x1=round(k3_plain_ms, 3),
           bound_ms_x1=round(k3_bound[0], 4), bound_by=k3_bound[1],
           **{f"{k}_ms": round(v[0], 3) for k, v in rates.items()},
           **{f"{k}_perms_per_sec": v[1] for k, v in rates.items()},
-          **{f"{k}_bound_ms": round(v[2], 3) for k, v in rates.items()})
+          **{f"{k}_bound_ms": round(v[2], 3) for k, v in rates.items()},
+          **{f"{K3_PLAIN_BENCH}_plain_ms": round(bench_plain_ms, 3)})
 
     # -- the tool probes P1-P7 ------------------------------------------
     probes = probe_phases(dev, sm_mhz, lib_path)

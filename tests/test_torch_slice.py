@@ -75,8 +75,9 @@ def test_port_imports_no_jax():
     # in both stream forms, the sorted queue, the bootloader block's net
     # states, the tool probes, a segmented run, a checkpoint and a debug
     # trace, a checkpoint loaded onto a mesh and run there, the multichip
-    # dry run, the batched hashes and a golden differential run included,
-    # then sys.modules: no jax and no module of the JAX package
+    # dry run, the batched hashes, a golden differential run and the native
+    # oracle (built, loaded and run) included, then sys.modules: no jax and
+    # no module of the JAX package
     code = (
         "import sys, torch\n"
         "from era_zk_evm_tpu_torch.config import VmConfig\n"
@@ -193,6 +194,11 @@ def test_port_imports_no_jax():
         "from era_zk_evm_tpu_torch.testing import vm_programs as vp\n"
         "differential.diff_run(vp.BASIC_PROGRAMS[:1], max_cycles=16,\n"
         "                      device='cpu')\n"
+        "from era_zk_evm_tpu_torch.native import ST_DONE, run_oracle\n"
+        "from era_zk_evm_tpu_torch.testing import fuzz_programs as fz\n"
+        "out = run_oracle(fz.campaign('random')[1][0], ergs=fz.ERGS,\n"
+        "                 max_cycles=fz.MAX_CYCLES)\n"
+        "assert out['status'] == ST_DONE and out['cycles'] > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'era_zk_evm_tpu' or m.startswith('era_zk_evm_tpu.')]\n"
         "assert not bad, f'the port imported {bad}'\n"
