@@ -5,9 +5,11 @@
 
 Phases, one line each; any failure raises and the exit code is nonzero:
   device        a CUDA card is required; prints its name and power limit;
-  build         compiles K1, K2, K3, the sponge and the probes from the
-                sources in this tree; the ptxas lines and K1's block size at
-                B = 4096 and 32768 (its grid must span the card's SMs);
+  build         compiles K1, K2, K3, the sponge, the splice and the probes
+                from the sources in this tree; the ptxas lines (by kernel for
+                K1, K2, the splice and the ecrecover unit alone) and K1's
+                block size at B = 4096 and 32768 (its grid must span the
+                card's SMs);
   native        the port's copy of the C++ scalar oracle (native/), built
                 with g++ on the card's host beside the nvcc build: the g++
                 version and the build's seconds;
@@ -93,8 +95,9 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 chunks of 8 cycles, every field; every lane against the
                 native oracle as in K1-fuzz;
   K1-precompile bench_storage's geometry with the units on, B = 32768, the
-                precompile mix: one 128-cycle call kernel vs plain over the
-                whole batch, timed, with its bound;
+                precompile mix: one 128-cycle call (K1 and the splice
+                kernel) kernel vs plain over the whole batch, timed, with
+                its bound;
   K1-ecrecover-small  K1's ecrecover instance (the secp256k1 unit in the
                 cycle, two round-witness out rows) against plain on the
                 ecrecover test programs and the signed-transfer mix, chunks
@@ -105,7 +108,17 @@ Phases, one line each; any failure raises and the exit code is nonzero:
   K1-ecrecover  the same geometry with ecrecover on, B = 32768, every lane a
                 signed transfer whose recovery falls in cycle 9: one
                 128-cycle call kernel vs plain over the whole batch, then
-                two more from the same entry state timed, with its bound;
+                two more from the same entry state timed, with its bound
+                (the unit's own field operations, ecrecover_counts) and the
+                old algorithm's (a Shamir ladder, ladder_modmuls); the unit
+                alone (ops.secp256k1.ecrecover_unit) on the same 32768
+                signatures, timed, its first 2048 against plain;
+  pq-splice     the round-witness splice kernel (csrc/pq_splice.cu)
+                against its plain version on the card, every field it
+                touches, on K1-precompile's and K1-ecrecover's scratch
+                blocks at B = 32768 and on K1-ecrecover's again with the
+                clock started near the capacity (overflow); times, the
+                bound of its bytes;
   block-tiny    execute_block at bench_block's tiny-mix shape and knobs
                 (B = 4096, 8192 txs): a warm run, a timed run (txs/s,
                 utilization, the scheduler's profile) and a run under
@@ -179,8 +192,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 latency), and the kernel's time on the whole streams; the
                 log fingerprints through K3 and through the sponge, timed
                 and equal;
-  launches      K1 (each instance), K2, K3 and the sponge launched on their
-                main paths; block-tiny's sponge and K3 launches at most two
+  launches      K1 (each instance), K2, K3, the sponge and the splice
+                launched on their main paths; block-tiny's sponge and K3 launches at most two
                 a queue family and one; K3's on block-tiny and the sorted
                 queue.
 The card's name and power limit come on a line of their own, the kernels'
@@ -236,8 +249,8 @@ from era_zk_evm_tpu_torch.parallel.fused import run_block_fused
 from era_zk_evm_tpu_torch.parallel.mesh import block_aggregates
 from era_zk_evm_tpu_torch.parallel.scaling import measure
 from era_zk_evm_tpu_torch.testing import (
-    block_programs, ec_programs, fuzz_programs, log_programs, spill_programs,
-    units_off, witness_programs,
+    block_programs, ec_programs, fuzz_programs, log_programs, splice_cases,
+    spill_programs, units_off, witness_programs,
 )
 from era_zk_evm_tpu_torch.testing.debug_trace import trace_cycles
 from era_zk_evm_tpu_torch.testing.differential import diff_run
@@ -291,13 +304,30 @@ KECCAK_OPS = 24 * 180
 #: rotate and a 3-input logic op as one: per round 17 (two Sigma at 4, ch
 #: and maj at 1, 7 adds), per scheduled word 11, and the 8 final adds
 SHA256_OPS = 64 * 17 + 48 * 11 + 8
-#: int32 operations of one 256-bit modular multiplication, a lower count:
-#: 64 limb products at 4 each (multiply low and high, two carry-adds), the
-#: fold of the high half by 2**32 + 977 (16 products) and a final compare
-#: and subtraction (16)
-MODMUL_OPS = 64 * 4 + 16 * 4 + 16
+#: int32 operations of one 256-bit modular multiplication in the ecrecover
+#: unit's earlier design (a square-and-multiply ladder), a lower count: 64
+#: limb products at 4 each (multiply low and high, two carry-adds), the fold
+#: of the high half by 2**32 + 977 (16 products) and a final compare and
+#: subtraction (16); it prices the old algorithm's bound, printed beside
+#: the new one
+LADDER_MODMUL_OPS = 64 * 4 + 16 * 4 + 16
+#: int32 operations of the unit's arithmetic (csrc/secp256k1.cuh), lower
+#: counts: the 512-bit product, a mad.lo and a madc.hi a limb product and
+#: an addc a row; the square, 28 cross products at 2, their 7 rows' addc,
+#: the doubling (16) and the 8 squares (16); the reduction mod p, a
+#: multiply-add and two carried adds a limb (fold 1), 8 carries (fold 2),
+#: the conditional subtraction's 8 adds and 8 selects; mod n, the three
+#: folds' 8 x 5, 5 x 5 and 1 x 5 limb products at 2 each and the
+#: subtraction's 16
+MUL512_OPS = 64 * 2 + 8
+SQR512_OPS = 28 * 2 + 7 + 16 + 16
+RED_P_OPS = 8 * 4 + 8 + 16
+RED_N_OPS = 2 * (8 * 5 + 5 * 5 + 5) + 16
+#: the unit's point formulas: (multiplications, squares) mod p
+DBL_MS, MADD_MS = (2, 5), (8, 3)
 B_BLOCK, TAIL_MULT, CHECK_TXS, CHECK_BATCH = 4096, 4, 256, 64
 EC_CHECK_TXS = 64                 # block-ecrecover's CPU check: one wave
+UNIT_PLAIN = 2048                 # the unit alone: lanes held to plain
 #: bench_block's knobs (bench.py:653-660) at its tiny-mix chunk
 BLOCK_KNOBS = dict(chunk=64, k_inner=64, refill_frac=0.25, order="cost_desc",
                    tail_chunk_mult=TAIL_MULT, adaptive_chunk=True,
@@ -577,9 +607,10 @@ def pow_modmuls(e: int) -> int:
     return e.bit_length() - 1 + e.bit_count() - 1
 
 
-def ecrecover_modmuls(digest: int, r: int, s: int) -> int:
+def ladder_modmuls(digest: int, r: int, s: int) -> int:
     """Modular multiplications that one recovery of a valid signature needs
-    in the kernel's own algorithm (csrc/secp256k1.cuh), at its least: r^3
+    in the unit's earlier design (a Shamir ladder, square-and-multiply
+    powers), at its least: r^3
     (2), the square root's power, its check (1), the power for 1 / r, u1
     and u2 (2), G + R (16), the ladder over u1 and u2 from their top bit (a
     doubling at 7 per further bit, an addition at 16 per further bit set in
@@ -594,17 +625,182 @@ def ecrecover_modmuls(digest: int, r: int, s: int) -> int:
             + ladder + pow_modmuls(p - 2) + 4)
 
 
-def ecrecover_ops(signatures) -> int:
+def ladder_ops(signatures) -> int:
     """int32 operations of the recoveries of `signatures` ((digest, v, r,
-    s) each): their multiplications and the keccak-f of each public key."""
+    s) each) in the old algorithm: its multiplications and the keccak-f of
+    each public key (the earlier design's bound, printed beside the new
+    one)."""
     muls = {}
     total = 0
     for digest, _, r, s in signatures:
         key = (digest, r, s)
         if key not in muls:
-            muls[key] = ecrecover_modmuls(digest, r, s)
-        total += muls[key] * MODMUL_OPS + KECCAK_OPS
+            muls[key] = ladder_modmuls(digest, r, s)
+        total += muls[key] * LADDER_MODMUL_OPS + KECCAK_OPS
     return total
+
+
+def chain_counts(e: int) -> tuple[int, int]:
+    """(squares, multiplications) of the unit's addition chain for x ** e
+    (`_build.pow_chain`)."""
+    builds, runs, tail = _build.pow_chain(e)
+    return (sum(b for _, _, b in builds) + sum(z + r for z, r in runs[1:])
+            + tail, len(builds) + len(runs) - 1)
+
+
+def ecrecover_counts(digest: int, v: int, r: int, s: int) -> dict:
+    """The field operations one recovery takes in the unit
+    (csrc/secp256k1.cuh), by its fixed schedule: multiplications and
+    squares mod p and mod n, bare 512-bit products (the endomorphism
+    split), and keccak-f; a rejected signature stops where the unit does."""
+    n, p = secp256k1.N_INT, secp256k1.P_INT
+    c = {"mp": 0, "sp": 0, "mn": 0, "sn": 0, "prod": 0, "keccak": 0}
+
+    def point(ms, k=1):
+        c["mp"] += ms[0] * k
+        c["sp"] += ms[1] * k
+
+    if not (0 < r < n and 0 < s < n and v <= 1):
+        return c
+    sq, mu = chain_counts((p + 1) // 4)
+    c["mp"] += 1 + mu                     # r^2 r, the root's chain
+    c["sp"] += 2 + sq                     # r^2, the chain, the root's check
+    y_sq = (r ** 3 + 7) % p
+    if pow(y_sq, (p - 1) // 2, p) != 1 and y_sq:
+        return c
+    sq, mu = chain_counts(n - 2)
+    c["sn"] += sq
+    c["mn"] += mu + 2                     # 1 / r, u1, u2
+    c["prod"] += 8                        # two splits: 2 rounding, 2 low
+    # R's table: 2R, d.Z^2, d.Z^3 and R on the curve by d.Z, 7 mixed
+    # additions, the rescaling of 7 entries (a z^2, 3 multiplications, and
+    # 6 z-ratio products), the table's Z
+    point(DBL_MS)
+    c["sp"] += 1 + 7
+    c["mp"] += 3 + 7 * 3 + 6 + 1
+    point(MADD_MS, 7)
+    c["sp"] += 1                          # zt^2
+    c["mp"] += 1                          # zt^3
+    dr, dg = _build.secp_digits(_build.SECP_WINDOW_R),         _build.secp_digits(_build.SECP_WINDOW_G)
+    top = max(_build.SECP_WINDOW_R * (dr - 1), _build.SECP_WINDOW_G * (dg - 1))
+    point(DBL_MS, top)
+    # R, lambda R: 2 additions a digit (the very first a copy), lambda's
+    # beta x; G, lambda G: 2 a digit, each entry scaled by zt^2 and zt^3
+    point(MADD_MS, 2 * dr - 1)
+    c["mp"] += dr + 2 * 2 * dg
+    point(MADD_MS, 2 * dg)
+    # the even halves' corrections, made in every lane: 4 additions, G's
+    # and lambda G's points scaled (4), two beta x
+    point(MADD_MS, 4)
+    c["mp"] += 4 + 2
+    sq, mu = chain_counts(p - 2)
+    c["sp"] += sq + 1                     # 1 / Z's chain, zinv^2
+    c["mp"] += mu + 1 + 1 + 2             # Z zt, zinv^3, x and y
+    c["keccak"] = 1
+    return c
+
+
+def ecrecover_ops(signatures) -> int:
+    """int32 operations of the unit's recoveries of `signatures` ((digest,
+    v, r, s) each), by `ecrecover_counts`."""
+    seen, total = {}, 0
+    for sig in signatures:
+        if sig not in seen:
+            c = ecrecover_counts(*sig)
+            seen[sig] = (c["mp"] * (MUL512_OPS + RED_P_OPS)
+                         + c["sp"] * (SQR512_OPS + RED_P_OPS)
+                         + c["mn"] * (MUL512_OPS + RED_N_OPS)
+                         + c["sn"] * (SQR512_OPS + RED_N_OPS)
+                         + c["prod"] * MUL512_OPS + c["keccak"] * KECCAK_OPS)
+        total += seen[sig]
+    return total
+
+
+def splice_bytes(config: VmConfig, pq_block: tuple, blocks0: int) -> int:
+    """The bytes one splice of K cycles must move: emit and nslots read, the
+    rows of the lanes that keep them read, each surviving block (one a
+    distinct base: the last cycle's there) written, and the lane scalars
+    (pq_count, pq_blocks, lane_error) read and written."""
+    emit = pq_block[3][:K].cpu()
+    B, ps = config.batch, pq_block[0].shape[1]
+    cap = config.precompile_queue_capacity
+    flagged = (emit != 0).any(1).to(torch.int64)
+    pos = blocks0 + torch.cumsum(flagged, 0) - flagged
+    base = torch.clamp(pos * ps, max=cap - ps)
+    last = torch.ones_like(flagged, dtype=torch.bool)
+    last[:-1] = base[1:] != base[:-1]
+    kept = int(((emit != 0) & ~(pos * ps > cap - ps)[:, None])[last].sum())
+    row = 13 * ps * 4
+    return (2 * emit.numel() * 4 + kept * row + int(last.sum()) * B * row
+            + 2 * B * (4 + 4 + 1))
+
+
+def splice_check(config: VmConfig, entry, pq_block: tuple, sm_mhz: float,
+                 overflow: bool = False) -> dict:
+    """pq-splice: the splice kernel against its plain version on the card,
+    on a chunk's scratch block as K1 wrote it, into `entry`'s queue (with
+    `overflow`, its clock started so that the later half of the flagged
+    cycles, at least one, pass the capacity): every field the splice
+    touches equal.  The kernel's best of 3 launches (each on a fresh copy
+    of the state), the plain version's time, the bound of the bytes it
+    must move, and the flagged and overflowed cycles."""
+    ps = pq_block[0].shape[1]
+    flagged = (pq_block[3][:K] != 0).any(1)
+    start = (config.precompile_queue_capacity // ps
+             - int(flagged.sum()) // 2) if overflow else 0
+
+    def fresh():
+        st = clone_state(entry)
+        if overflow:
+            st.pq_blocks.fill_(start)
+        return st
+
+    fields = splice_cases.SPLICE_FIELDS
+    kst, pst = fresh(), fresh()
+    fused_cycle.splice_rows(kst, config, pq_block, K)
+    plain_ms = timed_ms(lambda: fused_cycle.splice_precompile_rows(
+        pst, config, pq_block, K))
+    err = require_equal(f"pq-splice overflow={overflow}",
+                        {f: getattr(kst, f) for f in fields},
+                        {f: getattr(pst, f) for f in fields})
+    times = []
+    for _ in range(3):
+        st = fresh()
+        times.append(timed_ms(lambda: fused_cycle.splice_rows(
+            st, config, pq_block, K)))
+        del st
+    ovf = int(((start + torch.cumsum(flagged.long(), 0) - flagged.long())
+               * ps > config.precompile_queue_capacity - ps)[flagged].sum())
+    if overflow and not (ovf and bool(kst.lane_error.any())):
+        raise AssertionError("pq-splice: the overflow case did not overflow")
+    n_bytes = splice_bytes(config, pq_block, start)
+    bound = bound_ms(n_bytes, 0, sm_mhz)
+    return {"ms": min(times), "ms_all": ";".join(f"{t:.4f}" for t in times),
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "bytes": n_bytes, "flagged": int(flagged.sum()),
+            "overflowed": ovf, "err": err}
+
+
+def unit_check(signatures: list, dev) -> dict:
+    """The ecrecover unit alone (a signature a thread) on the K1-ecrecover
+    lanes' signatures: its best of 3 times and recoveries/s, and its first
+    UNIT_PLAIN lanes against the plain recovery on the card."""
+    digest, r, s = (torch.tensor(
+        [secp256k1.to_limbs(c[i]) for c in signatures], dtype=torch.int64)
+        .to(torch.int32).to(dev) for i in (0, 2, 3))
+    v = torch.tensor([c[1] for c in signatures], dtype=torch.int32).to(dev)
+    ok, addr = secp256k1.ecrecover_unit(digest, v, r, s)
+    m = UNIT_PLAIN
+    want_ok, want_addr = secp256k1.ecrecover_batched(digest[:m], v[:m],
+                                                     r[:m], s[:m])
+    if not (torch.equal(ok[:m], want_ok) and torch.equal(addr[:m],
+                                                          want_addr)):
+        raise AssertionError("the ecrecover unit alone != plain")
+    times = [timed_ms(lambda: secp256k1.ecrecover_unit(digest, v, r, s))
+             for _ in range(3)]
+    return {"unit_ms": round(min(times), 4),
+            "unit_recoveries_per_sec": len(signatures) / (min(times) / 1e3),
+            "unit_ok": int(ok.sum()), "unit_plain_lanes": m}
 
 
 def bound_ms(n_bytes: float, n_ops: float, sm_mhz: float) -> tuple:
@@ -755,6 +951,7 @@ def profiled(fn) -> dict:
             "k3_device_ms": kernel_ms("k3_kernel"),
             "sponge_device_ms": kernel_ms("k3s_kernel"),
             "sponge_events": sum(c for k, _, c in ops if "k3s_kernel" in k),
+            "splice_device_ms": kernel_ms("pq_"),
             "top": ";".join(f"{k[:40]}:{t / 1e3:.2f}ms" for k, t, _ in top)}
 
 
@@ -774,6 +971,7 @@ def block_phase(tag: str, config: VmConfig, txs: list, knobs: dict, dev,
     launches = {"K1": fused_cycle.K1_LAUNCHES,
                 "K1_precompile": fused_cycle.K1_PRECOMPILE_LAUNCHES,
                 "K1_ecrecover": fused_cycle.K1_ECRECOVER_LAUNCHES,
+                "splice": fused_cycle.PQ_SPLICE_LAUNCHES,
                 "K3": keccak.K3_LAUNCHES, "sponge": keccak.K3S_LAUNCHES}
     if not blk.all_ok:
         bad = sum(t.status != "ok" for t in blk.txs)
@@ -853,7 +1051,8 @@ def reset_counts() -> None:
     """Every kernel's launch count to 0 (before a path is driven)."""
     fused_cycle.K1_LAUNCHES = fused_cycle.K1_PRECOMPILE_LAUNCHES = 0
     fused_cycle.K1_ECRECOVER_LAUNCHES = keccak.K3_LAUNCHES = 0
-    keccak.K3S_LAUNCHES = 0
+    keccak.K3S_LAUNCHES = fused_cycle.PQ_SPLICE_LAUNCHES = 0
+    secp256k1.EC_UNIT_LAUNCHES = 0
 
 
 def objects_phase(dev) -> dict:
@@ -2105,9 +2304,12 @@ def main() -> int:
     if -(-B_BLOCK // threads[B_BLOCK]) < min(sms, B_BLOCK // 32):
         raise AssertionError(f"K1 at B={B_BLOCK}: {threads[B_BLOCK]}-thread "
                              f"blocks leave SMs of {sms} idle")
+    named = {name: "{registers} regs, {frame} B frame, {spill_stores}/"
+             "{spill_loads} B spilled".format(**v)
+             for name, v in k1_times.ptxas(log).items()}
     phase("build", seconds=round(time.time() - t0, 2),
           lib=lib_path.parent.name, ptxas=" | ".join(regs), sms=sms,
-          k1_threads=threads)
+          k1_threads=threads, ptxas_kernels=json.dumps(named))
     t0 = time.time()
     oracle_thread.join()
     if "error" in oracle:
@@ -2508,11 +2710,9 @@ def main() -> int:
     ks, ps = clone_state(entry_p), clone_state(entry_p)
     kp_ms = timed_ms(lambda: fused_cycle.cycle_chunk(ks, cfg_p, K,
                                                      pq_block=pq_block))
-    # the splice alone, again from the same scratch rows
-    sp = clone_state(entry_p)
-    splice_ms = timed_ms(lambda: fused_cycle.splice_precompile_rows(
-        sp, cfg_p, pq_block, K))
-    del sp
+    # the splice alone, again from the same scratch rows, against its
+    # plain version (pq-splice)
+    splices = {"precompile": splice_check(cfg_p, entry_p, pq_block, sm_mhz)}
     kp_plain_ms = timed_ms(lambda: batched_vm.run_cycles(ps, cfg_p, K))
     kp_err = require_equal("K1-precompile B=32768", state_tensors(ks),
                            state_tensors(ps))
@@ -2530,7 +2730,7 @@ def main() -> int:
     kp_bound = bound_ms(kp_nbytes, B_FULL * K * K1_MIN_OPS
                         + n_perms * KECCAK_OPS + n_comps * SHA256_OPS, sm_mhz)
     phase("K1-precompile", batch=B_FULL, cycles=K, equal=True,
-          ms=round(kp_ms, 3), splice_ms=round(splice_ms, 3),
+          ms=round(kp_ms, 3), splice_ms=round(splices["precompile"]["ms"], 4),
           plain_ms=round(kp_plain_ms, 3),
           bound_ms=round(kp_bound[0], 4), bound_by=kp_bound[1],
           bound_bytes=kp_nbytes, keccak_calls=n_perms,
@@ -2596,6 +2796,9 @@ def main() -> int:
                              f"{n_ec} recoveries")
     ke_nbytes = k1_bytes(entry_e, ks, cfg_e)
     del ks
+    splices["ecrecover"] = splice_check(cfg_e, entry_e, pq_block, sm_mhz)
+    splices["overflow"] = splice_check(cfg_e, entry_e, pq_block, sm_mhz,
+                                       overflow=True)
     ke_times = []
     for _ in range(2):             # again from the entry state, timed
         kt = clone_state(entry_e)
@@ -2603,16 +2806,30 @@ def main() -> int:
             kt, cfg_e, K, pq_block=pq_block)))
         del kt
     ke_ms = min(ke_times)
-    ke_bound = bound_ms(ke_nbytes, B_FULL * K * K1_MIN_OPS + ecrecover_ops(
-        ec_mix[i % len(ec_mix)][4] for i in range(B_FULL)), sm_mhz)
+    ec_sigs = [ec_mix[i % len(ec_mix)][4] for i in range(B_FULL)]
+    ke_bound = bound_ms(ke_nbytes, B_FULL * K * K1_MIN_OPS
+                        + ecrecover_ops(ec_sigs), sm_mhz)
+    ke_ladder = bound_ms(ke_nbytes, B_FULL * K * K1_MIN_OPS
+                         + ladder_ops(ec_sigs), sm_mhz)
+    unit = unit_check(ec_sigs, dev)
+    counts = ecrecover_counts(*ec_sigs[0])
     phase("K1-ecrecover", batch=B_FULL, cycles=K, equal=True,
           ms_first=round(ke_first_ms, 3),
           ms=";".join(f"{t:.3f}" for t in ke_times),
           plain_ms=round(ke_plain_ms, 3), bound_ms=round(ke_bound[0], 4),
-          bound_by=ke_bound[1], bound_bytes=ke_nbytes, recoveries=n_ec,
+          bound_by=ke_bound[1], bound_ms_ladder=round(ke_ladder[0], 4),
+          field_ops_a_recovery=sum(counts[k] for k in ("mp", "sp", "mn",
+                                                        "sn")),
+          ladder_modmuls_a_recovery=ladder_modmuls(
+              ec_sigs[0][0], ec_sigs[0][2], ec_sigs[0][3]),
+          **unit, bound_bytes=ke_nbytes, recoveries=n_ec,
           ecrecovers_per_sec=n_ec / (ke_ms / 1e3), lane_errors=errors,
           cycles_per_sec=B_FULL * K / (ke_ms / 1e3))
     del entry_e, pq_block
+    phase("pq-splice", equal=True, card=json.dumps(card), **{
+        f"{tag}_{k}": v for tag, fields in splices.items()
+        for k, v in fields.items()})
+    splice = splices["precompile"]
 
     # -- K3 against plain ------------------------------------------------
     gen = torch.Generator().manual_seed(3)
@@ -2737,7 +2954,7 @@ def main() -> int:
                                                precompile=0.25)
         txs = ec_txs if mix == "ecrecover" else mix_txs(mix, 2 * B_BLOCK)
         blk, wall, launches, prof = block_phase(tag, cfg_k, txs, knobs, dev)
-        need = ("K1", "K3", "sponge") + ((unit,) if unit else ())
+        need = ("K1", "K3", "sponge") + ((unit, "splice") if unit else ())
         if any(launches[k] == 0 for k in need):
             raise AssertionError(f"{tag}: launches {launches}")
         n_check = EC_CHECK_TXS if mix == "ecrecover" else CHECK_TXS
@@ -2824,6 +3041,8 @@ def main() -> int:
           K1_precompile_block=blocks["block-precompile"]["K1_precompile"],
           K3_block_precompile=blocks["block-precompile"]["K3"],
           K1_ecrecover=blocks["block-ecrecover"]["K1_ecrecover"],
+          splice_block_precompile=blocks["block-precompile"]["splice"],
+          splice_block_ecrecover=blocks["block-ecrecover"]["splice"],
           K3_block_ecrecover=blocks["block-ecrecover"]["K3"],
           K3_block_realistic=launches_r["K3"],
           K3_sorted_queue=sq_k3, K1_block_objects=objects["K1"],
@@ -2871,6 +3090,13 @@ def main() -> int:
                ":2863-2894, detour _run_cycles_fused_ec :3752)",
                blocks["block-ecrecover"]["K1_ecrecover"],
                max(kes_err, ke_err), ke_ms, ke_plain_ms, ke_bound),
+        kernel("pq_splice round-witness splice", "pq_splice.cu",
+               "era_zk_evm_tpu/models/fused_cycle.py:3529-3588 (the "
+               "round-witness splice in _run_chunk, after K1's launch)",
+               blocks["block-precompile"]["splice"]
+               + blocks["block-ecrecover"]["splice"],
+               max(s["err"] for s in splices.values()), splice["ms"],
+               splice["plain_ms"], (splice["bound_ms"], splice["bound_by"])),
         kernel("K2 rolling_fold", "rolling_fold.cu",
                "era_zk_evm_tpu/models/fused_cycle.py:3205",
                main_k2 + mesh_k["K2"], k2_err, k2_ms, k2_plain_ms, k2_bound),

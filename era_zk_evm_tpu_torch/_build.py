@@ -18,9 +18,11 @@ Nothing here runs at import time: `load()` builds on first use.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,7 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 HOST_FLAGS = ["-std=c++17", "-O1", "-fPIC"]
 SOURCES = ("cycle_kernel.cu", "cycle_kernel_ec.cu", "rolling_fold.cu",
            "keccak_f.cu", "keccak_sponge.cu", "probe_keccak.cu",
-           "probe_rate.cu", "probe_uniform.cu", "bisect_fold.cu")
+           "probe_rate.cu", "probe_uniform.cu", "bisect_fold.cu",
+           "pq_splice.cu")
 
 
 def generate_header() -> str:
@@ -114,12 +117,159 @@ def generate_header() -> str:
         (name, secp.to_limbs(value)) for name, value in (
             ("SECP_P", p), ("SECP_N", n), ("SECP_FOLD_P", 2**256 - p),
             ("SECP_FOLD_N", 2**256 - n), ("SECP_GX", secp.GX_INT),
-            ("SECP_GY", secp.GY_INT), ("SECP_SQRT_EXP", (p + 1) // 4),
-            ("SECP_P_MINUS_2", p - 2), ("SECP_N_MINUS_2", n - 2))]
+            ("SECP_GY", secp.GY_INT))]
     for name, arr in tables:
         vals = ", ".join(f"0x{v:08x}u" for v in arr)
         out.append(f"EVM_TABLE uint32_t {name}[{len(arr)}] = {{{vals}}};")
+    out += _secp_header()
     return "\n".join(out) + "\n"
+
+
+#: the signed-digit windows of the ecrecover unit's scalar multiplication:
+#: 4 bits for R and lambda R (a table of 8 points built per lane), 5 bits
+#: for G and lambda G (16 points each, here); every half-scalar of the
+#: endomorphism split is held under 2**SECP_SPLIT_BITS
+SECP_WINDOW_R, SECP_WINDOW_G, SECP_SPLIT_BITS = 4, 5, 130
+
+
+@functools.lru_cache(maxsize=None)
+def secp_glv() -> dict:
+    """The secp256k1 endomorphism and its lattice split, from the curve's
+    Python ints: lam (a cube root of 1 mod n) and beta (one mod p) with
+    lam * G = (beta * Gx, Gy); the short basis (a1, b1), (a2, b2) of {(x, y):
+    x + y lam = 0 mod n} by the extended Euclidean algorithm on (n, lam); and
+    g1 = round(2**384 b2 / n), g2 = round(-2**384 b1 / n), so that
+    c1 = round(k g1 / 2**384), c2 = round(k g2 / 2**384) give the halves
+    k1 = k - c1 a1 - c2 a2 and k2 = -c1 b1 - c2 b2, k = k1 + k2 lam mod n."""
+    from .ops import secp256k1 as secp
+
+    p, n, g = secp.P_INT, secp.N_INT, (secp.GX_INT, secp.GY_INT)
+
+    def cube_roots(m):
+        for base in range(2, 64):
+            c = pow(base, (m - 1) // 3, m)
+            if c != 1:
+                return (c, c * c % m)
+        raise AssertionError("no cube root of unity")
+
+    def split(lam, beta):
+        rs, ts = [n, lam], [0, 1]
+        while rs[-1]:
+            q = rs[-2] // rs[-1]
+            rs.append(rs[-2] - q * rs[-1])
+            ts.append(ts[-2] - q * ts[-1])
+        last = max(i for i, r in enumerate(rs) if r * r >= n)
+        a1, b1 = rs[last + 1], -ts[last + 1]
+        a2, b2 = min(((rs[last], -ts[last]), (rs[last + 2], -ts[last + 2])),
+                     key=lambda v: v[0] ** 2 + v[1] ** 2)
+        return {"lam": lam, "beta": beta, "a1": a1, "b1": b1, "a2": a2,
+                "b2": b2, "g1": (2**384 * b2 + n // 2) // n,
+                "g2": (-(2**384) * b1 + n // 2) // n}
+
+    # of the two (lam, beta) pairs, the one whose constants are all u256
+    # (b1 < 0 < b2)
+    return next(c for c in (split(lam, beta) for lam in cube_roots(n)
+                            for beta in cube_roots(p)
+                            if secp.ec_mul(lam, g) == (beta * g[0] % p, g[1]))
+                if c["b1"] < 0 < c["b2"] and max(c["g1"], c["g2"]) < 2**256)
+
+
+def secp_digits(window: int) -> int:
+    """Digits of the regular signed recoding of an odd scalar under
+    2**SECP_SPLIT_BITS: the fewest whose top digit 2 (k >> (w (m - 1) + 1))
+    + 1 stays under 2**w."""
+    m = 1
+    while 2 * ((2**SECP_SPLIT_BITS - 1) >> (window * (m - 1) + 1)) + 1 \
+            >= 2**window:
+        m += 1
+    return m
+
+
+def pow_chain(e: int) -> tuple[list, list, int]:
+    """A fixed addition chain for x ** e, from e's runs of ones: x_L =
+    x ** (2**L - 1) for every run length L, each built as x_L = x_a ** (2**b)
+    x_b from two built lengths (or by halving), then one step acc = acc **
+    (2**s) x_L a run.  Returns (builds (L, a, b), runs (zeros before, L)
+    MSB first, trailing zeros)."""
+    bits = bin(e)[2:]
+    runs = [(len(z), len(o)) for z, o in re.findall(r"(0*)(1+)", bits)]
+    tail = len(bits) - len(bits.rstrip("0"))
+    built, builds = {1}, []
+
+    def build(length):
+        if length in built:
+            return
+        pair = next((b for b in sorted(built, reverse=True)
+                     if b < length and length - b in built), None)
+        if pair is not None:
+            builds.append((length, length - pair, pair))
+        elif length % 2 == 0:
+            build(length // 2)
+            builds.append((length, length // 2, length // 2))
+        else:
+            build(length - 1)
+            builds.append((length, length - 1, 1))
+        built.add(length)
+
+    for length in sorted({r for _, r in runs}):
+        build(length)
+    return builds, runs, tail
+
+
+def _chain_macro(name: str, e: int) -> str:
+    """`#define name(SQM, SQ)`: the statements of x ** e from `x1`, with
+    SQM(a, s, b) = a ** (2**s) * b and SQ(a, s) = a ** (2**s)."""
+    builds, runs, tail = pow_chain(e)
+    body = [f"const U256 x{a + b} = SQM(x{a}, {b}, x{b});"
+            for _, a, b in builds]
+    body.append(f"U256 acc = x{runs[0][1]};")
+    body += [f"acc = SQM(acc, {z + r}, x{r});" for z, r in runs[1:]]
+    if tail:
+        body.append(f"acc = SQ(acc, {tail});")
+    body.append("return acc;")
+    return f"#define {name}(SQM, SQ) " + " ".join(body)
+
+
+def _secp_header() -> list[str]:
+    """The ecrecover unit's generated constants: the endomorphism's beta,
+    the split's constants, G's and lambda G's tables of odd multiples, the
+    windows and the addition chains of the three fixed powers."""
+    from .golden.precompiles import _ec_add
+    from .ops import secp256k1 as secp
+
+    p, n = secp.P_INT, secp.N_INT
+    glv = secp_glv()
+    out = []
+    for name, value in (("SECP_BETA", glv["beta"]), ("SECP_G1", glv["g1"]),
+                        ("SECP_G2", glv["g2"]), ("SECP_A1", glv["a1"]),
+                        ("SECP_A2", glv["a2"]), ("SECP_MINUS_B1", -glv["b1"]),
+                        ("SECP_B2", glv["b2"])):
+        assert 0 <= value < 2**256
+        vals = ", ".join(f"0x{v:08x}u" for v in secp.to_limbs(value))
+        out.append(f"EVM_TABLE uint32_t {name}[8] = {{{vals}}};")
+    # odd multiples 1, 3, .. 2**(w - 1) - 1 of G, then of lambda G: x, y
+    g = (secp.GX_INT, secp.GY_INT)
+    g2 = secp.ec_mul(2, g)
+    mult, rows = g, []
+    for _ in range(2 ** (SECP_WINDOW_G - 1)):
+        rows.append(mult)
+        mult = _ec_add(mult, g2)
+    words = [w for x, y in rows for w in secp.to_limbs(x) + secp.to_limbs(y)]
+    words += [w for x, y in rows
+              for w in secp.to_limbs(glv["beta"] * x % p) + secp.to_limbs(y)]
+    vals = ", ".join(f"0x{v:08x}u" for v in words)
+    out.append(f"EVM_GTABLE uint32_t SECP_GTAB[{len(words)}] = {{{vals}}};")
+    # the top digit's bit position: the multiplication's doublings
+    top = max(w * (secp_digits(w) - 1) for w in (SECP_WINDOW_R, SECP_WINDOW_G))
+    for name, value in (("SECP_WR", SECP_WINDOW_R), ("SECP_WG", SECP_WINDOW_G),
+                        ("SECP_DIGITS_R", secp_digits(SECP_WINDOW_R)),
+                        ("SECP_DIGITS_G", secp_digits(SECP_WINDOW_G)),
+                        ("SECP_TOP_POS", top)):
+        out.append(f"#define {name} {value}")
+    out += [_chain_macro("SECP_CHAIN_SQRT", (p + 1) // 4),
+            _chain_macro("SECP_CHAIN_P_INV", p - 2),
+            _chain_macro("SECP_CHAIN_N_INV", n - 2)]
+    return out
 
 
 def _key(header: str, flags: list[str]) -> str:
@@ -223,6 +373,16 @@ class K1Args(ctypes.Structure):
     )]
 
 
+class SpliceArgs(ctypes.Structure):
+    """Mirror of `struct SpliceArgs` in csrc/pq_splice.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "meta_blk", "value_blk", "flags_blk", "emit", "nslots", "pq_meta",
+        "pq_value", "pq_flags", "pq_count", "pq_blocks", "lane_error",
+        "partial",
+    )] + [(name, ctypes.c_int) for name in ("n", "ps", "cap", "batch")]
+
+
 #: the probes' C entries, eravm_<probe>_launch and eravm_<probe>_host: their
 #: arguments ("p" a pointer, "i" an int) before the launchers' stream
 _PROBE_LAUNCH = {"p1": "piiii", "p2": "ppiii", "p3": "piiii", "p4": "pii",
@@ -259,6 +419,14 @@ def load() -> ctypes.CDLL:
         lib.eravm_k3s_launch.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int, ctypes.c_void_p]
         lib.eravm_k3s_launch.restype = ctypes.c_int
+        lib.eravm_pq_splice_launch.argtypes = [ctypes.POINTER(SpliceArgs),
+                                               ctypes.c_void_p]
+        lib.eravm_pq_splice_launch.restype = ctypes.c_int
+        lib.eravm_pq_splice_partials.argtypes = [ctypes.c_int]
+        lib.eravm_pq_splice_partials.restype = ctypes.c_int
+        lib.eravm_ecrecover_launch.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int, ctypes.c_void_p]
+        lib.eravm_ecrecover_launch.restype = ctypes.c_int
         _bind_probes(lib, "launch", _PROBE_LAUNCH)
         lib.eravm_p3_unroll.argtypes = []
         lib.eravm_p3_unroll.restype = ctypes.c_int
@@ -284,6 +452,16 @@ def load_host() -> ctypes.CDLL:
         lib.eravm_ecrecover_host.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int]
         lib.eravm_ecrecover_host.restype = ctypes.c_int
+        lib.eravm_fe_host.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_int]
+        lib.eravm_fe_host.restype = ctypes.c_int
+        lib.eravm_secp_split_host.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_int]
+        lib.eravm_secp_split_host.restype = ctypes.c_int
+        lib.eravm_pq_splice_host.argtypes = [ctypes.POINTER(SpliceArgs)]
+        lib.eravm_pq_splice_host.restype = ctypes.c_int
+        lib.eravm_pq_splice_partials.argtypes = [ctypes.c_int]
+        lib.eravm_pq_splice_partials.restype = ctypes.c_int
         _bind_probes(lib, "host", _PROBE_HOST)
         _HOST_LIB = lib
     return _HOST_LIB

@@ -11,10 +11,14 @@
 #define HD __device__ __forceinline__
 #define HD_NOINLINE __device__ __noinline__
 #define EVM_TABLE static __constant__
+// a table read by data-dependent indexes: global memory, read with __ldg
+// (constant memory serialises a warp's differing addresses)
+#define EVM_GTABLE static __device__ const
 #else
 #define HD static inline
 #define HD_NOINLINE static
 #define EVM_TABLE static const
+#define EVM_GTABLE static const
 #endif
 
 #include "eravm_gen.h"   // generated from the port's isa/ by _build.py

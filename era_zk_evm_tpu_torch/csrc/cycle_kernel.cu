@@ -83,13 +83,15 @@
 // (batch-last, so a warp's stores coalesce) with an emit flag and a slot
 // count per cycle.  The queue's block clock is batch-global (it advances on
 // every cycle in which any lane ran a unit), a dependency across lanes that
-// one launch of independent threads cannot resolve: the wrapper splices the
-// scratch rows into the queue after the launch (models/fused_cycle.py,
-// splice_precompile_rows), as the TPU kernel's wrapper does (:3529-3588).
-// The units are bound by their operations (a keccak-f per 136-byte block,
-// a sha256 compression per 64-byte round, some 6,500 modular multiplications
-// per ecrecover) and by the divergence between unit lanes and the rest of a
-// warp.  The kEc instance is a fourth one so that the other three keep their
+// one launch of independent threads cannot resolve: the splice kernel
+// (pq_splice.cu, launched by models/fused_cycle.py::splice_rows after K1)
+// moves the scratch rows into the queue, as the TPU kernel's wrapper does
+// (:3529-3588); it writes only the blocks that survive, so it is bound by
+// those bytes, a small part of K1's time.  The units are bound by their
+// operations (a keccak-f per 136-byte block, a sha256 compression per
+// 64-byte round, some 3,400 field multiplications and squares per
+// ecrecover, secp256k1.cuh) and by the divergence between unit lanes and
+// the rest of a warp.  The kEc instance is a fourth one so that the other three keep their
 // code and register allocation; cycle_kernel_ec.cu compiles it, in an nvcc
 // process of its own beside this file's, and the launch chooses it by an
 // argument (a field more in K1Args would grow the param copy in kPrecomp's

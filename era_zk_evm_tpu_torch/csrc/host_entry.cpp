@@ -15,6 +15,7 @@
 #include "probe_rate.cu"
 #include "probe_uniform.cu"
 #include "bisect_fold.cu"
+#include "pq_splice.cu"
 
 extern "C" int eravm_k1_host(const K1Args *a, int ecrecover) {
     // the instance eravm_k1_launch chooses; a register file a lane
@@ -70,6 +71,98 @@ extern "C" int eravm_ecrecover_host(const void *digest, const void *v,
             load_u256((const int32_t *)r + 8 * i),
             load_u256((const int32_t *)s + 8 * i), &out);
         store_u256((int32_t *)addr + 8 * i, out);
+    }
+    return 0;
+}
+
+// the ecrecover unit's field arithmetic on n pairs a, b int32[n, 8] (u32
+// limbs) into out: op 0 a b mod p, 1 a b mod n, 2 a^2 mod p, 3 a^2 mod n,
+// 4 1 / a mod p, 5 1 / a mod n, 6 a ** ((p + 1) / 4) mod p
+extern "C" int eravm_fe_host(const void *a, const void *b, void *out, int n,
+                             int op) {
+    for (int i = 0; i < n; i++) {
+        const U256 x = load_u256((const int32_t *)a + 8 * i);
+        const U256 y = load_u256((const int32_t *)b + 8 * i);
+        U256 r;
+        switch (op) {
+        case 0: r = fe_mul<false>(x, y); break;
+        case 1: r = fe_mul<true>(x, y); break;
+        case 2: r = fe_sqr<false>(x); break;
+        case 3: r = fe_sqr<true>(x); break;
+        case 4: r = fe_inv_p(x); break;
+        case 5: r = fe_inv_n(x); break;
+        case 6: r = fe_sqrt_pow(x); break;
+        default: return 1;
+        }
+        store_u256((int32_t *)out + 8 * i, r);
+    }
+    return 0;
+}
+
+// the endomorphism split of n scalars k int32[n, 8] (each below the group
+// order): out int32[n, 2, 7], per half its odd magnitude's 5 limbs, its
+// sign and whether it was even
+extern "C" int eravm_secp_split_host(const void *k, void *out, int n) {
+    for (int i = 0; i < n; i++) {
+        EcScalar h[2];
+        ec_split(load_u256((const int32_t *)k + 8 * i), &h[0], &h[1]);
+        int32_t *o = (int32_t *)out + 14 * i;
+        for (int j = 0; j < 2; j++) {
+            for (int l = 0; l < 5; l++) o[7 * j + l] = (int32_t)h[j].m[l];
+            o[7 * j + 5] = h[j].neg;
+            o[7 * j + 6] = h[j].even;
+        }
+    }
+    return 0;
+}
+
+// the round-witness splice, lane after lane: the flag blocks' partials as
+// pq_flag_kernel writes them, then each lane's surviving blocks (each up
+// to the next one's base) and scalars as pq_move_kernel moves them
+extern "C" int eravm_pq_splice_host(const SpliceArgs *args) {
+    const SpliceArgs &a = *args;
+    if (a.n <= 0 || a.batch <= 0) return 0;
+    if (a.n > 32 * PQ_MASK_WORDS || a.ps <= 0 || a.cap < a.ps) return 1;
+    const uint64_t B = a.batch;
+    const int blocks = pq_flag_blocks(a.batch);
+    const int gx = blocks / PQ_FLAG_GROUPS;
+    for (int i = 0; i < blocks; i++) {
+        const int x = i % gx, c0 = i / gx * PQ_FLAG_CYCLES;
+        uint32_t mask[PQ_MASK_WORDS] = {0, 0, 0, 0};
+        int32_t m = 0x7fffffff;
+        for (int b = x * PQ_FLAG_LANES;
+             b < a.batch && b < (x + 1) * PQ_FLAG_LANES; b++) {
+            for (int c = c0; c < a.n && c < c0 + PQ_FLAG_CYCLES; c++)
+                if (a.emit[c * B + b] != 0) mask[c >> 5] |= 1u << (c & 31);
+            if (c0 == 0) m = a.pq_blocks[b] < m ? a.pq_blocks[b] : m;
+        }
+        for (int w = 0; w < PQ_MASK_WORDS; w++)
+            a.partial[i * 5 + w] = (int32_t)mask[w];
+        a.partial[i * 5 + 4] = m;
+    }
+    const SpliceClock k = splice_clock(a, blocks, 0, 1);
+    const int ps = a.ps;
+    for (int b = 0; b < a.batch; b++) {
+        for (int c = 0; c < a.n; c++) {
+            if (!splice_last(k, c)) continue;
+            const bool keep = !splice_overflow(k, c) && splice_flagged(k, c)
+                && a.emit[c * B + b] != 0;
+            const uint64_t row = (uint64_t)b * a.cap + splice_base(k, c);
+            const int rows = splice_rows_written(k, c);
+            for (int j = 0; j < 4 * rows; j++)
+                a.pq_meta[row * 4 + j] = keep
+                    ? a.meta_blk[((uint64_t)c * ps * 4 + j) * B + b] : 0;
+            for (int j = 0; j < 8 * rows; j++)
+                a.pq_value[row * 8 + j] = keep
+                    ? a.value_blk[((uint64_t)c * ps * 8 + j) * B + b] : 0;
+            for (int j = 0; j < rows; j++)
+                a.pq_flags[row + j] = keep
+                    ? a.flags_blk[((uint64_t)c * ps + j) * B + b] : 0;
+        }
+        int32_t count = 0;
+        bool err = false;
+        splice_lane_part(a, k, b, 0, 1, &count, &err);
+        splice_lane_store(a, k, b, count, err);
     }
     return 0;
 }

@@ -12,9 +12,10 @@ runs `n_cycles` in chunks of `k_inner`: each chunk is one K1 launch
 (`rolling_fold`) over the chunk's records, which K1 writes compacted: each
 lane's valid memory-query slots in its first rows, with a count a lane
 (`new_slot_block`).  With a precompile queue, K1 writes each cycle's
-round-witness rows into a chunk scratch block and
-`splice_precompile_rows` moves them into the queue at the batch-global
-block clock, in torch ops on the device, without a host sync.
+round-witness rows into a chunk scratch block and `splice_rows` moves them
+into the queue at the batch-global block clock, without a host sync: on the
+card the splice kernel (csrc/pq_splice.cu), which writes only the blocks
+that survive; its plain version is `splice_precompile_rows`, torch ops.
 
 Each wrapper takes its kernel for CUDA tensors and its plain torch version
 for CPU tensors: `models/batched_vm.cycle_step` (and
@@ -23,7 +24,8 @@ for CPU tensors: `models/batched_vm.cycle_step` (and
 launches its kernel or raises; there is no fallback.  `K1_LAUNCHES` and
 `K2_LAUNCHES` count kernel launches (never plain-version calls);
 `K1_PRECOMPILE_LAUNCHES` and `K1_ECRECOVER_LAUNCHES` count the K1 launches
-of the precompile instance (kPrecomp) and of the ecrecover instance (kEc).
+of the precompile instance (kPrecomp) and of the ecrecover instance (kEc),
+`PQ_SPLICE_LAUNCHES` the splice kernel's launches.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ K1_LAUNCHES = 0
 K1_PRECOMPILE_LAUNCHES = 0
 K1_ECRECOVER_LAUNCHES = 0
 K2_LAUNCHES = 0
+PQ_SPLICE_LAUNCHES = 0
 
 
 def precompile_instance(config: VmConfig) -> bool:
@@ -174,10 +177,12 @@ def splice_precompile_rows(state: BatchedVmState, config: VmConfig,
     block at min(pos * PS, cap - PS) (all zero rows unless it is flagged and
     fits), a cycle whose block would pass the capacity drops its rows, sets
     `lane_error` on its emitting lanes and credits them no `pq_count`, and
-    the clock advances by the flagged cycles.  Cycles that share a block
-    position all write the rows of the last of them, so the scatter's
-    duplicates agree.  Torch ops on the state's device; nothing waits for
-    the host."""
+    the clock advances by the flagged cycles.  One block is written a
+    position, the last cycle's there, and the clamped block (at cap - PS)
+    after the others, so that where cap - PS is no multiple of PS it
+    overwrites the block it overlaps, as the engine's cycle-after-cycle
+    writes do.  The splice kernel's plain version (`splice_rows`): torch
+    ops, with a host sync on a CUDA state."""
     meta, value, flags, emit, nslots = (x[:n] for x in pq_block)
     B, ps = config.batch, meta.shape[1]
     cap = config.precompile_queue_capacity
@@ -187,18 +192,85 @@ def splice_precompile_rows(state: BatchedVmState, config: VmConfig,
         - flagged
     overflow = pos * ps > cap - ps
     base = torch.clamp(pos * ps, max=cap - ps)
-    last = torch.searchsorted(base, base, right=True) - 1  # last cycle at base
-    keep = (emitting & ~overflow[:, None])[last]           # [n, B]
-    rows = (base[:, None] + torch.arange(ps, device=base.device)).reshape(-1)
-    state.pq_meta[:, rows] = (meta[last] * keep[:, None, None, :]) \
-        .permute(3, 0, 1, 2).reshape(B, n * ps, 4)
-    state.pq_value[:, rows] = (value[last] * keep[:, None, None, :]) \
-        .permute(3, 0, 1, 2).reshape(B, n * ps, 8)
-    state.pq_flags[:, rows] = (flags[last] * keep[:, None, :]) \
-        .permute(2, 0, 1).reshape(B, n * ps)
+    is_last = torch.ones_like(overflow)                    # last at its base
+    is_last[:-1] = base[1:] != base[:-1]
+    keep = emitting & ~overflow[:, None]                   # [n, B]
+    clamped = base == cap - ps
+    for sel in (is_last & ~clamped, is_last & clamped):
+        c = sel.nonzero()[:, 0]
+        m = c.numel() * ps
+        rows = (base[c, None] + torch.arange(ps, device=base.device)) \
+            .reshape(-1)
+        kc = keep[c]
+        state.pq_meta[:, rows] = (meta[c] * kc[:, None, None, :]) \
+            .permute(3, 0, 1, 2).reshape(B, m, 4)
+        state.pq_value[:, rows] = (value[c] * kc[:, None, None, :]) \
+            .permute(3, 0, 1, 2).reshape(B, m, 8)
+        state.pq_flags[:, rows] = (flags[c] * kc[:, None, :]) \
+            .permute(2, 0, 1).reshape(B, m)
     state.lane_error |= (emitting & overflow[:, None]).any(0)
     state.pq_count += (nslots * ~overflow[:, None]).sum(0, dtype=torch.int32)
     state.pq_blocks += flagged.sum().to(torch.int32)
+
+
+def splice_args(state: BatchedVmState, config: VmConfig, pq_block: tuple,
+                n: int, partial: torch.Tensor):
+    """The SpliceArgs struct of one splice (csrc/pq_splice.cu) of the first
+    n cycles of `pq_block` into the state's queue, after checking every
+    tensor's device, dtype, shape and contiguity; `partial` is the flag
+    kernel's scratch, int32[blocks, 5]."""
+    from .._build import SpliceArgs
+
+    B, cap = config.batch, config.precompile_queue_capacity
+    K, ps = pq_block[0].shape[:2]
+    if not 0 < n <= min(K, 128) or cap < ps:
+        raise ValueError(f"splice of {n} cycles of a {K}-cycle block into "
+                         f"{cap} rows of blocks of {ps}: needs 0 < n <= "
+                         f"min(K, 128) and cap >= PS")
+    device = state.done.device
+    args = SpliceArgs()
+    for name, t, shape in zip(
+            ("meta_blk", "value_blk", "flags_blk", "emit", "nslots"),
+            pq_block, _pq_block_shapes(config, K)):
+        setattr(args, name, _check(t, name, shape, torch.int32, device))
+    for name, shape, dtype in (
+            ("pq_meta", (B, cap, 4), torch.int32),
+            ("pq_value", (B, cap, 8), torch.int32),
+            ("pq_flags", (B, cap), torch.int32),
+            ("pq_count", (B,), torch.int32), ("pq_blocks", (B,), torch.int32),
+            ("lane_error", (B,), torch.bool)):
+        setattr(args, name, _check(getattr(state, name), name, shape, dtype,
+                                   device))
+    args.partial = _check(partial, "partial", tuple(partial.shape),
+                          torch.int32, device)
+    args.n, args.ps, args.cap, args.batch = n, ps, cap, B
+    return args
+
+
+def splice_rows(state: BatchedVmState, config: VmConfig, pq_block: tuple,
+                n: int) -> None:
+    """`splice_precompile_rows`, in place: the splice kernel on a CUDA state
+    (two launches on the current stream, no host sync), the plain version on
+    a CPU state."""
+    global PQ_SPLICE_LAUNCHES
+    device = state.done.device
+    if device.type == "cpu":
+        splice_precompile_rows(state, config, pq_block, n)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"no splice kernel for device {device}")
+    from .._build import load
+
+    lib = load()
+    partial = torch.empty((lib.eravm_pq_splice_partials(config.batch), 5),
+                          dtype=torch.int32, device=device)
+    args = splice_args(state, config, pq_block, n, partial)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.eravm_pq_splice_launch(ctypes.byref(args),
+                                    ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"splice launch failed: cudaError {rc}")
+    PQ_SPLICE_LAUNCHES += 1
 
 
 def k1_args(state: BatchedVmState, config: VmConfig, k_cycles: int, n: int,
@@ -295,7 +367,7 @@ def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
     CPU state the plain engine writes the chunk's dense slot rows and
     `compact_slot_rows` compacts them into `block`.  With the precompile
     units and their queue, the round-witness rows go through `pq_block`
-    (allocated here when not given) and `splice_precompile_rows`.
+    (allocated here when not given) and the splice kernel (`splice_rows`).
     """
     global K1_LAUNCHES, K1_PRECOMPILE_LAUNCHES, K1_ECRECOVER_LAUNCHES
     check_slice(config)
@@ -335,7 +407,7 @@ def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
     K1_PRECOMPILE_LAUNCHES += precompile_instance(config) and not ec
     K1_ECRECOVER_LAUNCHES += ec
     if pq_block is not None:
-        splice_precompile_rows(state, config, pq_block, n)
+        splice_rows(state, config, pq_block, n)
     return state
 
 

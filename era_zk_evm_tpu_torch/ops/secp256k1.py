@@ -21,11 +21,13 @@ to mirror the JAX formulas step by step:
     `Field`'s docstring).
   * Only zero tests, parities and outputs need the canonical residue
     (`Field.canon`): a carry-lookahead resolves the last carries exactly.
-  * Q = u1 G + u2 R is the kernel's ladder: MSB first, a doubling and the
-    addition of G, R or G + R per bit (Shamir's trick), with Jacobian
-    formulas whose edge cases (a point at infinity, equal or opposite
-    points) are resolved by selects, as in the JAX package.  Inversions and
-    the square root are fixed-exponent powers over 4-bit windows.
+  * Q = u1 G + u2 R is a ladder: MSB first, a doubling and the addition
+    of G, R or G + R per bit (Shamir's trick), with Jacobian formulas whose
+    edge cases (a point at infinity, equal or opposite points) are resolved
+    by selects, as in the JAX package.  Inversions and the square root are
+    fixed-exponent powers over 4-bit windows.  (K1's unit computes the
+    same outputs another way: an endomorphism split in fixed windows,
+    csrc/secp256k1.cuh; `ecrecover_unit` runs it alone on the card.)
 
 The curve constants and the Python-int references are the port's golden
 oracle's (`golden/precompiles.py`'s secp256k1 section: `ecrecover_scalar`
@@ -389,6 +391,42 @@ def ecrecover_batched(digest, v, r, s):
     Returns (ok bool[B], address int64 limbs [B, 8]: the low 160 bits of
     keccak256 of the public key, zero where not ok)."""
     return _ecrecover(wide(digest), wide(v), wide(r), wide(s))
+
+
+#: launches of the unit alone (csrc/cycle_kernel_ec.cu, ec_unit_kernel)
+EC_UNIT_LAUNCHES = 0
+
+
+def ecrecover_unit(digest, v, r, s):
+    """`ecrecover_batched` through K1's ecrecover unit alone, a signature a
+    thread, on CUDA tensors (digest, r, s int32 [B, 8] u32 limbs, v int32
+    [B]); the plain `ecrecover_batched` on CPU tensors.  Returns (ok bool
+    [B], address int64 [B, 8])."""
+    global EC_UNIT_LAUNCHES
+    device = digest.device
+    if device.type == "cpu":
+        return ecrecover_batched(digest, v, r, s)
+    if device.type != "cuda":
+        raise ValueError(f"no ecrecover kernel for device {device}")
+    from .._build import load
+
+    n = digest.shape[0]
+    for name, t, shape in (("digest", digest, (n, 8)), ("v", v, (n,)),
+                           ("r", r, (n, 8)), ("s", s, (n, 8))):
+        if t.device != device or t.dtype != torch.int32 \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous int32{list(shape)}"
+                             f" on {device}, got {t.dtype}{list(t.shape)} on "
+                             f"{t.device}")
+    ok = torch.empty((n,), dtype=torch.int32, device=device)
+    addr = torch.empty((n, 8), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = load().eravm_ecrecover_launch(
+        *(t.data_ptr() for t in (digest, v, r, s, ok, addr)), n, stream)
+    if rc != 0:
+        raise RuntimeError(f"ecrecover launch failed: cudaError {rc}")
+    EC_UNIT_LAUNCHES += 1
+    return ok != 0, addr.to(torch.int64) & M32
 
 
 def _ecrecover(digest, v, r, s):

@@ -225,6 +225,27 @@ def _edge_cases() -> dict:
 
 
 EDGE_CASES, EDGE_PROGRAMS = _edge_cases()
+
+
+def crafted_signatures() -> list[tuple]:
+    """(digest, v, r, s) signatures that reach the edges of the recovery:
+    the edge cases above (v from its word's low bit), R = G and R = -G,
+    their sums at infinity (u1 G = -u2 R), u1 = 0 (digest 0 or n), r = n - 1,
+    r or s outside [1, n) and v > 1."""
+    out = [(dg, vw & 1, r, s) for dg, vw, r, s in EDGE_CASES.values()]
+    g_par, e = GY_INT & 1, 0x1234567
+    out += [
+        (e, g_par, GX_INT, 0xABCDEF),          # R = G
+        (e, 1 - g_par, GX_INT, 0xABCDEF),      # R = -G
+        (e, g_par, GX_INT, e),                 # R = G, u1 = -u2: infinity
+        (N_INT - e, 1 - g_par, GX_INT, e),     # R = -G, u1 = u2: infinity
+        (N_INT - e, g_par, GX_INT, e),         # R = G, u1 = u2: 2 u1 G
+        (0, g_par, GX_INT, 5), (N_INT, 1, GX_INT, 7),   # u1 = 0
+        (7, 0, N_INT - 1, N_INT - 1), (7, 1, N_INT - 1, 3),
+        (1, 0, N_INT + 5, 1), (1, 0, 5, N_INT + 1), (2**256 - 1, 1, 3, 3),
+        (5, 2, 7, 9), (5, 3, GX_INT, 9),
+    ]
+    return out
 EDGE_CASES["output_passes_frame"] = _vector(b"edge cases")
 
 # a recovery short of ergs: the near call passes 3000 ergs, the call costs

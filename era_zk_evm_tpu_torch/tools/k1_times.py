@@ -3,6 +3,7 @@ card at the smoke run's shapes, for comparing two trees of the port in one
 process each on one card.
 
     python era_zk_evm_tpu_torch/tools/k1_times.py [--tree DIR] [--reps 3]
+        [--cases ec,precompile]
 
 `--tree DIR` imports `era_zk_evm_tpu_torch` from DIR (another checkout of
 the repository, e.g. the parent commit unpacked with `git archive`) in
@@ -14,11 +15,17 @@ bench programs), builds that tree's kernels, and prints one JSON line:
 the card's name and power limit and, per case, the best of `--reps`
 CUDA-event times of one 128-cycle `cycle_chunk` call (with the round-witness
 splice for kPrecomp and kEc, as `chip_smoke.py` times them), the splice
-alone, and the launch's block size.  The cases are `chip_smoke.py`'s K1
+alone (the tree's `splice_rows` where it has one, the kernel, else its
+torch `splice_precompile_rows`) with its device time by kernel from one
+`torch.profiler` pass, the launch's block size and, for kEc where
+the tree has `ops.secp256k1.ecrecover_unit`, the unit alone on the same
+32768 signatures.  The cases are `chip_smoke.py`'s K1
 (WORKLOAD, B = 32768, memory queue), K1-storage (STORAGE_WORKLOAD, B =
 32768, a second call on the warm state), K1-precompile (the precompile
 mix, B = 32768) and K1-ecrecover (signed transfers, a recovery in every
-lane, B = 32768), and K1 and K1-storage again at the block phases' B =
+lane, B = 32768), precompile-ec (the precompile mix on the ecrecover
+instance kEc, which it runs without a recovery: the instance's cost
+beside kPrecomp's), and K1 and K1-storage again at the block phases' B =
 4096.  `main-b` is `chip_smoke.py`'s main-b (mode (b): the rolling
 commitment, WORKLOAD, B = 32768) through the entry points every tree has
 (`fused_cycle.run_cycles(st, cfg, 128, k_inner=128)`, `spill.rewind_queues`,
@@ -27,7 +34,8 @@ one pipelined call (8 calls chained, host clock around a synchronised
 run), K1's and K2's device time a call from one `torch.profiler` pass over
 8 calls, split by kernel name (`k1_kernel`, `k2_kernel`), and lane 0's
 memory records a chunk.  `ptxas` gives the registers, stack frame and
-spills of every K1 and K2 instance, from the tree's build log;
+spills of every K1 and K2 instance (and the splice and unit kernels), from
+the tree's build log; `--cases` picks cases (default all);
 `sass_round` the SASS instructions (all, logic) of one keccak-f round in
 K2 and K3 (`keccak.cuh` runs one round a loop trip), read with
 `cuobjdump`, against the 180 int32 operations a round that the bounds
@@ -47,7 +55,8 @@ import subprocess
 import sys
 import time
 
-CASES = ("main-b", "a", "log", "precompile", "ec", "a4096", "log4096")
+CASES = ("main-b", "a", "log", "precompile", "precompile-ec", "ec", "a4096",
+         "log4096")
 
 
 def ptxas(log: str) -> dict:
@@ -57,7 +66,8 @@ def ptxas(log: str) -> dict:
     lines = log.splitlines()
     for i, ln in enumerate(lines):
         m = re.search(r"Function properties for (\S+)", ln)
-        if m and re.search(r"k[12]_kernel", m.group(1)):
+        if m and re.search(r"k[12]_kernel|pq_\w+_kernel|ec_unit_kernel",
+                           m.group(1)):
             entry = m.group(1)
             f = re.findall(r"(\d+) bytes", lines[i + 1])
             out[entry] = {"frame": int(f[0]), "spill_stores": int(f[1]),
@@ -138,7 +148,12 @@ def main(argv=None) -> dict:
                     help="import the port from this checkout (default: "
                          "the one holding this script)")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--cases", default=",".join(CASES),
+                    help="comma-separated cases (default: all)")
     args = ap.parse_args(argv)
+    cases = args.cases.split(",")
+    if set(cases) - set(CASES):
+        raise SystemExit(f"k1_times: cases are {CASES}")
     sys.path.insert(0, args.tree)
     import torch
 
@@ -151,6 +166,7 @@ def main(argv=None) -> dict:
     from era_zk_evm_tpu_torch.models.state import (
         clone_state, make_entry_state,
     )
+    from era_zk_evm_tpu_torch.ops import secp256k1
     from era_zk_evm_tpu_torch.testing import block_programs, ec_programs
     from era_zk_evm_tpu_torch.testing.programs import (
         STORAGE_WORKLOAD, WORKLOAD, assemble,
@@ -205,8 +221,8 @@ def main(argv=None) -> dict:
             return cfg, make_entry_state(
                 cfg, [assemble(STORAGE_WORKLOAD)] * batch, ergs=ERGS,
                 device=dev), 1
-        if name == "precompile":
-            cfg = units(storage(batch))
+        if name.startswith("precompile"):
+            cfg = units(storage(batch), ecrecover=name.endswith("-ec"))
             mix = block_programs.precompile_mix(batch)
             cache = {}
             return cfg, make_entry_state(
@@ -220,6 +236,34 @@ def main(argv=None) -> dict:
         return cfg, make_entry_state(
             cfg, [progs[i % len(progs)] for i in range(batch)], ergs=ERGS,
             entry_address=ec_programs.EC, device=dev), 0
+
+    def splice_kernels(entry, cfg, pq) -> dict:
+        """The splice's device time by kernel name (torch.profiler, one
+        call on a fresh copy of the entry state)."""
+        sp = clone_state(entry)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            splice_fn(sp, cfg, pq, K)
+            torch.cuda.synchronize()
+        return {e.key[:40]: e.self_device_time_total / 1e3
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    def unit_times(batch) -> dict:
+        """The ecrecover unit alone (ec_unit_kernel) on the signatures of
+        the ec case's lanes: the best of `--reps` times, recoveries/s."""
+        mix = ec_programs.ecrecover_mix(8192)
+        sigs = [mix[i % len(mix)][4] for i in range(batch)]
+        digest, r, s = (torch.tensor(
+            [secp256k1.to_limbs(c[i]) for c in sigs], dtype=torch.int64)
+            .to(torch.int32).to(dev) for i in (0, 2, 3))
+        v = torch.tensor([c[1] for c in sigs], dtype=torch.int32).to(dev)
+        secp256k1.ecrecover_unit(digest, v, r, s)          # warm
+        times = [timed(lambda: secp256k1.ecrecover_unit(digest, v, r, s))
+                 for _ in range(args.reps)]
+        return {"unit_ms": min(times), "unit_ms_all": times,
+                "unit_recoveries_per_sec": batch / (min(times) / 1e3)}
 
     def main_b() -> dict:
         """chip_smoke.py's main-b: pipelined wall a call, K1's and K2's
@@ -273,7 +317,9 @@ def main(argv=None) -> dict:
            "torch": torch.__version__,
            "ptxas": ptxas((lib.parent / "build.log").read_text()),
            "sass_round": keccak_round_sass(read_sass(lib))}
-    for name in CASES:
+    splice_fn = getattr(fused_cycle, "splice_rows",
+                        fused_cycle.splice_precompile_rows)
+    for name in cases:
         if name == "main-b":
             out[name] = main_b()
             torch.cuda.empty_cache()
@@ -283,7 +329,7 @@ def main(argv=None) -> dict:
         warm = clone_state(entry)
         fused_cycle.cycle_chunk(warm, cfg, K, pq_block=pq)   # loads, warms
         del warm
-        times, splice = [], None
+        times, splice, kernels = [], None, None
         for _ in range(args.reps):
             st = clone_state(entry)
             for _ in range(warm_calls):
@@ -292,15 +338,18 @@ def main(argv=None) -> dict:
                 st, cfg, K, pq_block=pq)))
             if pq is not None:
                 sp = clone_state(entry)
-                splice = timed(lambda: fused_cycle.splice_precompile_rows(
-                    sp, cfg, pq, K))
+                splice = timed(lambda: splice_fn(sp, cfg, pq, K))
                 del sp
+                kernels = splice_kernels(entry, cfg, pq)
             errors = int(st.lane_error.sum())
             del st
         out[name] = {"batch": cfg.batch, "ms": min(times), "ms_all": times,
-                     "splice_ms": splice, "lane_errors": errors,
+                     "splice_ms": splice, "splice_kernels_ms": kernels,
+                     "lane_errors": errors,
                      "threads": getattr(fused_cycle, "k1_threads",
                                         lambda b: 128)(cfg.batch)}
+        if name == "ec" and hasattr(secp256k1, "ecrecover_unit"):
+            out[name].update(unit_times(cfg.batch))
         del entry, pq
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)

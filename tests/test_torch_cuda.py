@@ -1,5 +1,6 @@
-"""K1 (all four instances), K2, K3, the ragged sponge and the probes P1-P7
-against their plain versions on a CUDA card, execute_block on the card
+"""K1 (all four instances), K2, K3, the ragged sponge, the round-witness
+splice, the ecrecover unit alone and the probes P1-P7 against their plain
+versions on a CUDA card, execute_block on the card
 against the same call on the CPU (the keccak256 / sha256 mix and the
 signed-transfer mix), its objects form against its packed form on the
 card, the sorted queue and device fold on the card against the CPU, the
@@ -27,12 +28,12 @@ from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.models.checkpoint import (
     load_checkpoint, save_checkpoint,
 )
-from era_zk_evm_tpu_torch.ops import keccak
+from era_zk_evm_tpu_torch.ops import keccak, secp256k1
 from era_zk_evm_tpu_torch import block
 from era_zk_evm_tpu_torch.tools import bisect_fold, probe_keccak, probe_uniform
 from era_zk_evm_tpu_torch.testing import (
-    block_programs, ec_programs, log_programs, programs, spill_programs,
-    witness_programs,
+    block_programs, ec_programs, log_programs, programs, splice_cases,
+    spill_programs, witness_programs,
 )
 from era_zk_evm_tpu_torch.testing.debug_trace import trace_cycles
 from era_zk_evm_tpu_torch.witness import device_fold, packed, sorted_queue
@@ -317,6 +318,41 @@ def test_k1_ecrecover_matches_plain(cuda, k_inner):
     bad = [k for k in a if not (a[k] == b[k]).all()]
     assert not bad, f"kernel/plain mismatch in fields: {bad}"
     assert ks.pq_count.any()
+
+
+@pytest.mark.cuda
+def test_ecrecover_unit_matches_plain(cuda):
+    # the unit alone (a signature a thread) on 256 random signatures and
+    # every crafted one, against the plain recovery on the CPU
+    cases = [c[:4] for c in ec_programs.ecrecover_vectors(256, seed=5)] \
+        + ec_programs.crafted_signatures()
+    digest, r, s = (torch.tensor(
+        [secp256k1.to_limbs(c[i]) for c in cases], dtype=torch.int64)
+        .to(torch.int32) for i in (0, 2, 3))
+    v = torch.tensor([c[1] for c in cases], dtype=torch.int32)
+    before = secp256k1.EC_UNIT_LAUNCHES
+    ok, addr = secp256k1.ecrecover_unit(
+        *(t.to(cuda) for t in (digest, v, r, s)))
+    assert secp256k1.EC_UNIT_LAUNCHES == before + 1
+    want_ok, want_addr = secp256k1.ecrecover_batched(digest, v, r, s)
+    assert torch.equal(ok.cpu(), want_ok)
+    assert torch.equal(addr.cpu(), want_addr)
+    assert int(ok.sum()) >= 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(splice_cases.SPLICE_CASES))
+def test_splice_matches_plain(cuda, case):
+    # the splice kernel against splice_precompile_rows on the CPU
+    config, plain, block, n = splice_cases.splice_case(case)
+    kern, kblock = splice_cases.to_device(plain, block, cuda)
+    before = fused_cycle.PQ_SPLICE_LAUNCHES
+    fused_cycle.splice_rows(kern, config, kblock, n)
+    assert fused_cycle.PQ_SPLICE_LAUNCHES == before + 1
+    fused_cycle.splice_precompile_rows(plain, config, block, n)
+    for field in splice_cases.SPLICE_FIELDS:
+        assert torch.equal(getattr(kern, field).cpu(),
+                           getattr(plain, field)), field
 
 
 def _block_on_card_and_cpu(cuda, config, txs, kw, counter):

@@ -5,19 +5,23 @@ The wrappers never take this build (on CPU tensors they run the plain
 versions); it checks the kernel sources' lane logic where no card or nvcc
 exists: K1's memory-witness body, its storage-enabled (kLog) body, its
 precompile (kPrecomp) body with the round-witness splice and its ecrecover
-(kEc) body, the ecrecover unit alone, K1's compacted record block, K2's
-fold of it, K3's chained
+(kEc) body, the ecrecover unit alone (with its field arithmetic and its
+endomorphism split against Python ints), the splice kernel's body,
+K1's compacted record block, K2's fold of it, K3's chained
 permutation and the probes P1-P7 (csrc/probe_keccak.cu, probe_rate.cu,
 probe_uniform.cu, bisect_fold.cu).  The kernels themselves are held against
 the plain versions on the card by chip_smoke.py.
 """
 
+import copy
 import ctypes
 import dataclasses
 import random
 
 import pytest
 import torch
+
+from era_zk_evm_tpu.golden.precompiles import ecrecover_inner
 
 from era_zk_evm_tpu_torch import _build
 from era_zk_evm_tpu_torch.config import VmConfig, from_jax_config
@@ -27,7 +31,7 @@ from era_zk_evm_tpu_torch.ops import keccak
 from era_zk_evm_tpu_torch.ops import secp256k1
 from era_zk_evm_tpu_torch.tools import bisect_fold, probe_keccak, probe_uniform
 from era_zk_evm_tpu_torch.testing import (
-    block_programs, ec_programs, log_programs, programs,
+    block_programs, ec_programs, log_programs, programs, splice_cases,
 )
 from era_zk_evm_tpu_torch.witness.rolling import (
     compact_slot_rows, rolling_absorb_rows,
@@ -80,7 +84,7 @@ def _host_run(host, st, config, n_cycles, k_inner, blocks=None):
         assert host.eravm_k1_host(
             ctypes.byref(args), fused_cycle.ecrecover_instance(config)) == 0
         if pq_block is not None:
-            fused_cycle.splice_precompile_rows(st, config, pq_block, k)
+            _host_splice(host, st, config, pq_block, k)
         if block is not None:
             if blocks is not None:
                 blocks.append(tuple(x.clone() for x in block))
@@ -89,6 +93,14 @@ def _host_run(host, st, config, n_cycles, k_inner, blocks=None):
                                       st.wc_count.data_ptr(),
                                       block[0].shape[0], config.batch) == 0
         done += k
+
+
+def _host_splice(host, st, config, pq_block, n):
+    """The splice kernel's host build (csrc/pq_splice.cu), in place."""
+    partial = torch.empty((host.eravm_pq_splice_partials(config.batch), 5),
+                          dtype=torch.int32)
+    args = fused_cycle.splice_args(st, config, pq_block, n, partial)
+    assert host.eravm_pq_splice_host(ctypes.byref(args)) == 0
 
 
 def assert_compacted(got, want):
@@ -242,10 +254,71 @@ def test_k3_host_build_matches_plain(host, iters):
     assert torch.equal(got, keccak.keccak_f1600(states, iters))
 
 
+def _limbs(values):
+    return torch.tensor([secp256k1.to_limbs(v) for v in values],
+                        dtype=torch.int64).to(torch.int32)
+
+
+def _ints(t):
+    return [sum((int(x) & 0xFFFFFFFF) << (32 * i) for i, x in enumerate(row))
+            for row in t.tolist()]
+
+
+def _field_values():
+    p, n = secp256k1.P_INT, secp256k1.N_INT
+    rng = random.Random(41)
+    near = [2**256 - 2**32 - 977 + d for d in (-2, -1, 0, 1, 2)]
+    return [0, 1, 2, p - 1, n - 1, p, n, n + 1, 2**256 - 1, 2**255] + near \
+        + [rng.getrandbits(256) for _ in range(48)] \
+        + [rng.randrange(p - 2**40, p) for _ in range(6)]
+
+
+@pytest.mark.parametrize("op,fn", [
+    (0, lambda a, b, p, n: a * b % p), (1, lambda a, b, p, n: a * b % n),
+    (2, lambda a, b, p, n: a * a % p), (3, lambda a, b, p, n: a * a % n),
+    (4, lambda a, b, p, n: pow(a, p - 2, p)),
+    (5, lambda a, b, p, n: pow(a, n - 2, n)),
+    (6, lambda a, b, p, n: pow(a, (p + 1) // 4, p))])
+def test_field_arithmetic_host_build_matches_python(host, op, fn):
+    # the unit's multiplication, square (fixed-step reductions mod p and n)
+    # and addition-chain powers, on any 256-bit inputs: canonical results
+    a = _field_values()
+    b = a[::-1]
+    out = torch.zeros((len(a), 8), dtype=torch.int32)
+    assert host.eravm_fe_host(_limbs(a).data_ptr(), _limbs(b).data_ptr(),
+                              out.data_ptr(), len(a), op) == 0
+    p, n = secp256k1.P_INT, secp256k1.N_INT
+    assert _ints(out) == [fn(x, y, p, n) for x, y in zip(a, b)]
+
+
+def test_endomorphism_split_host_build(host):
+    # k = k1 + k2 lambda (mod n), both halves under 2**129, each walked as
+    # an odd magnitude (even ones plus 1) with its sign
+    n, lam = secp256k1.N_INT, _build.secp_glv()["lam"]
+    rng = random.Random(43)
+    ks = [0, 1, 2, n - 1, n - 2, n // 2, n // 3, 2**128, 2**128 - 1,
+          2**129, 2**255, _build.secp_glv()["lam"]] \
+        + [rng.randrange(n) for _ in range(500)]
+    out = torch.zeros((len(ks), 2, 7), dtype=torch.int32)
+    assert host.eravm_secp_split_host(_limbs(ks).data_ptr(), out.data_ptr(),
+                                      len(ks)) == 0
+    for k, row in zip(ks, out.tolist()):
+        halves = []
+        for m0, m1, m2, m3, m4, neg, even in row:
+            m = sum((x & 0xFFFFFFFF) << (32 * i)
+                    for i, x in enumerate((m0, m1, m2, m3, m4)))
+            assert m & 1 and even in (0, 1) and neg in (0, 1)
+            halves.append((m - even) * (-1 if neg else 1))
+        assert (halves[0] + halves[1] * lam - k) % n == 0, hex(k)
+        assert all(abs(h) < 2**129 for h in halves), hex(k)
+
+
 def test_ecrecover_unit_host_build_matches_plain(host):
-    # csrc/secp256k1.cuh's ecrecover_unit against ops/secp256k1.py on random
-    # signatures and every edge case
-    cases = _random_cases(16, 31) + _edge_cases()
+    # csrc/secp256k1.cuh's ecrecover_unit against ops/secp256k1.py and the
+    # JAX package's golden ecrecover_inner on random signatures, every edge
+    # case and the crafted ones (R = +-G, sums at infinity, u1 = 0, ...)
+    cases = _random_cases(16, 31) + _edge_cases() \
+        + ec_programs.crafted_signatures()
     digest, r, s = (torch.tensor(
         [secp256k1.to_limbs(c[i]) for c in cases], dtype=torch.int64)
         .to(torch.int32) for i in (0, 2, 3))
@@ -259,6 +332,25 @@ def test_ecrecover_unit_host_build_matches_plain(host):
     assert torch.equal(ok != 0, want_ok)
     assert torch.equal(addr.to(torch.int64) & 0xFFFFFFFF, want_addr)
     assert 16 <= int(ok.sum()) < len(cases)
+    golden = [ecrecover_inner(*c) if c[1] <= 1 else None for c in cases]
+    assert [a if o else None for a, o in zip(_ints(addr), ok.tolist())] \
+        == golden
+
+
+@pytest.mark.parametrize("case", list(splice_cases.SPLICE_CASES))
+def test_splice_host_build_matches_plain(host, case):
+    # csrc/pq_splice.cu's body against splice_precompile_rows on random
+    # scratch blocks: every state field the splice touches
+    config, plain, block, n = splice_cases.splice_case(case)
+    kern = copy.deepcopy(plain)
+    blocks0 = plain.pq_blocks.clone()
+    fused_cycle.splice_precompile_rows(plain, config, block, n)
+    _host_splice(host, kern, config, block, n)
+    for field in splice_cases.SPLICE_FIELDS:
+        assert torch.equal(getattr(kern, field), getattr(plain, field)), field
+    flagged = int((block[3][:n] != 0).any(1).sum())
+    assert bool((kern.pq_blocks - blocks0 == flagged).all())
+    assert (flagged == 0) == (case == "none_flagged")
 
 
 @pytest.mark.parametrize("case,queue", [("programs", True),

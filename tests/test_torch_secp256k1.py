@@ -9,8 +9,13 @@ and the golden scalar reference, bit for bit (integers: zero tolerance).
     nine against JAX `ecrecover_batched` run in the VMs'
     ecrecover units, `tests/test_torch_ecrecover.py`);
   * the copies: the curve constants, the Python-int reference and signer,
-    and keccak256.
+    and keccak256;
+  * the constants that `_build.py` generates for K1's ecrecover unit: the
+    endomorphism (lambda, beta) and its lattice split, G's and lambda G's
+    odd multiples, the addition chains of its powers.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +26,7 @@ import torch
 from era_zk_evm_tpu.golden import precompiles as golden
 from era_zk_evm_tpu.ops import secp256k1 as jec
 from era_zk_evm_tpu.utils import batch_from_limbs, batch_to_limbs
+from era_zk_evm_tpu_torch import _build
 from era_zk_evm_tpu_torch.ops import keccak
 from era_zk_evm_tpu_torch.ops import secp256k1 as ec
 from era_zk_evm_tpu_torch.testing import ec_programs
@@ -195,6 +201,78 @@ def test_constants_match_jax():
         == (golden.SECP_P, golden.SECP_N, golden.SECP_GX, golden.SECP_GY)
     for name in ("_P", "_N", "_FOLD_P", "_FOLD_N"):
         assert getattr(ec, name) == np.asarray(getattr(jec, name)).tolist()
+
+
+def _header_limbs(header, name):
+    m = re.search(rf"{name}\[\d+\] = \{{([^}}]*)\}}", header)
+    return [int(v.strip().rstrip("u"), 16) for v in m.group(1).split(",")]
+
+
+def test_endomorphism_constants():
+    # the ecrecover unit's generated constants (era_zk_evm_tpu_torch/_build.py)
+    # against the curve: lambda^3 = 1 mod n, beta^3 = 1 mod p, lambda G =
+    # (beta Gx, Gy), the basis in the lattice, the rounding constants
+    c = _build.secp_glv()
+    n, p = golden.SECP_N, golden.SECP_P
+    lam, beta = c["lam"], c["beta"]
+    assert lam != 1 and pow(lam, 3, n) == 1
+    assert beta != 1 and pow(beta, 3, p) == 1
+    g = (golden.SECP_GX, golden.SECP_GY)
+    assert golden._ec_mul(lam, g) == (beta * g[0] % p, g[1])
+    for a, b in ((c["a1"], c["b1"]), (c["a2"], c["b2"])):
+        assert (a + b * lam) % n == 0 and max(abs(a), abs(b)) < 2**129
+    assert c["g1"] == (2**384 * c["b2"] + n // 2) // n
+    assert c["g2"] == (-(2**384) * c["b1"] + n // 2) // n
+    header = _build.generate_header()
+    for name, value in (("SECP_BETA", beta), ("SECP_G1", c["g1"]),
+                        ("SECP_G2", c["g2"]), ("SECP_A1", c["a1"]),
+                        ("SECP_A2", c["a2"]), ("SECP_MINUS_B1", -c["b1"]),
+                        ("SECP_B2", c["b2"]), ("SECP_FOLD_P", 2**256 - p),
+                        ("SECP_FOLD_N", 2**256 - n)):
+        assert _header_limbs(header, name) == ec.to_limbs(value), name
+    # the reduction mod p folds by 2**32 + SECP_FOLD_P[0]
+    assert 2**256 - p == 2**32 + ec.to_limbs(2**256 - p)[0]
+
+
+def test_generated_tables_and_chains():
+    # G's and lambda G's odd multiples, and the addition chains of the
+    # unit's three powers, as the generated header holds them
+    header = _build.generate_header()
+    words = _header_limbs(header, "SECP_GTAB")
+    w = _build.SECP_WINDOW_G
+    beta, p = _build.secp_glv()["beta"], golden.SECP_P
+    g = (golden.SECP_GX, golden.SECP_GY)
+    for t in range(2 * 2 ** (w - 1)):
+        x = sum(v << (32 * i) for i, v in enumerate(words[16 * t:16 * t + 8]))
+        y = sum(v << (32 * i) for i, v in enumerate(words[16 * t + 8:
+                                                          16 * t + 16]))
+        k = 2 * (t % 2 ** (w - 1)) + 1
+        mx, my = golden._ec_mul(k, g)
+        assert (x, y) == ((beta * mx % p if t >= 2 ** (w - 1) else mx), my)
+    for e in ((p + 1) // 4, p - 2, golden.SECP_N - 2):
+        builds, runs, tail = _build.pow_chain(e)
+        ex = {1: 1}
+        for length, a, b in builds:
+            ex[length] = ex[a] * 2**b + ex[b]
+            assert ex[length] == 2**length - 1
+        acc = ex[runs[0][1]]
+        for z, r in runs[1:]:
+            acc = acc * 2 ** (z + r) + ex[r]
+        assert acc * 2**tail == e
+        # some 256 squares and a few dozen products, where square-and-
+        # multiply takes ~500 operations
+        squares = sum(b for *_, b in builds) \
+            + sum(z + r for z, r in runs[1:]) + tail
+        assert squares + len(builds) + len(runs) - 1 <= 320
+    # every half of the split, under 2**SECP_SPLIT_BITS, has its digits
+    for window in (_build.SECP_WINDOW_R, w):
+        m = _build.secp_digits(window)
+        k = 2**_build.SECP_SPLIT_BITS - 1
+        digits = [2 * ((k >> (window * i + 1)) % 2**window) + 1 - 2**window
+                  for i in range(m - 1)] + [2 * (k >> (window * (m - 1) + 1))
+                                            + 1]
+        assert sum(d << (window * i) for i, d in enumerate(digits)) == k
+        assert all(d % 2 and abs(d) < 2**window for d in digits)
 
 
 @pytest.mark.parametrize("length", [0, 1, 64, 135, 136, 137, 300])
