@@ -97,7 +97,10 @@ Phases, one line each; any failure raises and the exit code is nonzero:
   K1-precompile bench_storage's geometry with the units on, B = 32768, the
                 precompile mix: one 128-cycle call (K1 and the splice
                 kernel) kernel vs plain over the whole batch, timed, with
-                its bound;
+                its bound; the keccak256 / sha256 units alone
+                (fused_cycle.precompile_units, a call a thread) on every
+                lane's call staged on its heap, timed, with their operation
+                bound, the first 2048 lanes against plain;
   K1-ecrecover-small  K1's ecrecover instance (the secp256k1 unit in the
                 cycle, two round-witness out rows) against plain on the
                 ecrecover test programs and the signed-transfer mix, chunks
@@ -803,6 +806,63 @@ def unit_check(signatures: list, dev) -> dict:
             "unit_ok": int(ok.sum()), "unit_plain_lanes": m}
 
 
+def units_check(config: VmConfig, state, mix: list, sm_mhz: float) -> dict:
+    """The keccak256 / sha256 units alone (a call a thread), staged as K1's
+    unit reads them: every lane's call of the precompile mix (keccak256 of
+    64 bytes at byte 0, or sha256 of its 1 or 2 rounds at word 0) on its
+    heap after the K1-precompile call.  Their main path, the entry point
+    `precompile_units` with its count zeroed just before; the kernel's
+    device time (torch.profiler, 3 launches) and the call's CUDA-event
+    times, against the operation bound of its keccak-f and compressions and
+    the plain version's time; its first UNIT_PLAIN lanes against the plain
+    version on the card."""
+    rounds = torch.tensor([r for *_, r in mix], dtype=torch.int32)
+    sha = (rounds > 0).to(torch.int32)
+    zero = torch.zeros_like(rounds)
+    call = torch.stack([sha, zero, zero, 64 * (1 - sha), rounds],
+                       dim=1).to(state.heap.device)
+    arena = state.heap                     # [F * HW, 8, B], frame 0 first
+    fused_cycle.PRECOMPILE_UNIT_LAUNCHES = 0
+    out, err = fused_cycle.precompile_units(config, arena, call)
+    torch.cuda.synchronize()
+    launches = fused_cycle.PRECOMPILE_UNIT_LAUNCHES
+    if launches != 1 or bool(err.any()):
+        raise AssertionError(f"units alone: {launches} launches, "
+                             f"{int(err.sum())} errors")
+    m = UNIT_PLAIN
+    want, want_err = fused_cycle.precompile_units_plain(
+        config, arena[..., :m].contiguous(), call[:m])
+    max_err = int((out[:m] - want).abs().max())
+    if max_err or not torch.equal(err[:m], want_err):
+        raise AssertionError("the keccak256 / sha256 units alone != plain")
+    times = [timed_ms(lambda: fused_cycle.precompile_units(config, arena,
+                                                           call))
+             for _ in range(3)]
+    # the kernel's own time: a call's CUDA-event time holds the host's
+    # launch work, longer than the kernel
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fused_cycle.precompile_units(config, arena, call)
+        torch.cuda.synchronize()
+    kernel = [e for e in prof.key_averages() if "units_kernel" in e.key]
+    if not kernel:
+        raise AssertionError("torch.profiler recorded no units_kernel")
+    device_ms = sum(e.self_device_time_total for e in kernel) / 1e3 \
+        / sum(e.count for e in kernel)
+    plain_ms = timed_ms(lambda: fused_cycle.precompile_units_plain(
+        config, arena, call))
+    perms = int((rounds == 0).sum())
+    comps = int(rounds.sum())
+    bound = bound_ms(0, perms * KECCAK_OPS + comps * SHA256_OPS, sm_mhz)
+    return {"launches": launches, "err": max_err, "ms": device_ms,
+            "ms_events": ";".join(f"{t:.4f}" for t in times),
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "keccak_f": perms,
+            "sha256_compressions": comps, "plain_lanes": m}
+
+
 def bound_ms(n_bytes: float, n_ops: float, sm_mhz: float) -> tuple:
     """(least time in ms, what sets it): bytes over the HBM rate against
     int32 operations over the card's int32 issue rate."""
@@ -1052,7 +1112,7 @@ def reset_counts() -> None:
     fused_cycle.K1_LAUNCHES = fused_cycle.K1_PRECOMPILE_LAUNCHES = 0
     fused_cycle.K1_ECRECOVER_LAUNCHES = keccak.K3_LAUNCHES = 0
     keccak.K3S_LAUNCHES = fused_cycle.PQ_SPLICE_LAUNCHES = 0
-    secp256k1.EC_UNIT_LAUNCHES = 0
+    secp256k1.EC_UNIT_LAUNCHES = fused_cycle.PRECOMPILE_UNIT_LAUNCHES = 0
 
 
 def objects_phase(dev) -> dict:
@@ -2729,7 +2789,14 @@ def main() -> int:
     kp_nbytes = k1_bytes(entry_p, ks, cfg_p)
     kp_bound = bound_ms(kp_nbytes, B_FULL * K * K1_MIN_OPS
                         + n_perms * KECCAK_OPS + n_comps * SHA256_OPS, sm_mhz)
+    units = units_check(cfg_p, ks, mix, sm_mhz)
     phase("K1-precompile", batch=B_FULL, cycles=K, equal=True,
+          units_ms=round(units["ms"], 4), units_ms_events=units["ms_events"],
+          units_bound_ms=round(units["bound_ms"], 4),
+          units_plain_ms=round(units["plain_ms"], 3),
+          units_plain_lanes=units["plain_lanes"],
+          units_keccak_f=units["keccak_f"],
+          units_sha256_compressions=units["sha256_compressions"],
           ms=round(kp_ms, 3), splice_ms=round(splices["precompile"]["ms"], 4),
           plain_ms=round(kp_plain_ms, 3),
           bound_ms=round(kp_bound[0], 4), bound_by=kp_bound[1],
@@ -3090,6 +3157,12 @@ def main() -> int:
                ":2863-2894, detour _run_cycles_fused_ec :3752)",
                blocks["block-ecrecover"]["K1_ecrecover"],
                max(kes_err, ke_err), ke_ms, ke_plain_ms, ke_bound),
+        kernel("K1 precompile units alone (keccak256/sha256)",
+               "cycle_kernel_ec.cu cycle_kernel.cu keccak.cuh sha256.cuh",
+               "era_zk_evm_tpu/models/fused_cycle.py:1395-1600 (the "
+               "precompile unit of _build_kernel :2794)", units["launches"],
+               units["err"], units["ms"], units["plain_ms"],
+               (units["bound_ms"], units["bound_by"])),
         kernel("pq_splice round-witness splice", "pq_splice.cu",
                "era_zk_evm_tpu/models/fused_cycle.py:3529-3588 (the "
                "round-witness splice in _run_chunk, after K1's launch)",

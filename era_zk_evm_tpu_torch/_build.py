@@ -112,6 +112,12 @@ def generate_header() -> str:
     out.append(f"EVM_TABLE uint64_t KECCAK_RC[{len(KECCAK_RC)}] = {{{rc}}};")
     rot = ", ".join(str(r) for r in KECCAK_ROTATIONS)
     out.append(f"EVM_TABLE int KECCAK_ROT[25] = {{{rot}}};")
+    # the same offsets as a constant expression of the lane index, which
+    # folds to an immediate where the index is a constant (keccak.cuh's
+    # keccak_f1600_unit); a __constant__ table load does not
+    sel = "".join(f"(i) == {i} ? {r} : "
+                  for i, r in enumerate(KECCAK_ROTATIONS[:-1]))
+    out.append(f"#define KECCAK_ROT_C(i) ({sel}{KECCAK_ROTATIONS[-1]})")
     p, n = secp.P_INT, secp.N_INT
     tables = [("SHA256_K", SHA256_K), ("SHA256_IV", SHA256_IV)] + [
         (name, secp.to_limbs(value)) for name, value in (
@@ -383,6 +389,16 @@ class SpliceArgs(ctypes.Structure):
     )] + [(name, ctypes.c_int) for name in ("n", "ps", "cap", "batch")]
 
 
+class UnitsArgs(ctypes.Structure):
+    """Mirror of `struct UnitsArgs` in csrc/cycle_kernel.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "arena", "call", "out", "err",
+    )] + [(name, ctypes.c_int) for name in (
+        "n", "n_words", "keccak_blocks", "sha_rounds", "ps_in",
+    )]
+
+
 #: the probes' C entries, eravm_<probe>_launch and eravm_<probe>_host: their
 #: arguments ("p" a pointer, "i" an int) before the launchers' stream
 _PROBE_LAUNCH = {"p1": "piiii", "p2": "ppiii", "p3": "piiii", "p4": "pii",
@@ -427,6 +443,9 @@ def load() -> ctypes.CDLL:
         lib.eravm_ecrecover_launch.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int, ctypes.c_void_p]
         lib.eravm_ecrecover_launch.restype = ctypes.c_int
+        lib.eravm_units_launch.argtypes = [ctypes.POINTER(UnitsArgs),
+                                           ctypes.c_void_p]
+        lib.eravm_units_launch.restype = ctypes.c_int
         _bind_probes(lib, "launch", _PROBE_LAUNCH)
         lib.eravm_p3_unroll.argtypes = []
         lib.eravm_p3_unroll.restype = ctypes.c_int
@@ -452,6 +471,8 @@ def load_host() -> ctypes.CDLL:
         lib.eravm_ecrecover_host.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int]
         lib.eravm_ecrecover_host.restype = ctypes.c_int
+        lib.eravm_units_host.argtypes = [ctypes.POINTER(UnitsArgs)]
+        lib.eravm_units_host.restype = ctypes.c_int
         lib.eravm_fe_host.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_int, ctypes.c_int]
         lib.eravm_fe_host.restype = ctypes.c_int

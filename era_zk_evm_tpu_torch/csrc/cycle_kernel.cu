@@ -67,35 +67,44 @@
 //
 // What bounds it on an H100: latency, not bytes (K1 runs far above its
 // byte floor): each warp's chain of dependent reads, the frame scalars and
-// spills in local memory (ptxas: 255 registers, 352-2864 byte frames,
+// spills in local memory (ptxas: 255 registers, 352-2896 byte frames,
 // spills in the kLog, kPrecomp and kEc instances), at most 8 warps an SM,
 // and a warp whose lanes diverge (other programs, other indexes) pays a
 // sector a lane again.  The launch picks its block size from the SM count
 // so that a small batch still spans every SM (k1_block_threads).
 //
-// The precompile units (kPrecomp) run in a __noinline__ function that only a
-// lane whose cycle is a precompile call enters, so the hot loop's register
-// allocation does not grow by the keccak state (25 u64 in registers, the
-// K2/K3 keccak-f of keccak.cuh), the byte window or the sha256 state
-// (sha256.cuh, constants in __constant__ memory).  A lane reads its input
-// bytes straight from its heap or aux-heap frame by index, and writes its
-// round-witness rows into a per-chunk scratch block pq_*_blk[K, PS, ., B]
-// (batch-last, so a warp's stores coalesce) with an emit flag and a slot
-// count per cycle.  The queue's block clock is batch-global (it advances on
-// every cycle in which any lane ran a unit), a dependency across lanes that
-// one launch of independent threads cannot resolve: the splice kernel
-// (pq_splice.cu, launched by models/fused_cycle.py::splice_rows after K1)
-// moves the scratch rows into the queue, as the TPU kernel's wrapper does
-// (:3529-3588); it writes only the blocks that survive, so it is bound by
-// those bytes, a small part of K1's time.  The units are bound by their
-// operations (a keccak-f per 136-byte block, a sha256 compression per
-// 64-byte round, some 3,400 field multiplications and squares per
-// ecrecover, secp256k1.cuh) and by the divergence between unit lanes and
-// the rest of a warp.  The kEc instance is a fourth one so that the other three keep their
-// code and register allocation; cycle_kernel_ec.cu compiles it, in an nvcc
-// process of its own beside this file's, and the launch chooses it by an
-// argument (a field more in K1Args would grow the param copy in kPrecomp's
-// frame).
+// The precompile units (kPrecomp) run inline in the cycle, entered only by a
+// lane whose cycle is a precompile call.  A call reads its input words from
+// its heap or aux-heap frame once (at most PS_IN words, after one walk over
+// the frames for both pages) into a window in shared memory beside the
+// register file, lane-last like it; the mem_in rows and the hash both read
+// them there.  keccak256 builds each 64-bit rate lane from two or three
+// 32-bit chunks of the window (a funnel shift by in_off & 3 bytes, a byte
+// swap) with the bytes past in_len masked and the padding XORed in by byte
+// index, so no per-lane byte array exists; the permutation is the unit's
+// own (keccak.cuh: keccak_f1600_unit, rotations as immediates), and sha256
+// runs its rounds in trips of 16 (sha256.cuh), so the code a call fetches
+// stays small.  A lane writes its round-witness rows into a per-chunk
+// scratch block pq_*_blk[K, PS, ., B] (batch-last, so a warp's stores
+// coalesce) with an emit flag and a slot count per cycle.  The queue's block
+// clock is batch-global (it advances on every cycle in which any lane ran a
+// unit), a dependency across lanes that one launch of independent threads
+// cannot resolve: the splice kernel (pq_splice.cu, launched by
+// models/fused_cycle.py::splice_rows after K1) moves the scratch rows into
+// the queue, as the TPU kernel's wrapper does (:3529-3588); it writes only
+// the blocks that survive, so it is bound by those bytes.
+// What bounds the units (PERF.md §6, measured on an H100): not their
+// operations (the units alone, units_kernel, run a call a thread at 2.7x
+// their keccak-f and compression count) but what a call costs inside
+// K1's 255-register cycle: out of line, the call (and the frame it read
+// through generic addresses, before K1Args became a __grid_constant__)
+// cost more than the hashing, so the unit is inlined; the window's
+// shared memory leaves L1 ~28 of ~92 KB; and the divergence between unit
+// lanes and the rest of a warp.  The ecrecover unit (secp256k1.cuh, some
+// 3,400 field multiplications and squares) stays out of line.  The kEc
+// instance is a fourth one so that the other three keep their code and
+// register allocation; cycle_kernel_ec.cu compiles it, in an nvcc process
+// of its own beside this file's, and the launch chooses it by an argument.
 
 #include "common.cuh"
 #include "keccak.cuh"
@@ -250,10 +259,18 @@ HD bool map_stack(const K1Args &a, uint32_t idx, uint32_t *phys) {
 // conflict-free shared-memory access and not a local-memory round trip.
 // One word more, rf[RF_CURSOR * rs], holds the lane's next free row of the
 // chunk's record block (mode b), so that no register carries it through
-// the launch.
+// the launch.  In the kPrecomp and kEc instances the precompile units'
+// window of PS_IN input words follows, rf[(RF_WORDS + m) * rs]
+// (precompile_unit).
 #define RF_TAGS (15 * 8)
 #define RF_CURSOR (RF_TAGS + 15)
 #define RF_WORDS (RF_CURSOR + 1)
+
+// the words a lane keeps in shared memory (host and device code): the
+// register file and, in an instance with the units, their window (8
+// chunks a word of PS_IN)
+#define K1_LANE_WORDS(units, pq_slots_in) \
+    (RF_WORDS + ((units) ? 8 * (pq_slots_in) : 0))
 
 struct Lane {
     uint32_t *rf;
@@ -327,89 +344,188 @@ HD void write_reg(Lane &L, uint32_t idx, const U256 &v, bool tag) {
     reg_tag(L, idx - 1) = tag;
 }
 
-// (on the heap, on the aux heap, frame slot) of a page: heap frames first
-HD void page_slot(const K1Args &a, int b, uint32_t page, bool *on_h,
-                  bool *on_a, uint32_t *slot) {
-    const int F = a.heap_frames;
-    uint32_t hs = 0, as = 0;
-    bool h = false, x = false;
-    for (int f = 0; f < F; f++) {
-        if ((uint32_t)a.hp_page[ll(a, b, f)] == page) { hs += f; h = true; }
-        if ((uint32_t)a.ap_page[ll(a, b, f)] == page) { as += f; x = true; }
+// (on the heap, on the aux heap, frame slot) of the read page and of the
+// write page, heap frames first: one walk over the lane's frames
+HD void page_slots(const K1Args &a, int b, uint32_t page_r, uint32_t page_w,
+                   bool *r_on_h, bool *r_on_a, uint32_t *r_slot,
+                   bool *w_on_h, bool *w_on_a, uint32_t *w_slot) {
+    uint32_t rh = 0, ra = 0, wh = 0, wa = 0;
+    bool rh_ok = false, ra_ok = false, wh_ok = false, wa_ok = false;
+    for (int f = 0; f < a.heap_frames; f++) {
+        const uint32_t hp = (uint32_t)a.hp_page[ll(a, b, f)];
+        const uint32_t ap = (uint32_t)a.ap_page[ll(a, b, f)];
+        if (hp == page_r) { rh += f; rh_ok = true; }
+        if (ap == page_r) { ra += f; ra_ok = true; }
+        if (hp == page_w) { wh += f; wh_ok = true; }
+        if (ap == page_w) { wa += f; wa_ok = true; }
     }
-    *on_h = h;
-    *on_a = !h && x;
-    *slot = h ? hs : as;
+    *r_on_h = rh_ok;
+    *r_on_a = !rh_ok && ra_ok;
+    *r_slot = rh_ok ? rh : ra;
+    *w_on_h = wh_ok;
+    *w_on_a = !wh_ok && wa_ok;
+    *w_slot = wh_ok ? wh : wa;
 }
 
-// word idx of heap frame `slot` (on_h) or aux-heap frame `slot`, u32 index
-// arithmetic; outside the arena it reads zeros
-HD U256 frame_word(const K1Args &a, int b, bool on_h, uint32_t slot,
-                   uint32_t idx) {
-    const uint32_t W = on_h ? a.heap_words : a.aux_heap_words;
-    const uint64_t n = (uint64_t)a.heap_frames * W;
-    return load_word(a, on_h ? a.heap : a.aux_heap, b, n,
-                     (uint32_t)(slot * W + idx));
+// The frame a unit reads: word idx of it is word base + idx (u32
+// arithmetic) of lane b's lane-last word arena [n_words, 8, batch]; outside
+// the arena it reads zeros.  K1 points it at a heap or aux-heap frame; the
+// units-alone kernel at its staged inputs.
+struct UnitFrame {
+    const int32_t *arena;
+    uint64_t n_words, batch;
+    uint32_t base;
+    int b;
+};
+
+HD U256 unit_word(const UnitFrame &f, uint32_t idx) {
+    const uint32_t i = f.base + idx;
+    U256 r = u256_zero();
+    if (i < f.n_words)
+        for (int l = 0; l < 8; l++)
+            r.w[l] = (uint32_t)f.arena[((uint64_t)i * 8 + l) * f.batch + f.b];
+    return r;
 }
 
-// keccak256 of in_len bytes at byte in_off of the frame: a byte-stream
-// sponge over at most keccak_blocks 136-byte blocks, padding XORed in
-HD U256 keccak_unit(const K1Args &a, int b, bool on_h, uint32_t slot,
-                    uint32_t in_off, uint32_t in_len, uint32_t kc_blocks) {
-    const uint32_t kc_last = kc_blocks * 136u - 1u;
+// The unit's window: a call's input words, each read from the frame once,
+// as big-endian 32-bit chunks in stream order (chunk 8 i + j is limb 7 - j
+// of word i) at win[m * rs].  K1 keeps it in shared memory after the
+// register file, lane-last like it (PS_IN words a lane, 320 B at the bench
+// configs' PS_IN = 10), so that its run-time indexes are conflict-free
+// shared-memory accesses and not local memory.
+HD uint32_t &win_chunk(uint32_t *win, uint32_t rs, uint32_t m) {
+    return win[m * rs];
+}
+
+// words first, first + 1, ... (u32) of the frame into chunks 0, 8, ...:
+// every load issued before any store to global memory, so they overlap
+HD void stage_words(const UnitFrame &f, uint32_t first, uint32_t count,
+                    uint32_t *win, uint32_t rs) {
+#ifdef __CUDACC__
+#pragma unroll 2
+#endif
+    for (uint32_t i = 0; i < count; i++) {
+        const U256 v = unit_word(f, first + i);
+        for (int j = 0; j < 8; j++) win_chunk(win, rs, 8 * i + j) = v.w[7 - j];
+    }
+}
+
+HD U256 window_word(uint32_t *win, uint32_t rs, uint32_t i) {
+    U256 r;
+    for (int l = 0; l < 8; l++) r.w[l] = win_chunk(win, rs, 8 * i + 7 - l);
+    return r;
+}
+
+HD uint32_t unit_bswap32(uint32_t x) {
+#ifdef __CUDA_ARCH__
+    return __byte_perm(x, 0, 0x0123);
+#else
+    return __builtin_bswap32(x);
+#endif
+}
+
+// the high word of (hi:lo) << s, s in 0..31
+HD uint32_t funnel_hi(uint32_t lo, uint32_t hi, uint32_t s) {
+#ifdef __CUDA_ARCH__
+    return __funnelshift_l(lo, hi, s);
+#else
+    return s ? (hi << s) | (lo >> (32 - s)) : hi;
+#endif
+}
+
+// The keccak unit's input geometry: nb = min(kc_blocks, MK) blocks absorb
+// the first g_end = min(in_len, nb * 136) bytes at byte in_off; blocks from
+// kw on start past byte 2**32, where the reference's u32 byte offset wraps
+// to the arena's start (kw = nb when none does).
+struct KeccakCall {
+    uint32_t in_off, in_len, kc_blocks, nb, g_end, kw;
+};
+
+HD KeccakCall keccak_call(uint32_t in_off, uint32_t in_len, uint32_t mk) {
+    KeccakCall k;
+    k.in_off = in_off;
+    k.in_len = in_len;
+    k.kc_blocks = in_len / 136u + 1u;
+    k.nb = k.kc_blocks < mk ? k.kc_blocks : mk;
+    k.g_end = in_len < k.nb * 136u ? in_len : k.nb * 136u;
+    const uint64_t to_wrap = (1ull << 32) - in_off;   // bytes before 2**32
+    const uint64_t kw = (to_wrap + 135) / 136;
+    k.kw = kw < k.nb ? (uint32_t)kw : k.nb;
+    return k;
+}
+
+// the words that bytes [g0, g1) of the stream span from a start at byte
+// `sh` of the window's first word
+HD uint32_t span_words(uint32_t sh, uint32_t g0, uint32_t g1) {
+    return g1 > g0 ? ((sh + g1 - g0 - 1) >> 5) + 1 : 0u;
+}
+
+// the words the sponge reads from the call's first word, in_off >> 5
+HD uint32_t keccak_words(const KeccakCall &k) {
+    const uint32_t g1 = k.g_end < k.kw * 136u ? k.g_end : k.kw * 136u;
+    return span_words(k.in_off & 31, 0, g1);
+}
+
+// keccak256 of the call's bytes from the window (its first word in_off >>
+// 5): per block, its 17 rate lanes from 32-bit chunks (two or three a lane,
+// a funnel shift by in_off & 3 bytes, a byte swap), the bytes from in_len on
+// masked to zero, the 0x01 and 0x80 padding XORed in by the lane's byte
+// index; at block kw the window is reloaded from the wrapped offset.
+HD U256 keccak_window(const UnitFrame &f, const KeccakCall &k, uint32_t *win,
+                      uint32_t rs) {
+    const uint32_t kc_last = k.kc_blocks * 136u - 1u;
+    const uint32_t s = 8 * (k.in_off & 3);
     uint64_t st[25];
     for (int i = 0; i < 25; i++) st[i] = 0;
-    uint8_t window[192];
-    for (uint32_t k = 0; k < (uint32_t)a.keccak_blocks && k < kc_blocks; k++) {
-        const uint32_t base_byte = in_off + k * 136u;
-        const uint32_t base_word = base_byte >> 5, sh = base_byte & 31;
-        for (int w = 0; w < 6; w++) {
-            const U256 v = frame_word(a, b, on_h, slot, base_word + w);
-            for (int p = 0; p < 32; p++)     // big-endian bytes of the word
-                window[w * 32 + p] =
-                    (uint8_t)(v.w[7 - p / 4] >> (8 * (3 - p % 4)));
+    uint32_t boff = k.in_off & 31;     // the block's first byte in the window
+    for (uint32_t blk = 0; blk < k.nb; blk++) {
+        if (blk == k.kw) {
+            const uint32_t wrapped = k.in_off + blk * 136u;   // mod 2**32
+            boff = wrapped & 31;
+            stage_words(f, wrapped >> 5,
+                        span_words(boff, blk * 136u, k.g_end), win, rs);
         }
+        const uint32_t m = boff >> 2;
+        uint32_t c0 = win_chunk(win, rs, m);
+#ifdef __CUDACC__
+#pragma unroll
+#endif
         for (int l = 0; l < 17; l++) {
-            uint64_t lane = 0;
-            for (int t = 0; t < 8; t++) {
-                const uint32_t j = 8 * l + t, g = k * 136u + j;
-                uint32_t byte = g < in_len ? window[sh + j] : 0u;
-                if (g == in_len) byte ^= 0x01;
-                if (g == kc_last) byte ^= 0x80;
-                lane |= (uint64_t)byte << (8 * t);
-            }
-            st[l] ^= lane;
+            const uint32_t c1 = win_chunk(win, rs, m + 2 * l + 1);
+            const uint32_t c2 = win_chunk(win, rs, m + 2 * l + 2);
+            uint64_t x = (uint64_t)unit_bswap32(funnel_hi(c1, c0, s))
+                | (uint64_t)unit_bswap32(funnel_hi(c2, c1, s)) << 32;
+            c0 = c2;
+            const uint32_t g0 = blk * 136u + 8u * l;
+            const uint32_t rem = k.in_len - g0;       // g0 <= in_len: bytes left
+            const uint32_t pad = kc_last - g0;
+            x &= k.in_len <= g0 ? 0ull
+                : (rem >= 8 ? ~0ull : (1ull << (8 * rem)) - 1);
+            if (rem < 8) x ^= 1ull << (8 * rem);
+            if (pad < 8) x ^= 0x80ull << (8 * pad);
+            st[l] ^= x;
         }
-        keccak_f1600(st);
+        keccak_f1600_unit(st);
+        boff += 136;
     }
     // the digest's 32 little-endian lane bytes, as one big-endian word
     U256 out;
-    for (int w = 0; w < 8; w++) {
-        uint32_t limb = 0;
-        for (int q = 0; q < 4; q++) {
-            const int i = 28 - 4 * w + q;
-            limb = (limb << 8) | (uint32_t)((st[i / 8] >> (8 * (i % 8))) & 0xFF);
-        }
-        out.w[w] = limb;
+    for (int w = 0; w < 4; w++) {
+        const uint64_t v = st[3 - w];
+        out.w[2 * w] = unit_bswap32((uint32_t)(v >> 32));
+        out.w[2 * w + 1] = unit_bswap32((uint32_t)v);
     }
     return out;
 }
 
-// the sha256 state after min(rounds, max(sha_rounds, 1)) compressions of
-// two input words each, as one big-endian word
-HD U256 sha_unit(const K1Args &a, int b, bool on_h, uint32_t slot,
-                 uint32_t in_off, uint32_t rounds) {
-    const uint32_t ms = a.sha_rounds > 1 ? a.sha_rounds : 1;
+// the sha256 state after `rounds` compressions of window words 2 k, 2 k + 1
+// (chunks 16 k ...), as one big-endian word
+HD U256 sha_window(uint32_t *win, uint32_t rs, uint32_t rounds) {
     uint32_t st[8];
     for (int i = 0; i < 8; i++) st[i] = SHA256_IV[i];
-    for (uint32_t k = 0; k < ms && k < rounds; k++) {
+    for (uint32_t k = 0; k < rounds; k++) {
         uint32_t blk[16];
-        const U256 w0 = frame_word(a, b, on_h, slot, in_off + 2 * k);
-        const U256 w1 = frame_word(a, b, on_h, slot, in_off + 2 * k + 1);
-        for (int i = 0; i < 8; i++) {
-            blk[i] = w0.w[7 - i];
-            blk[8 + i] = w1.w[7 - i];
-        }
+        for (int i = 0; i < 16; i++) blk[i] = win_chunk(win, rs, 16 * k + i);
         sha256_compress(st, blk);
     }
     U256 out;
@@ -417,16 +533,57 @@ HD U256 sha_unit(const K1Args &a, int b, bool on_h, uint32_t slot,
     return out;
 }
 
+// The keccak256 / sha256 units alone (units_kernel, cycle_kernel_ec.cu; on
+// the host eravm_units_host), a call a lane: lane i's frame is word base
+// of its arena [n_words, 8, n], call[i] = (kind: 0 keccak256, 1 sha256;
+// base; in_off; in_len; rounds), as K1's unit reads them; the output word
+// and whether the call exceeds the unit's limits (MK blocks, MS rounds).
+struct UnitsArgs {
+    const int32_t *arena, *call;
+    int32_t *out, *err;     // [n, 8], [n]
+    int n, n_words, keccak_blocks, sha_rounds, ps_in;
+};
+
+HD void units_lane(const UnitsArgs &a, int i, uint32_t *win, uint32_t rs) {
+    const int32_t *c = a.call + 5 * (uint64_t)i;
+    const uint32_t in_off = c[2], in_len = c[3], rounds = c[4];
+    const UnitFrame f = {a.arena, (uint64_t)a.n_words, (uint64_t)a.n,
+                         (uint32_t)c[1], i};
+    const uint32_t ms = a.sha_rounds > 1 ? a.sha_rounds : 1;
+    const uint32_t ps_in = a.ps_in;
+    U256 out;
+    bool err;
+    if (c[0] != 0) {
+        const uint32_t n = rounds < ms ? rounds : ms;
+        stage_words(f, in_off, 2 * n, win, rs);
+        out = sha_window(win, rs, n);
+        err = rounds > ms;
+    } else {
+        const KeccakCall kc = keccak_call(in_off, in_len,
+                                          (uint32_t)a.keccak_blocks);
+        const uint32_t words = keccak_words(kc);
+        stage_words(f, in_off >> 5, words < ps_in ? words : ps_in, win, rs);
+        out = keccak_window(f, kc, win, rs);
+        err = kc.kc_blocks > (uint32_t)a.keccak_blocks;
+    }
+    store_u256(a.out + 8 * (uint64_t)i, out);
+    a.err[i] = err;
+}
+
 // The precompile unit of one lane's precompile call in cycle c: the
 // keccak256 or sha256 of its input or, with kEc, the ecrecover of its four
 // input words, its round-witness rows in the chunk's scratch block (with emit
 // flag and slot count), then its output word (ecrecover: the ok word and the
-// address).  Returns whether the call sets lane_error.
+// address).  The call's input words go from the read frame into the window
+// `win` (stride rs) once; the mem_in rows and the hash both read them there.
+// Inlined into the cycle: out of line, kPrecomp's launch took 6.2 ms
+// against 4.8 on an H100 (PERF.md).  Returns whether the call sets
+// lane_error.
 template <bool kEc>
-HD_NOINLINE bool precompile_unit(const K1Args &a, int b, int c,
-                                 const uint32_t abi[8], uint32_t addr16,
-                                 uint32_t heap_page, uint32_t ts_log,
-                                 uint32_t *emit, uint32_t *nslots) {
+HD bool precompile_unit(const K1Args &a, int b, int c, const uint32_t abi[8],
+                        uint32_t addr16, uint32_t heap_page, uint32_t ts_log,
+                        uint32_t *win, uint32_t rs, uint32_t *emit,
+                        uint32_t *nslots) {
     *emit = *nslots = 0;
     const bool is_keccak = addr16 == KECCAK256_ROUND_FUNCTION_PRECOMPILE_ADDRESS;
     const bool is_sha = addr16 == SHA256_ROUND_FUNCTION_PRECOMPILE_ADDRESS;
@@ -438,58 +595,78 @@ HD_NOINLINE bool precompile_unit(const K1Args &a, int b, int c,
     const uint32_t page_w = abi[PP_ABI_PAGE_W] ? abi[PP_ABI_PAGE_W] : heap_page;
     bool r_on_h, r_on_a, w_on_h, w_on_a;
     uint32_t r_slot, w_slot;
-    page_slot(a, b, page_r, &r_on_h, &r_on_a, &r_slot);
-    page_slot(a, b, page_w, &w_on_h, &w_on_a, &w_slot);
+    page_slots(a, b, page_r, page_w, &r_on_h, &r_on_a, &r_slot, &w_on_h,
+               &w_on_a, &w_slot);
     bool err = !(r_on_h || r_on_a) || !(w_on_h || w_on_a);
-    const uint32_t kc_blocks = in_len / 136u + 1u;
-    U256 out, out2 = u256_zero();
-    if (is_keccak) {
-        err |= kc_blocks > (uint32_t)a.keccak_blocks;
-        out = keccak_unit(a, b, r_on_h, r_slot, in_off, in_len, kc_blocks);
-    } else if (is_ec) {
-        // digest, v (the low bit of word 1), r, s at input words 0..3
-        const U256 digest = frame_word(a, b, r_on_h, r_slot, in_off);
-        const uint32_t v = frame_word(a, b, r_on_h, r_slot, in_off + 1).w[0] & 1;
-        out = u256_from32(ecrecover_unit(
-            digest, v, frame_word(a, b, r_on_h, r_slot, in_off + 2),
-            frame_word(a, b, r_on_h, r_slot, in_off + 3), &out2));
-    } else {
-        err |= rounds > (uint32_t)(a.sha_rounds > 1 ? a.sha_rounds : 1);
-        out = sha_unit(a, b, r_on_h, r_slot, in_off, rounds);
-    }
+    const uint32_t RW = r_on_h ? a.heap_words : a.aux_heap_words;
+    const UnitFrame fr = {r_on_h ? a.heap : a.aux_heap,
+                          (uint64_t)a.heap_frames * RW, (uint64_t)a.batch,
+                          r_slot * RW, b};
+    const uint32_t ms = a.sha_rounds > 1 ? a.sha_rounds : 1;
+    const KeccakCall kc = keccak_call(in_off, in_len, (uint32_t)a.keccak_blocks);
+    const uint32_t sha_n = rounds < ms ? rounds : ms;
 
+    // the call's words: from in_off >> 5 (keccak) or in_off (sha256,
+    // ecrecover), as many as the hash or the mem_in rows read, at most PS_IN
+    const uint32_t ps_in = a.pq_slots_in;
+    const uint32_t first = is_keccak ? in_off >> 5 : in_off;
+    const uint32_t kq_words = in_len == 0 ? 0u
+        : ((in_off + in_len - 1) >> 5) - (in_off >> 5) + 1;
+    const uint32_t n_words = is_keccak ? kq_words : (is_ec ? 4u : 2 * rounds);
+    const uint32_t hash_words = is_keccak ? keccak_words(kc)
+        : (is_ec ? 4u : 2 * sha_n);
+    uint32_t n_load = a.pq_capacity > 0 && n_words > hash_words
+        ? n_words : hash_words;
+    n_load = n_load < ps_in ? n_load : ps_in;
+    stage_words(fr, first, n_load, win, rs);
+
+    const uint64_t B = a.batch;
+    const uint32_t ps_out = kEc ? 2u : 1u;
+    const uint32_t rounds_q = is_keccak ? kc.kc_blocks : (is_ec ? 1u : rounds);
     if (a.pq_capacity > 0) {
-        // mem_in rows: consecutive words from the call's first word; then
-        // the mem_out row, which carries the round count, and with kEc a
-        // second mem_out row (the address; an ecrecover call's only)
-        const uint64_t B = a.batch;
-        const uint32_t ps_in = a.pq_slots_in;
-        const uint32_t ps_out = kEc ? 2u : 1u;
-        const uint32_t first = is_keccak ? in_off >> 5 : in_off;
-        const uint32_t kq_words = in_len == 0 ? 0u
-            : ((in_off + in_len - 1) >> 5) - (in_off >> 5) + 1;
-        const uint32_t n_words = is_keccak ? kq_words : (is_ec ? 4u : 2 * rounds);
+        // rows: the mem_in rows, consecutive words from the call's first
         err |= n_words > ps_in;
-        const uint32_t last = ps_in + ps_out - 1;
-        for (uint32_t i = 0; i <= last; i++) {
-            const bool in_row = i < ps_in, second = kEc && i > ps_in;
-            const bool v = in_row ? i < n_words : (second ? is_ec : true);
-            const uint32_t idx = first + i;
-            const U256 val = !v ? u256_zero()
-                : (in_row ? frame_word(a, b, r_on_h, r_slot, idx)
-                          : (second ? out2 : out));
-            const uint32_t meta[4] = {
-                in_row ? ts_log : ts_log + 1, in_row ? 3u : 1u,
-                in_row ? page_r : page_w,
-                in_row ? idx : out_off + (second ? 1u : 0u)};
+        for (uint32_t i = 0; i < ps_in; i++) {
+            const bool v = i < n_words;
             const uint64_t row = (uint64_t)c * (ps_in + ps_out) + i;
+            const uint32_t meta[4] = {ts_log, 3u, page_r, first + i};
+            const U256 val = v ? window_word(win, rs, i) : u256_zero();
             for (int q = 0; q < 4; q++)
                 a.pq_meta_blk[(row * 4 + q) * B + b] = v ? (int32_t)meta[q] : 0;
             for (int l = 0; l < 8; l++)
                 a.pq_value_blk[(row * 8 + l) * B + b] = (int32_t)val.w[l];
-            const uint32_t rounds_q = is_keccak ? kc_blocks : (is_ec ? 1u : rounds);
+            a.pq_flags_blk[row * B + b] = v ? 4 : 0;
+        }
+    }
+
+    U256 out, out2 = u256_zero();
+    if (is_keccak) {
+        err |= kc.kc_blocks > (uint32_t)a.keccak_blocks;
+        out = keccak_window(fr, kc, win, rs);
+    } else if (is_ec) {
+        // digest, v (the low bit of word 1), r, s at input words 0..3
+        out = u256_from32(ecrecover_unit(
+            window_word(win, rs, 0), win_chunk(win, rs, 15) & 1,
+            window_word(win, rs, 2), window_word(win, rs, 3), &out2));
+    } else {
+        err |= rounds > ms;
+        out = sha_window(win, rs, sha_n);
+    }
+
+    if (a.pq_capacity > 0) {
+        // the mem_out row, which carries the round count, and with kEc a
+        // second mem_out row (the address; an ecrecover call's only)
+        for (uint32_t j = 0; j < ps_out; j++) {
+            const bool v = j == 0 || is_ec;
+            const uint64_t row = (uint64_t)c * (ps_in + ps_out) + ps_in + j;
+            const uint32_t meta[4] = {ts_log + 1, 1u, page_w, out_off + j};
+            const U256 val = !v ? u256_zero() : (j ? out2 : out);
+            for (int q = 0; q < 4; q++)
+                a.pq_meta_blk[(row * 4 + q) * B + b] = v ? (int32_t)meta[q] : 0;
+            for (int l = 0; l < 8; l++)
+                a.pq_value_blk[(row * 8 + l) * B + b] = (int32_t)val.w[l];
             a.pq_flags_blk[row * B + b] = !v ? 0
-                : (in_row ? 4 : (int32_t)(second ? 5u : 5u | (rounds_q << 3)));
+                : (int32_t)(j ? 5u : 5u | (rounds_q << 3));
         }
         *emit = 1;
         *nslots = n_words + 1 + is_ec;
@@ -1012,7 +1189,8 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     const uint32_t heap_page = base_page + 2, aux_page = base_page + 3;
     if (kPrecomp && do_precomp &&
         precompile_unit<kEc>(a, b, c, src0.w, this_addr[0] & 0xFFFF,
-                             heap_page, ts_log, &L.pq_emit, &L.pq_nslots))
+                             heap_page, ts_log, L.rf + RF_WORDS * L.rs, L.rs,
+                             &L.pq_emit, &L.pq_nslots))
         L.lane_error = true;
 
     // ---------------------------------------------------- near call
@@ -1707,8 +1885,14 @@ HD void k1_run_lane(const K1Args &a, int b, uint32_t *rf, uint32_t rs) {
 // at most K1_THREADS threads a block (k1_block_threads picks fewer)
 #define K1_THREADS 128
 
+// The arguments are a __grid_constant__, so that a device function out of
+// line may take them by reference without nvcc copying the whole struct
+// into each thread's local memory and reaching every array of the instance
+// through generic addresses read from that copy (the units out of line did,
+// PERF.md).
 template <bool kLog, bool kPrecomp, bool kEc>
-__global__ void __launch_bounds__(K1_THREADS) k1_kernel(const K1Args a) {
+__global__ void __launch_bounds__(K1_THREADS) k1_kernel(
+        const __grid_constant__ K1Args a) {
     extern __shared__ uint32_t k1_rf[];   // the block's register files
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b < a.batch)
@@ -1726,12 +1910,15 @@ static int k1_block_threads(int batch) {
 }
 
 // one instance's launch: the block size from the SM count, a register
-// file a thread in dynamic shared memory (68 KB at 128 threads)
+// file a thread in dynamic shared memory (68 KB at 128 threads) and, with
+// the units, their window (40 KB at 128 threads and PS_IN = 10: two blocks
+// an SM still fit)
 template <bool kLog, bool kPrecomp, bool kEc>
 static int k1_launch(const K1Args *args, cudaStream_t s) {
     const int threads = k1_block_threads(args->batch);
     const int blocks = (args->batch + threads - 1) / threads;
-    const int smem = threads * RF_WORDS * (int)sizeof(uint32_t);
+    const int smem = threads * K1_LANE_WORDS(kPrecomp, args->pq_slots_in)
+        * (int)sizeof(uint32_t);
     const cudaError_t e = cudaFuncSetAttribute(
         k1_kernel<kLog, kPrecomp, kEc>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

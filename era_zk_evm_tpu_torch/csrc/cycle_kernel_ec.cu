@@ -2,8 +2,10 @@
 // ecrecover unit of secp256k1.cuh, in a source of its own so that nvcc builds
 // it in a process beside the other three instances' (it is the largest).
 // eravm_k1_launch (cycle_kernel.cu) calls it for ecrecover configs.  The
-// unit alone, a signature a thread (ec_unit_kernel), serves its checks and
-// its timing apart from K1 (ops/secp256k1.py::ecrecover_unit).
+// units alone serve their checks and their timing apart from K1's
+// interpreter: the ecrecover unit a signature a thread (ec_unit_kernel,
+// ops/secp256k1.py::ecrecover_unit) and the keccak256 / sha256 units a call
+// a thread (units_kernel, models/fused_cycle.py::precompile_units).
 
 #define K1_EC_INSTANCE
 #include "cycle_kernel.cu"
@@ -33,6 +35,28 @@ extern "C" int eravm_ecrecover_launch(const void *digest, const void *v,
     ec_unit_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
         (const int32_t *)digest, (const int32_t *)v, (const int32_t *)r,
         (const int32_t *)s, (int32_t *)ok, (int32_t *)addr, n);
+    return (int)cudaGetLastError();
+}
+
+// The keccak256 / sha256 units alone, a call a thread (units_lane: the
+// window, sponge and compression of K1's unit), the window in dynamic
+// shared memory, lane-last, as in K1.  Bound by operations: a keccak-f a
+// 136-byte block, a compression a round.
+__global__ void __launch_bounds__(128) units_kernel(const UnitsArgs a) {
+    extern __shared__ uint32_t units_win[];
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < a.n) units_lane(a, i, units_win + threadIdx.x, blockDim.x);
+}
+
+extern "C" int eravm_units_launch(const UnitsArgs *args, void *stream) {
+    if (args->n <= 0) return 0;
+    const int threads = 128;
+    const int smem = threads * 8 * args->ps_in * (int)sizeof(uint32_t);
+    const cudaError_t e = cudaFuncSetAttribute(
+        units_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    units_kernel<<<(args->n + threads - 1) / threads, threads, smem,
+                   (cudaStream_t)stream>>>(*args);
     return (int)cudaGetLastError();
 }
 #endif

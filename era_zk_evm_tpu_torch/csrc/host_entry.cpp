@@ -1,11 +1,13 @@
 // Host (C++) build of the K1 (all four instances), K2, K3 and sponge
-// per-lane bodies, of K1's ecrecover unit and of the probes P1-P7, one lane (or
-// column) after another.
+// per-lane bodies, of K1's units alone (ecrecover; keccak256 and sha256) and
+// of the probes P1-P7, one lane (or column) after another.
 //
 // Not a runtime path: the port's wrappers take the kernels on CUDA tensors
 // and the plain torch versions on CPU tensors.  This entry lets the tests
 // check the kernels' lane logic against the plain versions on a machine
 // without CUDA (tests/test_torch_kernel_host.py).
+
+#include <vector>
 
 #include "cycle_kernel.cu"
 #include "rolling_fold.cu"
@@ -18,15 +20,17 @@
 #include "pq_splice.cu"
 
 extern "C" int eravm_k1_host(const K1Args *a, int ecrecover) {
-    // the instance eravm_k1_launch chooses; a register file a lane
-    uint32_t rf[RF_WORDS];
+    // the instance eravm_k1_launch chooses; a register file (and the units'
+    // window) a lane
+    std::vector<uint32_t> rf(K1_LANE_WORDS(true, a->pq_slots_in));
     for (int b = 0; b < a->batch; b++) {
         if (a->storage_slots > 0 && a->keccak_blocks > 0 && ecrecover)
-            k1_run_lane<true, true, true>(*a, b, rf, 1);
+            k1_run_lane<true, true, true>(*a, b, rf.data(), 1);
         else if (a->storage_slots > 0 && a->keccak_blocks > 0)
-            k1_run_lane<true, true>(*a, b, rf, 1);
-        else if (a->storage_slots > 0) k1_run_lane<true, false>(*a, b, rf, 1);
-        else k1_run_lane<false, false>(*a, b, rf, 1);
+            k1_run_lane<true, true>(*a, b, rf.data(), 1);
+        else if (a->storage_slots > 0)
+            k1_run_lane<true, false>(*a, b, rf.data(), 1);
+        else k1_run_lane<false, false>(*a, b, rf.data(), 1);
     }
     return 0;
 }
@@ -72,6 +76,13 @@ extern "C" int eravm_ecrecover_host(const void *digest, const void *v,
             load_u256((const int32_t *)s + 8 * i), &out);
         store_u256((int32_t *)addr + 8 * i, out);
     }
+    return 0;
+}
+
+// the keccak256 / sha256 units alone (units_kernel), call after call
+extern "C" int eravm_units_host(const UnitsArgs *args) {
+    std::vector<uint32_t> win(8 * (args->ps_in > 0 ? args->ps_in : 1));
+    for (int i = 0; i < args->n; i++) units_lane(*args, i, win.data(), 1);
     return 0;
 }
 

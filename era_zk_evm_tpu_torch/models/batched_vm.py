@@ -296,21 +296,20 @@ def _frame_word(state, config, on_h, slot, idx):
                       & M32))
 
 
-def _keccak_unit(state, config, on, r_on_h, r_slot, in_off, in_len,
-                 kc_blocks, kc_last):
-    """keccak256 of each `on` lane's input bytes: a byte-stream sponge over
-    at most `precompile_keccak_blocks` 136-byte blocks with the padding
-    XORed in; the digest as one big-endian u256 (int64 limbs)."""
-    B, dev = config.batch, in_off.device
+def _keccak_unit(word, mk, on, in_off, in_len, kc_blocks, kc_last):
+    """keccak256 of each `on` lane's input bytes, whose words `word(idx)`
+    reads (int64 [B, 8] limbs): a byte-stream sponge over at most `mk`
+    136-byte blocks with the padding XORed in; the digest as one big-endian
+    u256 (int64 limbs)."""
+    B, dev = in_off.shape[0], in_off.device
     lanes = torch.zeros((25, B), dtype=I64, device=dev)
     j = torch.arange(136, device=dev)[None, :]
-    for k in range(config.precompile_keccak_blocks):
+    for k in range(mk):
         blk_on = on & (k < kc_blocks)
         base_byte = (in_off + k * 136) & M32
         base_word = base_byte >> 5
-        window = torch.stack([
-            _frame_word(state, config, r_on_h, r_slot, (base_word + w) & M32)
-            for w in range(6)], dim=1).flip(-1)          # limbs high first
+        window = torch.stack([word((base_word + w) & M32)
+                              for w in range(6)], dim=1).flip(-1)  # high first
         window_bytes = torch.stack([(window >> (8 * (3 - t))) & 0xFF
                                     for t in range(4)], dim=-1).reshape(B, 192)
         aligned = torch.gather(window_bytes, 1, (base_byte & 31)[:, None] + j)
@@ -334,16 +333,15 @@ def _keccak_unit(state, config, on, r_on_h, r_slot, in_off, in_len,
                         for w in range(8)], dim=1)
 
 
-def _sha_unit(state, config, on, r_on_h, r_slot, in_off, rounds):
-    """The sha256 state after each `on` lane's rounds (at most
-    max(precompile_sha_rounds, 1)), two input words per round, as one
-    big-endian u256 (int64 limbs)."""
-    st = sha256_iv(config.batch, in_off.device)
-    for k in range(max(config.precompile_sha_rounds, 1)):
+def _sha_unit(word, ms, on, in_off, rounds):
+    """The sha256 state after each `on` lane's rounds (at most `ms`), two
+    input words per round, which `word(idx)` reads, as one big-endian u256
+    (int64 limbs)."""
+    st = sha256_iv(in_off.shape[0], in_off.device)
+    for k in range(ms):
         r_on = on & (k < rounds)
-        w0 = _frame_word(state, config, r_on_h, r_slot, (in_off + 2 * k) & M32)
-        w1 = _frame_word(state, config, r_on_h, r_slot,
-                         (in_off + 2 * k + 1) & M32)
+        w0 = word((in_off + 2 * k) & M32)
+        w1 = word((in_off + 2 * k + 1) & M32)
         blk = narrow(torch.cat([w0.flip(1), w1.flip(1)], dim=1), torch.int32)
         st = torch.where(r_on[:, None], sha256_compress_batched(st, blk), st)
     return wide(st.flip(1))
@@ -404,13 +402,17 @@ def precompile_unit(state, config, src0, this_addr, do_precomp, heap_page,
         lane_error |= pp_any & ~(w_on_h | w_on_a)
         lane_error |= is_keccak & (kc_blocks > config.precompile_keccak_blocks)
         lane_error |= is_sha & (rounds > max(config.precompile_sha_rounds, 1))
+        def word(idx):
+            return _frame_word(state, config, r_on_h, r_slot, idx)
+
         if bool(is_keccak.any()):
-            out_val = _keccak_unit(state, config, is_keccak, r_on_h, r_slot,
-                                   in_off, in_len, kc_blocks,
+            out_val = _keccak_unit(word, config.precompile_keccak_blocks,
+                                   is_keccak, in_off, in_len, kc_blocks,
                                    (kc_blocks * 136 - 1) & M32)
         if bool(is_sha.any()):
-            out_val = _sel(is_sha, _sha_unit(state, config, is_sha, r_on_h,
-                                             r_slot, in_off, rounds), out_val)
+            out_val = _sel(is_sha, _sha_unit(
+                word, max(config.precompile_sha_rounds, 1), is_sha, in_off,
+                rounds), out_val)
         if bool(is_ec.any()):
             ok_word, out_val2 = _ec_unit(state, config, is_ec, r_on_h,
                                          r_slot, in_off)

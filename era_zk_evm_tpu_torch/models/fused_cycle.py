@@ -25,7 +25,10 @@ launches its kernel or raises; there is no fallback.  `K1_LAUNCHES` and
 `K2_LAUNCHES` count kernel launches (never plain-version calls);
 `K1_PRECOMPILE_LAUNCHES` and `K1_ECRECOVER_LAUNCHES` count the K1 launches
 of the precompile instance (kPrecomp) and of the ecrecover instance (kEc),
-`PQ_SPLICE_LAUNCHES` the splice kernel's launches.
+`PQ_SPLICE_LAUNCHES` the splice kernel's launches.  `precompile_units` runs
+K1's keccak256 / sha256 units alone, a call a thread (the units kernel,
+counted in `PRECOMPILE_UNIT_LAUNCHES`), to check and time them apart from
+the interpreter; its plain version is `precompile_units_plain`.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ..config import (
     precompile_queue_slots,
 )
 from ..isa import params
+from ..ops.u256 import M32
 from ..witness.rolling import compact_slot_rows, rolling_absorb_rows
 from . import batched_vm
 from .state import BOOL_FIELDS, BatchedVmState, stored_shape
@@ -48,6 +52,7 @@ K1_PRECOMPILE_LAUNCHES = 0
 K1_ECRECOVER_LAUNCHES = 0
 K2_LAUNCHES = 0
 PQ_SPLICE_LAUNCHES = 0
+PRECOMPILE_UNIT_LAUNCHES = 0
 
 
 def precompile_instance(config: VmConfig) -> bool:
@@ -271,6 +276,90 @@ def splice_rows(state: BatchedVmState, config: VmConfig, pq_block: tuple,
     if rc != 0:
         raise RuntimeError(f"splice launch failed: cudaError {rc}")
     PQ_SPLICE_LAUNCHES += 1
+
+
+def _check_units(config: VmConfig, arena: torch.Tensor,
+                 call: torch.Tensor) -> None:
+    n = call.shape[0]
+    if config.precompile_keccak_blocks <= 0:
+        raise ValueError("the units need precompile_keccak_blocks > 0")
+    for name, t, dims in (("arena", arena, 3), ("call", call, 2)):
+        if t.dtype != torch.int32 or t.dim() != dims \
+                or not t.is_contiguous() or t.device != call.device:
+            raise ValueError(f"{name}: expected contiguous int32 of {dims} "
+                             f"dims on {call.device}, got {t.dtype}"
+                             f"{list(t.shape)} on {t.device}")
+    if call.shape[1] != 5 or arena.shape[1:] != (8, n):
+        raise ValueError(f"expected call [n, 5] and arena [words, 8, n], got "
+                         f"{list(call.shape)} and {list(arena.shape)}")
+
+
+def precompile_units_plain(config: VmConfig, arena: torch.Tensor,
+                           call: torch.Tensor) -> tuple:
+    """The keccak256 / sha256 units of the plain engine (`batched_vm`'s
+    sponge and compression over `ops/keccak.py`'s and `ops/sha256.py`'s
+    batched permutation and compression), a call a lane, with
+    `precompile_units`' arguments and results."""
+    _check_units(config, arena, call)
+    n, n_words = call.shape[0], arena.shape[0]
+    c = call.to(torch.int64) & M32
+    kind, base, in_off, in_len, rounds = c.unbind(1)
+    words = arena.permute(2, 0, 1).to(torch.int64) & M32
+    lanes = torch.arange(n, device=call.device)
+
+    def word(idx):
+        i = (base + idx) & M32
+        inside = i < n_words
+        return words[lanes, torch.where(inside, i, 0)] * inside[:, None]
+
+    mk = config.precompile_keccak_blocks
+    ms = max(config.precompile_sha_rounds, 1)
+    is_sha = kind != 0
+    kc_blocks = in_len // 136 + 1
+    out = torch.where(
+        is_sha[:, None],
+        batched_vm._sha_unit(word, ms, is_sha, in_off, rounds),
+        batched_vm._keccak_unit(word, mk, ~is_sha, in_off, in_len, kc_blocks,
+                                (kc_blocks * 136 - 1) & M32))
+    err = torch.where(is_sha, rounds > ms, kc_blocks > mk)
+    return out, err
+
+
+def precompile_units(config: VmConfig, arena: torch.Tensor,
+                     call: torch.Tensor) -> tuple:
+    """K1's keccak256 / sha256 precompile units alone, a call a lane, with
+    the config's limits (`precompile_keccak_blocks`, `precompile_sha_rounds`)
+    and window (PS_IN words): lane i reads word `idx` of its frame as word
+    base + idx (u32) of its column of `arena` (int32 [n_words, 8, n],
+    lane-last like K1's heap; zeros past n_words), and `call` (int32 [n, 5])
+    holds (kind: 0 keccak256, 1 sha256; base; in_off; in_len; rounds), the
+    precompile ABI's fields.  Returns the output words (int64 [n, 8], u32
+    limbs) and whether each call sets lane_error for the units' limits.  On
+    CUDA tensors the units kernel (csrc/cycle_kernel_ec.cu), on CPU tensors
+    `precompile_units_plain`."""
+    global PRECOMPILE_UNIT_LAUNCHES
+    if call.device.type == "cpu":
+        return precompile_units_plain(config, arena, call)
+    if call.device.type != "cuda":
+        raise ValueError(f"no units kernel for device {call.device}")
+    from .._build import UnitsArgs, load
+
+    _check_units(config, arena, call)
+    n = call.shape[0]
+    out = torch.empty((n, 8), dtype=torch.int32, device=call.device)
+    err = torch.empty((n,), dtype=torch.int32, device=call.device)
+    args = UnitsArgs(arena.data_ptr(), call.data_ptr(), out.data_ptr(),
+                     err.data_ptr(), n, arena.shape[0],
+                     config.precompile_keccak_blocks,
+                     config.precompile_sha_rounds,
+                     precompile_queue_slots(config)[0])
+    stream = torch.cuda.current_stream(call.device).cuda_stream
+    rc = load().eravm_units_launch(ctypes.byref(args),
+                                   ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"units launch failed: cudaError {rc}")
+    PRECOMPILE_UNIT_LAUNCHES += 1
+    return out.to(torch.int64) & M32, err != 0
 
 
 def k1_args(state: BatchedVmState, config: VmConfig, k_cycles: int, n: int,

@@ -421,6 +421,27 @@ PQ_CLOCK_PROGRAM = f"""
         """
 
 
+def unaligned_program(abi: int, seed: int = 14) -> str:
+    """Nine distinct heap words (random bytes from `seed`), then one
+    precompile call with `abi`, its output word (word 12) read back."""
+    fill = np.random.RandomState(seed).randint(0, 256, 9 * 32,
+                                               dtype=np.uint8).tobytes()
+    stores = "".join(f"""
+            add code[@w{i}], r0, r2
+            st.h {32 * i}, r2""" for i in range(9))
+    words = "".join(f"""
+            w{i}: .word {int.from_bytes(fill[32 * i:32 * i + 32], 'big')}"""
+                    for i in range(9))
+    return f"""{stores}
+            add code[@abi], r0, r4
+            log.precompile r4, r0, r5
+            add {32 * 12}, r0, r6
+            ld.h r6, r7
+            ret r0
+            abi: .word {abi}{words}
+            """
+
+
 def keccak_mapping_program(iters: int) -> str:
     """`iters` mapping-slot writes: store the key (iteration & 3) and the
     slot number, keccak256 the 64 bytes, load the hash, write storage under
@@ -497,3 +518,11 @@ PRECOMPILE_LANES = (
        (_KECCAK, OUT_OF_ERGS_PROGRAM)]
     + [(_KECCAK, p) for p in ROUND_WITNESS_PROGRAMS]
     + [(_KECCAK, PQ_CLOCK_PROGRAM)])
+
+#: inputs the mix never has: two-block keccak256 calls at unaligned offsets,
+#: one of them past two blocks (lane_error with the units' limit of 2), a
+#: short one across a word boundary and sha256 at an odd word
+UNALIGNED_LANES = (
+    [(_KECCAK, unaligned_program(keccak_abi(o, n, 12)))
+     for o, n in ((1, 137), (7, 200), (31, 271), (3, 272), (29, 40))]
+    + [(_SHA, unaligned_program(sha_abi(3, 2, 12)))])

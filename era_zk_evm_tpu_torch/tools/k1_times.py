@@ -19,7 +19,13 @@ alone (the tree's `splice_rows` where it has one, the kernel, else its
 torch `splice_precompile_rows`) with its device time by kernel from one
 `torch.profiler` pass, the launch's block size and, for kEc where
 the tree has `ops.secp256k1.ecrecover_unit`, the unit alone on the same
-32768 signatures.  The cases are `chip_smoke.py`'s K1
+32768 signatures; K1's device time alone (`k1_device_ms`) and every
+kernel's of the timed call from one `torch.profiler` pass.  `units` times
+the keccak256 / sha256 units alone (`fused_cycle.precompile_units`, where
+the tree has it) on the precompile mix's calls, a call a lane, beside their
+operation bound: the kernel's device time a launch (`torch.profiler`) and
+the CUDA-event time of the wrapper's call (`ms_events`, which holds the
+host's launch work: the kernel takes far less).  The cases are `chip_smoke.py`'s K1
 (WORKLOAD, B = 32768, memory queue), K1-storage (STORAGE_WORKLOAD, B =
 32768, a second call on the warm state), K1-precompile (the precompile
 mix, B = 32768) and K1-ecrecover (signed transfers, a recovery in every
@@ -35,7 +41,8 @@ run), K1's and K2's device time a call from one `torch.profiler` pass over
 8 calls, split by kernel name (`k1_kernel`, `k2_kernel`), and lane 0's
 memory records a chunk.  `ptxas` gives the registers, stack frame and
 spills of every K1 and K2 instance (and the splice and unit kernels), from
-the tree's build log; `--cases` picks cases (default all);
+the tree's build log, and `sass_counts` each K1 and unit kernel's SASS
+instructions, local, global and shared loads and stores and calls; `--cases` picks cases (default all);
 `sass_round` the SASS instructions (all, logic) of one keccak-f round in
 K2 and K3 (`keccak.cuh` runs one round a loop trip), read with
 `cuobjdump`, against the 180 int32 operations a round that the bounds
@@ -56,7 +63,13 @@ import sys
 import time
 
 CASES = ("main-b", "a", "log", "precompile", "precompile-ec", "ec", "a4096",
-         "log4096")
+         "log4096", "units")
+
+#: int32 operations a keccak-f and a sha256 compression (chip_smoke.py's
+#: bounds count the same)
+KECCAK_OPS, SHA256_OPS = 4320, 1624
+#: 132 SMs x 64 int32 lanes at the card's 1980 MHz: int32 operations a ms
+INT32_OPS_PER_MS = 132 * 64 * 1980e3
 
 
 def ptxas(log: str) -> dict:
@@ -66,7 +79,7 @@ def ptxas(log: str) -> dict:
     lines = log.splitlines()
     for i, ln in enumerate(lines):
         m = re.search(r"Function properties for (\S+)", ln)
-        if m and re.search(r"k[12]_kernel|pq_\w+_kernel|ec_unit_kernel",
+        if m and re.search(r"k[12]_kernel|pq_\w+_kernel|units?_kernel",
                            m.group(1)):
             entry = m.group(1)
             f = re.findall(r"(\d+) bytes", lines[i + 1])
@@ -91,16 +104,19 @@ def read_sass(lib_path) -> str | None:
                           text=True, check=True, timeout=300).stdout
 
 
-def sass_loops(sass: str, function: str) -> list[tuple[int, int]]:
+def sass_loops(sass: str, function: str,
+               local: bool = False) -> list[tuple[int, ...]]:
     """The backward-branch loops of one function in cuobjdump's SASS (its
     mangled name matching the regex `function`), in address order: (all
     instructions, the logic ones: LOP3 and the funnel shift SHF) from the
-    branch target to the branch."""
+    branch target to the branch, and with `local` the local-memory loads
+    and stores (spills) among them."""
     m = re.search(rf"Function : \S*{function}\S*\n(.*?)"
                   r"(?=\n\s*Function :|\Z)", sass, re.S)
     if not m:
         return []
     offsets, logic, labels, branches, pending = [], [], {}, [], []
+    spills = []
     for line in m.group(1).splitlines():
         label = re.match(r"\s*(\.L_x_\d+):", line)
         if label:
@@ -117,6 +133,8 @@ def sass_loops(sass: str, function: str) -> list[tuple[int, int]]:
         opcode = words[1] if words[0].startswith("@") else words[0]
         if opcode.split(".")[0] in ("LOP3", "LOP", "SHF"):
             logic.append(off)
+        if opcode.split(".")[0] in ("LDL", "STL"):
+            spills.append(off)
         br = re.search(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)", ins.group(2))
         if br:
             branches.append((off, br.group(1)))
@@ -125,19 +143,69 @@ def sass_loops(sass: str, function: str) -> list[tuple[int, int]]:
         t = int(target, 16) if target.startswith("0x") else labels.get(target)
         if t is not None and t < off:
             loops.append((sum(t <= o <= off for o in offsets),
-                          sum(t <= o <= off for o in logic)))
+                          sum(t <= o <= off for o in logic))
+                         + (sum(t <= o <= off for o in spills),) * local)
     return loops
+
+
+#: SASS opcodes counted per function by `sass_counts`
+SASS_CLASSES = {"local_loads": ("LDL",), "local_stores": ("STL",),
+                "global_loads": ("LDG",), "global_stores": ("STG",),
+                "shared_loads": ("LDS",), "shared_stores": ("STS",),
+                "calls": ("CALL",)}
+
+
+def sass_counts(sass: str | None, pattern: str = r"k1_kernel|unit") -> dict:
+    """{mangled name: counts} for every function of cuobjdump's SASS whose
+    name matches the regex `pattern`: all instructions and those of each
+    class of `SASS_CLASSES` (local, global and shared loads and stores,
+    calls).  Empty without cuobjdump."""
+    out = {}
+    if sass is None:
+        return out
+    for m in re.finditer(r"Function : (\S+)\n(.*?)(?=\n\s*Function :|\Z)",
+                         sass, re.S):
+        if not re.search(pattern, m.group(1)):
+            continue
+        counts = dict.fromkeys(("instructions", *SASS_CLASSES), 0)
+        for line in m.group(2).splitlines():
+            ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if not ins:
+                continue
+            words = ins.group(1).split()
+            opcode = (words[1] if words[0].startswith("@") else words[0]
+                      ).split(".")[0]
+            counts["instructions"] += 1
+            for name, ops in SASS_CLASSES.items():
+                counts[name] += opcode in ops
+        out[m.group(1)] = counts
+    return out
 
 
 def keccak_round_sass(sass: str | None) -> dict:
     """{kernel: (all, logic) SASS instructions of one keccak-f round}, for
-    K2 and K3: the kernel's smallest loop with 100 logic instructions or
-    more; None without cuobjdump or such a loop."""
+    K2, K3 and the units alone (the precompile units' permutation): the
+    kernel's smallest loop with 100 logic instructions or more; None without
+    cuobjdump or such a loop."""
     out = {}
-    for fn in ("k2_kernel", "k3_kernel"):
+    for fn in ("k2_kernel", "k3_kernel", "units_kernel"):
         rounds = [x for x in sass_loops(sass, fn) if x[1] >= 100] \
             if sass is not None else []
         out[fn] = min(rounds) if rounds else None
+    return out
+
+
+def unit_round_sass(sass: str | None) -> dict:
+    """{K1 instance with the units: (all, logic, local-memory) SASS
+    instructions of its keccak-f round loop}: the instance's smallest loop
+    with 100 logic instructions or more (the units' permutation, a round a
+    trip); None without cuobjdump or such a loop."""
+    out = {}
+    for name, fn in (("kPrecomp", r"k1_kernelILb1ELb1ELb0E"),
+                     ("kEc", r"k1_kernelILb1ELb1ELb1E")):
+        rounds = [x for x in sass_loops(sass, fn, local=True)
+                  if x[1] >= 100] if sass is not None else []
+        out[name] = min(rounds) if rounds else None
     return out
 
 
@@ -250,6 +318,22 @@ def main(argv=None) -> dict:
                 for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA}
 
+    def k1_device(entry, cfg, pq, warm_calls) -> dict:
+        """The device time by kernel name of one timed call (after the
+        case's warm calls, on a fresh copy of the entry state), from one
+        `torch.profiler` pass: K1 alone and the splice's kernels."""
+        st = clone_state(entry)
+        for _ in range(warm_calls):
+            fused_cycle.cycle_chunk(st, cfg, K, pq_block=pq)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fused_cycle.cycle_chunk(st, cfg, K, pq_block=pq)
+            torch.cuda.synchronize()
+        return {e.key[:40]: e.self_device_time_total / 1e3
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+
     def unit_times(batch) -> dict:
         """The ecrecover unit alone (ec_unit_kernel) on the signatures of
         the ec case's lanes: the best of `--reps` times, recoveries/s."""
@@ -264,6 +348,45 @@ def main(argv=None) -> dict:
                  for _ in range(args.reps)]
         return {"unit_ms": min(times), "unit_ms_all": times,
                 "unit_recoveries_per_sec": batch / (min(times) / 1e3)}
+
+    def units_times() -> dict:
+        """The keccak256 / sha256 units alone (`precompile_units`) on the
+        precompile mix's calls at B = 32768, a call a lane (keccak256 of 64
+        bytes at offset 0, sha256 of 1 or 2 rounds at word 0, random words
+        from a seed): the best of `--reps` times, against the operation
+        bound of their keccak-f and compressions."""
+        import numpy as np
+
+        cfg = units(storage(32768))
+        mix = block_programs.precompile_mix(cfg.batch)
+        rounds = np.array([r for *_, r in mix])
+        ps_in = precompile_queue_slots(cfg)[0]
+        rng = np.random.RandomState(14)
+        arena = torch.from_numpy(rng.randint(
+            -2**31, 2**31, size=(ps_in, 8, cfg.batch)).astype(np.int32)
+        ).to(dev)
+        call = torch.from_numpy(np.stack([
+            (rounds > 0).astype(np.int32), np.zeros_like(rounds),
+            np.zeros_like(rounds), np.where(rounds > 0, 0, 64), rounds],
+            axis=1).astype(np.int32)).to(dev)
+        fused_cycle.precompile_units(cfg, arena, call)          # warm
+        times = [timed(lambda: fused_cycle.precompile_units(cfg, arena, call))
+                 for _ in range(args.reps)]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.reps):
+                fused_cycle.precompile_units(cfg, arena, call)
+            torch.cuda.synchronize()
+        kernel = [e for e in prof.key_averages() if "units_kernel" in e.key]
+        perms, comps = int((rounds == 0).sum()), int(rounds.sum())
+        return {"batch": cfg.batch, "ms_events": min(times),
+                "ms_events_all": times,
+                "ms": sum(e.self_device_time_total for e in kernel) / 1e3
+                / max(sum(e.count for e in kernel), 1),
+                "keccak_f": perms, "sha256_compressions": comps,
+                "bound_ms": (perms * KECCAK_OPS + comps * SHA256_OPS)
+                / INT32_OPS_PER_MS}
 
     def main_b() -> dict:
         """chip_smoke.py's main-b: pipelined wall a call, K1's and K2's
@@ -313,16 +436,23 @@ def main(argv=None) -> dict:
                 "profiled_launches": counts,
                 "records_lane0_per_chunk": records, "lane_errors": errors}
 
+    sass = read_sass(lib)
     out = {"card": card, "tree": args.tree, "build_s": build_s,
            "torch": torch.__version__,
            "ptxas": ptxas((lib.parent / "build.log").read_text()),
-           "sass_round": keccak_round_sass(read_sass(lib))}
+           "sass_round": keccak_round_sass(sass),
+           "unit_round_sass": unit_round_sass(sass),
+           "sass_counts": sass_counts(sass)}
     splice_fn = getattr(fused_cycle, "splice_rows",
                         fused_cycle.splice_precompile_rows)
     for name in cases:
         if name == "main-b":
             out[name] = main_b()
             torch.cuda.empty_cache()
+            continue
+        if name == "units":
+            if hasattr(fused_cycle, "precompile_units"):
+                out[name] = units_times()
             continue
         cfg, entry, warm_calls = case(name)
         pq = fused_cycle.new_pq_block(cfg, K, dev)
@@ -343,7 +473,11 @@ def main(argv=None) -> dict:
                 kernels = splice_kernels(entry, cfg, pq)
             errors = int(st.lane_error.sum())
             del st
+        device_ms = k1_device(entry, cfg, pq, warm_calls)
         out[name] = {"batch": cfg.batch, "ms": min(times), "ms_all": times,
+                     "k1_device_ms": sum(v for k, v in device_ms.items()
+                                         if "k1_kernel" in k),
+                     "device_ms": device_ms,
                      "splice_ms": splice, "splice_kernels_ms": kernels,
                      "lane_errors": errors,
                      "threads": getattr(fused_cycle, "k1_threads",

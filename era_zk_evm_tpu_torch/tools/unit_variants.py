@@ -1,0 +1,142 @@
+"""Time-only variant trees of K1's keccak256 / sha256 precompile units, for
+decomposing the kPrecomp instance's time on the card.
+
+    python -m era_zk_evm_tpu_torch.tools.unit_variants --src DIR --out DIR
+        [--design old|new] [--variants name,...]
+
+Copies the checkout `--src` (a tree of the repository, e.g. the parent
+commit unpacked with `git archive`) once per variant into `--out/<name>`,
+with an edit to `era_zk_evm_tpu_torch/csrc/` that takes a piece of the
+units' work away (or builds it another way: `perm_k3`, `sha_unrolled`,
+`unit_noinline`, `smem_window`), and prints the trees' paths.  Each tree then
+goes to `tools/k1_times.py --tree`, beside the unedited tree, in one call
+on one card: the difference of two times is the piece's cost.  The
+variants compute wrong results: they serve timing only, and no program
+path reads them.  `--design old` edits the units as they were up to the
+byte-window design (commit e7a4b83), `new` the units that read each input
+word once into shared memory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import shutil
+
+SOURCE = "era_zk_evm_tpu_torch/csrc/cycle_kernel.cu"
+
+#: variant -> [(old text, new text)] for each design, or (file, old text,
+#: new text) for a file of csrc/ other than cycle_kernel.cu; every old text
+#: must occur in its file exactly once
+VARIANTS = {
+    "old": {
+        # the unit returns at entry: K1 with the call but no unit work
+        "unit_off": [("    *emit = *nslots = 0;\n",
+                      "    *emit = *nslots = 0;\n    return false;\n")],
+        # keccak-f and the compression emptied (the input still consumed)
+        "no_perm": [
+            ("        keccak_f1600(st);\n", ""),
+            ("        sha256_compress(st, blk);\n",
+             "        for (int i = 0; i < 8; i++) st[i] ^= blk[i] ^ blk[8 + i];\n"),
+        ],
+        # the absorb's frame reads and byte window emptied (padding kept)
+        "no_absorb": [
+            ("        for (int w = 0; w < 6; w++) {\n",
+             "        for (int w = 0; w < 0; w++) {\n"),
+            ("uint32_t byte = g < in_len ? window[sh + j] : 0u;",
+             "uint32_t byte = 0u;"),
+            ("        const U256 w0 = frame_word(a, b, on_h, slot, in_off + 2 * k);\n"
+             "        const U256 w1 = frame_word(a, b, on_h, slot, in_off + 2 * k + 1);\n",
+             "        const U256 w0 = u256_zero(), w1 = u256_zero();\n"),
+        ],
+        # the mem_in rows' second read of each input word gone (zeros)
+        "rows_noread": [("(in_row ? frame_word(a, b, r_on_h, r_slot, idx)",
+                         "(in_row ? u256_zero()")],
+        # no round-witness row written (emit flag and slot count kept)
+        "no_rows": [("for (uint32_t i = 0; i <= last; i++) {",
+                     "for (uint32_t i = 0; i < 0u; i++) {")],
+        # the window's shared memory allocated, unused: what the smaller
+        # L1 left beside it costs the old design
+        "smem_window": [
+            ("    const int smem = threads * RF_WORDS * (int)sizeof(uint32_t);",
+             "    const int smem = threads * (RF_WORDS + (kPrecomp ? 8 * "
+             "args->pq_slots_in : 0)) * (int)sizeof(uint32_t);")],
+    },
+    "new": {
+        "unit_off": [("    *emit = *nslots = 0;\n",
+                      "    *emit = *nslots = 0;\n    return false;\n")],
+        "no_perm": [
+            ("        keccak_f1600_unit(st);\n", ""),
+            ("        sha256_compress(st, blk);\n",
+             "        for (int i = 0; i < 8; i++) st[i] ^= blk[i] ^ blk[8 + i];\n"),
+        ],
+        # K2's and K3's permutation (rotations read from a table) in place
+        # of the unit's own
+        "perm_k3": [("        keccak_f1600_unit(st);\n",
+                     "        keccak_f1600(st);\n")],
+        # the unit out of line (a call from the interpreter's cycle)
+        "unit_noinline": [("HD bool precompile_unit(",
+                           "HD_NOINLINE bool precompile_unit(")],
+        # the compression's 64 rounds all unrolled (4 trips of 16)
+        "sha_unrolled": [
+            ("sha256.cuh", "#pragma unroll 1\n#endif\n"
+             "    for (int r = 0; r < 64; r += 16) {",
+             "#pragma unroll\n#endif\n"
+             "    for (int r = 0; r < 64; r += 16) {")],
+        # the input words' loads into the window gone (the window stale)
+        "no_stage": [("    stage_words(fr, first, n_load, win, rs);\n",
+                      "    stage_words(fr, first, 0, win, rs);\n")],
+        # the rate lanes' assembly from the window gone
+        "no_lanes": [("            st[l] ^= x;\n", "")],
+        "no_rows": [
+            ("    if (a.pq_capacity > 0) {\n        // rows: the mem_in rows",
+             "    if (false) {\n        // rows: the mem_in rows"),
+            ("    if (a.pq_capacity > 0) {\n        // the mem_out row",
+             "    if (a.pq_capacity > 0) {\n        *emit = 1;\n"
+             "        *nslots = n_words + 1 + is_ec;\n    }\n"
+             "    if (false) {\n        // the mem_out row"),
+        ],
+    },
+}
+
+
+def make_variants(src: pathlib.Path, out: pathlib.Path, design: str,
+                  names: list[str]) -> list[pathlib.Path]:
+    trees = []
+    for name in names:
+        edits = VARIANTS[design][name]
+        tree = out / name
+        if tree.exists():
+            shutil.rmtree(tree)
+        shutil.copytree(src, tree, ignore=shutil.ignore_patterns(
+            "_build", "__pycache__", ".checkout", ".git"))
+        for edit in edits:
+            path = tree / (SOURCE if len(edit) == 2 else
+                           pathlib.Path(SOURCE).parent / edit[0])
+            old, new = edit[-2:]
+            text = path.read_text()
+            if text.count(old) != 1:
+                raise SystemExit(f"unit_variants: {name}: {old!r} occurs "
+                                 f"{text.count(old)} times in {path}")
+            path.write_text(text.replace(old, new))
+        trees.append(tree)
+    return trees
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", required=True, help="the checkout to copy")
+    ap.add_argument("--out", required=True, help="where the trees go")
+    ap.add_argument("--design", choices=sorted(VARIANTS), default="new")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated variants (default: all)")
+    args = ap.parse_args(argv)
+    names = (args.variants.split(",") if args.variants
+             else list(VARIANTS[args.design]))
+    for tree in make_variants(pathlib.Path(args.src), pathlib.Path(args.out),
+                              args.design, names):
+        print(tree)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
 """K1 (all four instances), K2, K3, the ragged sponge, the round-witness
-splice, the ecrecover unit alone and the probes P1-P7 against their plain
+splice, the ecrecover unit alone, the keccak256 / sha256 units alone and
+the probes P1-P7 against their plain
 versions on a CUDA card, execute_block on the card
 against the same call on the CPU (the keccak256 / sha256 mix and the
 signed-transfer mix), its objects form against its packed form on the
@@ -285,6 +286,54 @@ def test_k1_precompile_matches_plain(cuda, k_inner):
     bad = [k for k in a if not (a[k] == b[k]).all()]
     assert not bad, f"kernel/plain mismatch in fields: {bad}"
     assert ks.pq_count.any()
+
+
+@pytest.mark.cuda
+def test_k1_precompile_unaligned_matches_plain(cuda):
+    # the kPrecomp instance on two-block keccak256 inputs at unaligned
+    # offsets, one past the units' limit, and sha256 at an odd word
+    lanes = list(block_programs.UNALIGNED_LANES)
+    config = _precompile_config(len(lanes))
+    ks = pstate.make_entry_state(
+        config, [programs.assemble(src) for _, src in lanes], ergs=1 << 20,
+        entry_address=[e for e, _ in lanes], device=cuda)
+    ps = pstate.clone_state(ks)
+    fused_cycle.run_cycles(ks, config, 40, k_inner=40)
+    batched_vm.run_cycles(ps, config, 40)
+    a, b = pstate.state_to_numpy(ks), pstate.state_to_numpy(ps)
+    bad = [k for k in a if not (a[k] == b[k]).all()]
+    assert not bad, f"kernel/plain mismatch in fields: {bad}"
+    assert int(ks.lane_error.sum()) == 1
+
+
+@pytest.mark.cuda
+def test_precompile_units_match_plain(cuda):
+    # the keccak256 / sha256 units alone on 4096 random calls (every length
+    # up to one block past the limit, any offset, frames past the arena's
+    # end, offsets past 2**32, sha256 rounds 0 to 3) against the plain
+    # version on the CPU
+    config = _precompile_config(4096)
+    gen = torch.Generator().manual_seed(14)
+    n, n_words = 4096, 64
+    arena = torch.randint(-2**31, 2**31 - 1, (n_words, 8, n), generator=gen,
+                          dtype=torch.int32)
+    kind = torch.randint(0, 2, (n,), generator=gen)
+    base = torch.randint(0, 2, (n,), generator=gen) * 32
+    in_off = torch.randint(0, 40 * 32, (n,), generator=gen)
+    in_off[::7] = 2**32 - torch.randint(1, 300, (len(in_off[::7]),),
+                                        generator=gen)
+    in_len = torch.randint(0, 3 * 136 + 1, (n,), generator=gen)
+    rounds = torch.randint(0, 4, (n,), generator=gen)
+    call = torch.stack([kind, base, in_off, in_len, rounds], dim=1).to(
+        torch.int32)
+    before = fused_cycle.PRECOMPILE_UNIT_LAUNCHES
+    out, err = fused_cycle.precompile_units(config, arena.to(cuda),
+                                            call.to(cuda))
+    assert fused_cycle.PRECOMPILE_UNIT_LAUNCHES == before + 1
+    want, want_err = fused_cycle.precompile_units(config, arena, call)
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(err.cpu(), want_err)
+    assert 0 < int(want_err.sum()) < n
 
 
 def _ec_config(batch, chunk=32):

@@ -6,7 +6,8 @@ versions); it checks the kernel sources' lane logic where no card or nvcc
 exists: K1's memory-witness body, its storage-enabled (kLog) body, its
 precompile (kPrecomp) body with the round-witness splice and its ecrecover
 (kEc) body, the ecrecover unit alone (with its field arithmetic and its
-endomorphism split against Python ints), the splice kernel's body,
+endomorphism split against Python ints), the keccak256 / sha256 units
+alone (against the JAX package's golden hashes), the splice kernel's body,
 K1's compacted record block, K2's fold of it, K3's chained
 permutation and the probes P1-P7 (csrc/probe_keccak.cu, probe_rate.cu,
 probe_uniform.cu, bisect_fold.cu).  The kernels themselves are held against
@@ -21,10 +22,16 @@ import random
 import pytest
 import torch
 
-from era_zk_evm_tpu.golden.precompiles import ecrecover_inner
+import numpy as np
+
+from era_zk_evm_tpu.golden.precompiles import (
+    SHA256_IV, ecrecover_inner, keccak256, sha256_compress,
+)
 
 from era_zk_evm_tpu_torch import _build
-from era_zk_evm_tpu_torch.config import VmConfig, from_jax_config
+from era_zk_evm_tpu_torch.config import (
+    VmConfig, from_jax_config, precompile_queue_slots,
+)
 from era_zk_evm_tpu_torch.models import fused_cycle
 from era_zk_evm_tpu_torch.models import state as pstate
 from era_zk_evm_tpu_torch.ops import keccak
@@ -242,6 +249,120 @@ def test_k1_precompile_host_build_matches_plain(host, case, n, k_inner,
     assert int((kern.lq_count > 0).sum()) >= config.batch - 1
     assert bool(kern.pq_count.any()) == queue
     assert bool(kern.lane_error.all()) == (case == "overflow")
+
+
+def test_k1_precompile_unaligned_host_build_matches_plain(host):
+    # the kPrecomp body on inputs the mix never has: two-block keccak256
+    # calls at unaligned offsets (the limb-level absorb's funnel shift by
+    # in_off & 3 bytes and its chunk offset), one past the units' limit, and
+    # sha256 at an odd word
+    lanes = list(block_programs.UNALIGNED_LANES)
+    config = from_jax_config(precompile_config())
+    lanes += [lanes[0]] * (config.batch - len(lanes))
+    words = [programs.assemble(src) for _, src in lanes]
+    plain = pstate.make_entry_state(config, words, ergs=1 << 20,
+                                    entry_address=[e for e, _ in lanes],
+                                    device="cpu")
+    kern = pstate.clone_state(plain)
+    fused_cycle.run_cycles(plain, config, 40, k_inner=40)
+    _host_run(host, kern, config, 40, 40)
+    _assert_same(plain, kern)
+    assert kern.lane_error.tolist()[:6] == [False] * 3 + [True] + [False] * 2
+    assert int(kern.pq_count.sum()) > 0
+
+
+# the units-alone geometry: two frames a lane on each arena, as
+# precompile_config's heap (32 words) and aux heap (16)
+_UNIT_FRAMES = {"heap": 32, "aux": 16}
+
+
+def _unit_cases(case):
+    """[(arena, slot, kind, in_off, in_len, rounds)] of one units-alone
+    case: keccak256 lengths at in_off & 31 in {0, 1, 7, 31}, inputs that run
+    past the frame's last word (into the next frame, or past the arena),
+    the aux heap's frames, offsets whose byte address passes 2**32 (where
+    a block's u32 offset wraps to the frame's start), and sha256 rounds up
+    to one over the limit."""
+    if case.startswith("keccak-"):
+        n = int(case.split("-")[1])
+        return [("heap", slot, 0, 32 * w + r, n, 0)
+                for slot, w in ((0, 0), (1, 1)) for r in (0, 1, 7, 31)]
+    if case == "last-word":
+        return [("heap", slot, 0, 31 * 32 + r, n, 0)
+                for slot in (0, 1) for r, n in ((0, 32), (1, 64), (31, 200))]
+    if case == "wrap":
+        return [("heap", slot, 0, 2**32 - d, n, 0)
+                for slot, d, n in ((0, 5, 200), (1, 136, 271), (0, 140, 271),
+                                   (1, 1, 40))]
+    if case == "aux":
+        return [("aux", slot, 0, 32 * w + r, n, 0)
+                for slot, w, r, n in ((0, 0, 0, 64), (1, 3, 7, 137),
+                                      (0, 14, 31, 271), (1, 15, 1, 32))] \
+            + [("aux", 1, 1, 13, 0, 2), ("aux", 0, 1, 15, 0, 1)]
+    rounds = int(case.split("-")[1])
+    return [("heap", slot, 1, w, 0, rounds)
+            for slot, w in ((0, 0), (0, 5), (1, 29), (1, 31))]
+
+
+def _unit_bytes(arena, lane, base, first, n_words):
+    """The big-endian bytes of frame words first, first + 1, ... as the
+    unit reads them (zeros past the arena)."""
+    out = b""
+    for idx in range(first, first + n_words):
+        i = (base + idx) & 0xFFFFFFFF
+        limbs = arena[i, :, lane] if i < arena.shape[0] else [0] * 8
+        out += b"".join((int(x) & 0xFFFFFFFF).to_bytes(4, "big")
+                        for x in reversed(list(limbs)))
+    return out
+
+
+@pytest.mark.parametrize("case", [f"keccak-{n}" for n in (
+    0, 1, 31, 32, 135, 136, 137, 271, 272)] + ["last-word", "aux", "wrap"]
+    + [f"sha-{r}" for r in (1, 2, 3)])
+def test_units_host_build_matches_golden(host, case):
+    # the keccak256 / sha256 units alone (the window, the limb-level absorb
+    # and the compression of K1's unit) against the JAX package's golden
+    # keccak256 and sha256 compression, and both against the plain version
+    # (precompile_units' on the CPU); past the limits (272 bytes: three
+    # blocks; three rounds) lane_error and the plain version's output
+    config = from_jax_config(precompile_config())
+    calls = _unit_cases(case)
+    kind = calls[0][0]
+    W = _UNIT_FRAMES[kind]
+    n = len(calls)
+    rng = np.random.RandomState(len(case) * 1000 + n)
+    arena = rng.randint(-2**31, 2**31, size=(2 * W, 8, n)).astype(np.int32)
+    call = np.array([[k, slot * W, o, ln, r]
+                     for _, slot, k, o, ln, r in calls]).astype(np.int32)
+    out = torch.zeros((n, 8), dtype=torch.int32)
+    err = torch.zeros((n,), dtype=torch.int32)
+    arena_t, call_t = torch.from_numpy(arena), torch.from_numpy(call)
+    args = _build.UnitsArgs(arena_t.data_ptr(), call_t.data_ptr(),
+                            out.data_ptr(), err.data_ptr(), n, 2 * W,
+                            config.precompile_keccak_blocks,
+                            config.precompile_sha_rounds,
+                            precompile_queue_slots(config)[0])
+    assert host.eravm_units_host(ctypes.byref(args)) == 0
+    want, want_err = fused_cycle.precompile_units(config, arena_t, call_t)
+    assert torch.equal(out.to(torch.int64) & 0xFFFFFFFF, want)
+    assert torch.equal(err != 0, want_err)
+    mk, ms = config.precompile_keccak_blocks, config.precompile_sha_rounds
+    for i, (_, slot, k, o, ln, r) in enumerate(calls):
+        over = ln // 136 + 1 > mk if k == 0 else r > ms
+        assert bool(err[i]) == over
+        if over or o + ln > 2**32:      # past 2**32: the plain version's
+            continue
+        if k == 0:
+            data = _unit_bytes(arena, i, slot * W, o >> 5,
+                               ((o & 31) + ln + 31) >> 5)
+            golden = keccak256(data[o & 31:(o & 31) + ln])
+        else:
+            st = list(SHA256_IV)
+            for j in range(r):
+                st = sha256_compress(
+                    st, _unit_bytes(arena, i, slot * W, o + 2 * j, 2))
+            golden = b"".join(x.to_bytes(4, "big") for x in st)
+        assert _ints(out[i:i + 1]) == [int.from_bytes(golden, "big")]
 
 
 @pytest.mark.parametrize("iters", [1, 3])

@@ -1,0 +1,64 @@
+"""The tools that measure K1's precompile units on the card, on the CPU:
+every time-only variant of `tools/unit_variants.py` applies to this tree's
+sources (exactly one match an edit), and `tools/k1_times.py`'s SASS
+readers count what they claim on a listing of known content."""
+
+import pathlib
+
+import pytest
+
+from era_zk_evm_tpu_torch.tools import k1_times, unit_variants
+
+from test_torch_secp256k1 import one_intra_op_thread  # noqa: F401
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+SASS = """
+	Function : _Z9k1_kernelILb1ELb1ELb0EEv6K1Args
+        /*0000*/                   LDG.E R2, [R4.64] ;
+        /*0010*/                   STL [R1], R2 ;
+.L_x_7:
+        /*0020*/                   LOP3.LUT R6, R2, R3, R4, 0x96, !PT ;
+        /*0030*/                   SHF.L.W.U32.HI R7, R6, 0x1, R6 ;
+        /*0040*/                   @P0 LDL R8, [R1+0x8] ;
+        /*0050*/                   LDS R9, [R10] ;
+        /*0060*/              @!P1 BRA `(.L_x_7) ;
+        /*0070*/                   CALL.REL.NOINC 0x100 ;
+	Function : _Z12units_kernel9UnitsArgs
+        /*0000*/                   STS [R3], R2 ;
+        /*0010*/                   STG.E [R4.64], R2 ;
+"""
+
+
+@pytest.mark.parametrize("name", sorted(unit_variants.VARIANTS["new"]))
+def test_unit_variant_applies_to_this_tree(name, tmp_path):
+    # a variant whose text no longer occurs would raise: the tool tracks
+    # the units' source
+    src = tmp_path / "src"
+    (src / "era_zk_evm_tpu_torch").mkdir(parents=True)
+    for path in (ROOT / "era_zk_evm_tpu_torch" / "csrc").iterdir():
+        dst = src / "era_zk_evm_tpu_torch" / "csrc" / path.name
+        dst.parent.mkdir(exist_ok=True)
+        dst.write_bytes(path.read_bytes())
+    tree, = unit_variants.make_variants(src, tmp_path / "out", "new", [name])
+    before = (src / unit_variants.SOURCE).read_text()
+    after = (tree / unit_variants.SOURCE).read_text()
+    edited = [p.name for p in (tree / "era_zk_evm_tpu_torch/csrc").iterdir()
+              if p.read_text() != (src / "era_zk_evm_tpu_torch/csrc"
+                                   / p.name).read_text()]
+    assert edited and (after != before) == ("cycle_kernel.cu" in edited)
+
+
+def test_sass_readers_count_a_known_listing():
+    counts = k1_times.sass_counts(SASS)
+    k1 = counts["_Z9k1_kernelILb1ELb1ELb0EEv6K1Args"]
+    assert (k1["instructions"], k1["global_loads"], k1["local_stores"],
+            k1["local_loads"], k1["shared_loads"], k1["calls"]) \
+        == (8, 1, 1, 1, 1, 1)
+    units = counts["_Z12units_kernel9UnitsArgs"]
+    assert (units["instructions"], units["shared_stores"],
+            units["global_stores"]) == (2, 1, 1)
+    # the loop .L_x_7: LOP3, SHF, LDL, LDS, BRA; two logic, one local
+    assert k1_times.sass_loops(SASS, "k1_kernel") == [(5, 2)]
+    assert k1_times.sass_loops(SASS, "k1_kernel", local=True) == [(5, 2, 1)]
+    assert k1_times.unit_round_sass(SASS) == {"kPrecomp": None, "kEc": None}
