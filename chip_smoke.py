@@ -62,10 +62,16 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 oracle (native.compare.compare_lanes: status, cycles,
                 registers, tags, flags, heap, the memory, log and decommit
                 streams);
-  K3            chained keccak-f against plain at N = 131072 x 1 and
-                65536 x 4; times at bench_keccak's and
+  K3            chained keccak-f against plain at N = 131072 x 1 (the
+                fingerprints' shape, timed), 65536 x 4, 1 x 3 and 1000 x 2
+                (a ragged last block), K3 in place on a copy, timed over
+                10 launches back to back; times at bench_keccak's and
                 bench_keccak_u32pair's shapes, and the plain version's
-                at the second, equal;
+                at the second, equal; one permutation's latency on one
+                thread (N = 1 chained) beside its bound, the
+                permutation's SASS at one instruction a cycle; the SASS a
+                keccak round of K3, K2, the sponge and the units alone
+                (cuobjdump);
   P1 ... P7     the tool probes (era_zk_evm_tpu_torch/tools/): each kernel
                 against its plain version on the card, small and at the
                 tools' shapes where the plain version is quick; then the
@@ -288,10 +294,11 @@ WAVE_FRACS = {"memory": 0.125, "log": 0.5}   # bench_block's drain budgets
 #: K3 against plain at (states, iters); K3 timed at bench.py's keccak
 #: shapes, and its plain version at the second (one plain call at the
 #: first takes seconds)
-K3_CHECKS = ((131072, 1), (65536, 4))
+K3_CHECKS = ((131072, 1), (65536, 4), (1, 3), (1000, 2))
 K3_BENCH = (("bench_keccak", 65536, 2048),
             ("bench_keccak_u32pair", 131072, 128))
 K3_PLAIN_BENCH = "bench_keccak_u32pair"
+K3_REPS = 10                  # K3 launches a timing, back to back
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
 INT32_LANES = 132 * 64                        # SMs x int32 lanes per SM
 #: a lower count of the int32 operations of one lane-cycle of K1: fetching
@@ -2901,17 +2908,29 @@ def main() -> int:
     # -- K3 against plain ------------------------------------------------
     gen = torch.Generator().manual_seed(3)
     k3_err, k3_ms, k3_plain_ms = 0, None, None
+
+    def k3_in_place(states, iters):
+        """K3 in place on a copy of `states`: the mean of K3_REPS launches
+        back to back (one launch's event time also holds the host's launch
+        work, as long as the kernel at 131072 x 1; the copying entry point
+        a clone), and the copy after one launch."""
+        work = states.clone()
+        keccak.keccak_f1600_(work, iters)                    # warm
+        ms = timed_ms(lambda: [keccak.keccak_f1600_(work, iters)
+                               for _ in range(K3_REPS)]) / K3_REPS
+        work.copy_(states)
+        keccak.keccak_f1600_(work, iters)
+        return ms, work
+
     for n, iters in K3_CHECKS:
         states = torch.randint(-2**31, 2**31 - 1, (n, 25, 2), generator=gen,
                                dtype=torch.int32).to(dev)
-        keccak.keccak_f1600(states, iters)                   # warm
+        ms, got = k3_in_place(states, iters)
         box = {}
-        ms = timed_ms(lambda: box.setdefault(
-            "k", keccak.keccak_f1600(states, iters)))
         plain_ms = timed_ms(lambda: box.setdefault(
             "p", keccak.keccak_f1600_plain(states, iters)))
         k3_err = max(k3_err, require_equal(
-            f"K3 N={n} iters={iters}", {"states": box["k"]},
+            f"K3 N={n} iters={iters}", {"states": got},
             {"states": box["p"]}))
         if iters == 1:
             k3_n, k3_ms, k3_plain_ms = n, ms, plain_ms
@@ -2919,22 +2938,37 @@ def main() -> int:
     rates, bench_plain_ms = {}, None
     for name, n, iters in K3_BENCH:
         states = torch.ones((n, 25, 2), dtype=torch.int32, device=dev)
-        keccak.keccak_f1600(states, iters)
+        ms, got = k3_in_place(states, iters)
         box = {}
-        ms = timed_ms(lambda: box.setdefault(
-            "k", keccak.keccak_f1600(states, iters)))
         if name == K3_PLAIN_BENCH:
             bench_plain_ms = timed_ms(lambda: box.setdefault(
                 "p", keccak.keccak_f1600_plain(states, iters)))
             k3_err = max(k3_err, require_equal(
-                f"K3 {name}", {"states": box["k"]}, {"states": box["p"]}))
+                f"K3 {name}", {"states": got}, {"states": box["p"]}))
         rates[name] = (ms, n * iters / (ms / 1e3),
                        bound_ms(2 * n * 200, n * iters * KECCAK_OPS,
                                 sm_mhz)[0])
-        del box
+        del box, got
+    # one permutation's latency on one thread (N = 1, chained), beside its
+    # bound: the permutation's SASS at one instruction a cycle; and the
+    # SASS a keccak round of K3, K2 and the sponge (cuobjdump)
+    sass_round = k1_times.keccak_round_sass(k1_times.read_sass(lib_path))
+    one = torch.zeros((1, 25, 2), dtype=torch.int32, device=dev)
+    keccak.keccak_f1600_(one, 16)
+    n1_us = timed_ms(lambda: keccak.keccak_f1600_(one, SERIAL_ITERS)) \
+        * 1e3 / SERIAL_ITERS
+    k3_sass = sass_round["k3_kernel"]
+    sass_fields = {f"sass_round_{name[:-7]}": (
+        "not measured" if v is None else
+        f"{v[0]:.1f} all, {v[1]:.1f} logic ({v[2]} a loop)")
+        for name, v in sass_round.items()}
     phase("K3", equal=True, checked=K3_CHECKS, n_x1=k3_n,
           ms_x1=round(k3_ms, 4), plain_ms_x1=round(k3_plain_ms, 3),
           bound_ms_x1=round(k3_bound[0], 4), bound_by=k3_bound[1],
+          n1_latency_us=round(n1_us, 4),
+          n1_bound_us=("not measured" if k3_sass is None
+                       else round(k3_sass[0] * 24 / sm_mhz, 4)),
+          **sass_fields,
           **{f"{k}_ms": round(v[0], 3) for k, v in rates.items()},
           **{f"{k}_perms_per_sec": v[1] for k, v in rates.items()},
           **{f"{k}_bound_ms": round(v[2], 3) for k, v in rates.items()},

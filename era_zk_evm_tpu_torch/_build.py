@@ -110,11 +110,9 @@ def generate_header() -> str:
                    f"{{{vals}}};")
     rc = ", ".join(f"0x{c:016x}ull" for c in KECCAK_RC)
     out.append(f"EVM_TABLE uint64_t KECCAK_RC[{len(KECCAK_RC)}] = {{{rc}}};")
-    rot = ", ".join(str(r) for r in KECCAK_ROTATIONS)
-    out.append(f"EVM_TABLE int KECCAK_ROT[25] = {{{rot}}};")
-    # the same offsets as a constant expression of the lane index, which
+    # the rho offsets as a constant expression of the lane index, which
     # folds to an immediate where the index is a constant (keccak.cuh's
-    # keccak_f1600_unit); a __constant__ table load does not
+    # round); a __constant__ table load does not
     sel = "".join(f"(i) == {i} ? {r} : "
                   for i, r in enumerate(KECCAK_ROTATIONS[:-1]))
     out.append(f"#define KECCAK_ROT_C(i) ({sel}{KECCAK_ROTATIONS[-1]})")
@@ -466,6 +464,9 @@ def load_host() -> ctypes.CDLL:
         lib.eravm_k3_host.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_int]
         lib.eravm_k3_host.restype = ctypes.c_int
+        lib.eravm_perm_host.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_int]
+        lib.eravm_perm_host.restype = ctypes.c_int
         lib.eravm_k3s_host.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
         lib.eravm_k3s_host.restype = ctypes.c_int
         lib.eravm_ecrecover_host.argtypes = [ctypes.c_void_p] * 6 + [

@@ -52,6 +52,32 @@ extern "C" int eravm_k3_host(void *states, int n, int iters) {
     return 0;
 }
 
+// one permutation of each of n states (int32[n, 25, 2], in place) by a form
+// of keccak.cuh: 0 keccak_f1600, -1 keccak_f1600_unit, -2 24 chained
+// keccak_round, 2 and 24 keccak_rounds at the loop trips that
+// tools/unit_variants.py's trees build
+extern "C" int eravm_perm_host(void *states, int n, int form) {
+    for (int i = 0; i < n; i++) {
+        uint32_t *s = (uint32_t *)states + (uint64_t)i * 50;
+        uint64_t a[25];
+        for (int k = 0; k < 25; k++)
+            a[k] = (uint64_t)s[2 * k] | ((uint64_t)s[2 * k + 1] << 32);
+        switch (form) {
+        case 0: keccak_f1600(a); break;
+        case -1: keccak_f1600_unit(a); break;
+        case -2: for (int r = 0; r < 24; r++) keccak_round(a, KECCAK_RC[r]); break;
+        case 2: keccak_rounds<2>(a); break;
+        case 24: keccak_rounds<24>(a); break;
+        default: return -1;
+        }
+        for (int k = 0; k < 25; k++) {
+            s[2 * k] = (uint32_t)a[k];
+            s[2 * k + 1] = (uint32_t)(a[k] >> 32);
+        }
+    }
+    return 0;
+}
+
 // the sponge over n streams: words u32[W], offsets int64[n + 1], digests
 // int32[n, 8]
 extern "C" int eravm_k3s_host(const void *words, const void *offsets,

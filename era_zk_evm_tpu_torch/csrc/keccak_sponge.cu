@@ -24,7 +24,10 @@
 // gives ~5 (1.67e13 int32 operations/s against 3.35e12 bytes/s), so the
 // kernel is bound by operations, and each stream is a serial chain of
 // permutations: no launch finishes before its longest stream's nb
-// permutations at one thread's latency.  The design answers both: the
+// permutations at one thread's latency.  That latency is keccak.cuh's
+// permutation on one warp (24 rounds unrolled, immediate rotations), set
+// by the int32 pipe, which takes one of its instructions every second
+// cycle: its SASS count is the floor's unit.  The design answers both: the
 // launch order puts the longest streams first, so that a warp's lanes run
 // streams of similar length and the longest chains start at once, and
 // one-warp blocks spread the warps over every SM.  A thread reads its stream

@@ -75,7 +75,7 @@ HD void p2_chi_source(int x, int y, int k, int *lane, int *rot) {
     const int ys = xx;
     const int xs = (((y - 3 * xx) % 5 + 5) % 5) * 3 % 5;
     *lane = xs + 5 * ys;
-    *rot = KECCAK_ROT[xs + 5 * ys];
+    *rot = KECCAK_ROT_C(xs + 5 * ys);
 }
 
 #define P2_AT(buf, p) (buf)[(uint64_t)(p) * (uint64_t)cols + col]

@@ -28,10 +28,9 @@
 // What bounds it on an H100: the permutations, ~4320 int32 operations a
 // keccak-f against 104 bytes of records read for it (WORKLOAD: 116
 // records a lane a 128-cycle chunk, 58 permutations).  It runs at the
-// issue rate of keccak_f1600's code, one round a loop trip at ~397 SASS
-// instructions against the ~180 operations counted (PERF.md), ~2.1x the
-// operation bound; at B = 32768 the lanes are ~8 warps an SM.  The block
-// size comes from the SM count, as K1's does.
+// issue rate of keccak.cuh's permutation (immediate rotations, four
+// rounds a loop trip); at B = 32768 the lanes are ~8 warps an SM.  The
+// block size comes from the SM count, as K1's does.
 
 #include "common.cuh"
 #include "keccak.cuh"

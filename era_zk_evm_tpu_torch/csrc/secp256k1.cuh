@@ -683,7 +683,7 @@ HD_NOINLINE bool ecrecover_unit(const U256 &digest, uint32_t v,
     }
     st[8] ^= 0x01;
     st[16] ^= 0x8000000000000000ull;
-    keccak_f1600(st);
+    keccak_f1600_unit(st);          // K1's compact form: a round a trip
     for (int j = 0; j < 5; j++) {
         uint32_t limb = 0;
         for (int q = 0; q < 4; q++) {

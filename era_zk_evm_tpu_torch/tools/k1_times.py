@@ -44,9 +44,16 @@ spills of every K1 and K2 instance (and the splice and unit kernels), from
 the tree's build log, and `sass_counts` each K1 and unit kernel's SASS
 instructions, local, global and shared loads and stores and calls; `--cases` picks cases (default all);
 `sass_round` the SASS instructions (all, logic) of one keccak-f round in
-K2 and K3 (`keccak.cuh` runs one round a loop trip), read with
-`cuobjdump`, against the 180 int32 operations a round that the bounds
-count.
+K2, K3, the sponge and the units alone, read with `cuobjdump` (a loop's
+count over the rounds it holds: 24 where they are unrolled), against the
+180 int32 operations a round that the bounds count.  `keccak` times K3
+(`ops.keccak.keccak_f1600_`) at the fingerprints' shape 131072 x 1,
+65536 x 2048 and 131072 x 128, and chained at N = 1 (one permutation's
+latency, beside `k3_n1_bound_us`: K3's permutation SASS at one instruction
+a cycle), and the sponge (`ops.keccak.keccak256_ragged`) on seeded ragged
+streams whose longest has 16954 blocks and on a T = 1 fold of 8192
+digests, with bounds and the sponge's serial floor; every tree since the
+ragged sponge has both entry points.
 """
 
 from __future__ import annotations
@@ -63,13 +70,25 @@ import sys
 import time
 
 CASES = ("main-b", "a", "log", "precompile", "precompile-ec", "ec", "a4096",
-         "log4096", "units")
+         "log4096", "units", "keccak")
 
 #: int32 operations a keccak-f and a sha256 compression (chip_smoke.py's
 #: bounds count the same)
 KECCAK_OPS, SHA256_OPS = 4320, 1624
 #: 132 SMs x 64 int32 lanes at the card's 1980 MHz: int32 operations a ms
 INT32_OPS_PER_MS = 132 * 64 * 1980e3
+#: the card's SM clock in MHz: instructions a microsecond at one a cycle
+SM_MHZ = 1980
+HBM_BYTES_PER_MS = 3.35e9
+#: the keccak case's K3 shapes (states, iters): the fingerprints',
+#: bench_keccak's and bench_keccak_u32pair's; K3 chained at N = 1; the
+#: sponge's ragged streams: their count, mean and longest rate blocks (as
+#: block-realistic's memory family: 8192 streams, 10123839 blocks, the
+#: longest 16954), and the T = 1 fold's digests
+K3_SHAPES = ((131072, 1), (65536, 2048), (131072, 128))
+SERIAL_ITERS = 20000
+RAGGED_STREAMS, RAGGED_MEAN_BLOCKS, RAGGED_LONGEST = 8192, 1236, 16954
+FOLD_DIGESTS = 8192
 
 
 def ptxas(log: str) -> dict:
@@ -104,19 +123,21 @@ def read_sass(lib_path) -> str | None:
                           text=True, check=True, timeout=300).stdout
 
 
-def sass_loops(sass: str, function: str,
-               local: bool = False) -> list[tuple[int, ...]]:
+def sass_loops(sass: str, function: str, local: bool = False,
+               consts: bool = False) -> list[tuple[int, ...]]:
     """The backward-branch loops of one function in cuobjdump's SASS (its
     mangled name matching the regex `function`), in address order: (all
     instructions, the logic ones: LOP3 and the funnel shift SHF) from the
-    branch target to the branch, and with `local` the local-memory loads
-    and stores (spills) among them."""
+    branch target to the branch, with `local` the local-memory loads and
+    stores (spills) among them, and with `consts` the 64-bit loads from
+    the constant bank of the module's tables (c[0x3]: keccak's round
+    constants are its only 64-bit table)."""
     m = re.search(rf"Function : \S*{function}\S*\n(.*?)"
                   r"(?=\n\s*Function :|\Z)", sass, re.S)
     if not m:
         return []
     offsets, logic, labels, branches, pending = [], [], {}, [], []
-    spills = []
+    spills, const64 = [], []
     for line in m.group(1).splitlines():
         label = re.match(r"\s*(\.L_x_\d+):", line)
         if label:
@@ -135,6 +156,9 @@ def sass_loops(sass: str, function: str,
             logic.append(off)
         if opcode.split(".")[0] in ("LDL", "STL"):
             spills.append(off)
+        if opcode.split(".")[0] in ("LDC", "ULDC") and ".64" in opcode \
+                and "c[0x3]" in ins.group(2):
+            const64.append(off)
         br = re.search(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)", ins.group(2))
         if br:
             branches.append((off, br.group(1)))
@@ -144,7 +168,8 @@ def sass_loops(sass: str, function: str,
         if t is not None and t < off:
             loops.append((sum(t <= o <= off for o in offsets),
                           sum(t <= o <= off for o in logic))
-                         + (sum(t <= o <= off for o in spills),) * local)
+                         + (sum(t <= o <= off for o in spills),) * local
+                         + (sum(t <= o <= off for o in const64),) * consts)
     return loops
 
 
@@ -183,15 +208,23 @@ def sass_counts(sass: str | None, pattern: str = r"k1_kernel|unit") -> dict:
 
 
 def keccak_round_sass(sass: str | None) -> dict:
-    """{kernel: (all, logic) SASS instructions of one keccak-f round}, for
-    K2, K3 and the units alone (the precompile units' permutation): the
-    kernel's smallest loop with 100 logic instructions or more; None without
+    """{kernel: (all, logic, rounds)} for K2, K3, the sponge and the units
+    alone (the precompile units' permutation): the kernel's smallest loop
+    with 100 logic instructions or more holds `rounds` keccak-f rounds, one
+    a load of a round constant in it, or 24 where it loads none (the rounds
+    unrolled, their constants loaded before the loop), and all and logic
+    are its SASS instructions over `rounds`, a round's; None without
     cuobjdump or such a loop."""
     out = {}
-    for fn in ("k2_kernel", "k3_kernel", "units_kernel"):
-        rounds = [x for x in sass_loops(sass, fn) if x[1] >= 100] \
+    for fn in ("k2_kernel", "k3_kernel", "k3s_kernel", "units_kernel"):
+        loops = [x for x in sass_loops(sass, fn, consts=True) if x[1] >= 100] \
             if sass is not None else []
-        out[fn] = min(rounds) if rounds else None
+        if not loops:
+            out[fn] = None
+            continue
+        n_all, n_logic, n_rc = min(loops)
+        rounds = n_rc or 24
+        out[fn] = (n_all / rounds, n_logic / rounds, rounds)
     return out
 
 
@@ -388,6 +421,65 @@ def main(argv=None) -> dict:
                 "bound_ms": (perms * KECCAK_OPS + comps * SHA256_OPS)
                 / INT32_OPS_PER_MS}
 
+    def keccak_times() -> dict:
+        """K3 (`ops.keccak.keccak_f1600_`, in place) at K3_SHAPES and at
+        N = 1 chained SERIAL_ITERS times (one permutation's latency on one
+        thread), and the sponge (`ops.keccak.keccak256_ragged`) on seeded
+        ragged streams and on a T = 1 fold: the best of `--reps` CUDA-event
+        times beside the bounds (and the sponge's serial floor, its longest
+        stream at K3's N = 1 latency).  The inputs are made on the card from
+        fixed seeds, so two trees permute the same states."""
+        import numpy as np
+
+        from era_zk_evm_tpu_torch.ops import keccak
+
+        gen = torch.Generator(device=dev).manual_seed(15)
+
+        def words(n):
+            return torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                                 dtype=torch.int32, device=dev)
+
+        def best(fn):
+            fn()
+            return min(timed(fn) for _ in range(args.reps))
+
+        res = {}
+        for n, iters in K3_SHAPES:
+            st = words(n * 50).view(n, 25, 2)
+            ms = best(lambda: keccak.keccak_f1600_(st, iters))
+            res[f"k3_{n}x{iters}_ms"] = ms
+            res[f"k3_{n}x{iters}_bound_ms"] = max(
+                2 * n * 200 / HBM_BYTES_PER_MS,
+                n * iters * KECCAK_OPS / INT32_OPS_PER_MS)
+            del st
+        one = words(50).view(1, 25, 2)
+        perm_us = best(lambda: keccak.keccak_f1600_(one, SERIAL_ITERS)) \
+            * 1e3 / SERIAL_ITERS
+        res["k3_n1_us"] = perm_us
+        rng = np.random.default_rng(15)
+        blocks = np.minimum(rng.geometric(1 / RAGGED_MEAN_BLOCKS,
+                                          RAGGED_STREAMS), RAGGED_LONGEST)
+        blocks[0] = RAGGED_LONGEST
+        for name, lengths in (
+                ("ragged", 34 * (blocks - 1) + rng.integers(0, 34, blocks.size)),
+                ("fold", np.array([8 * FOLD_DIGESTS]))):
+            offsets = torch.from_numpy(np.concatenate(
+                [[0], np.cumsum(lengths)]).astype(np.int64)).to(dev)
+            w = words(int(lengths.sum()))
+            nbs = lengths // 34 + 1
+            res[f"sponge_{name}_ms"] = best(
+                lambda: keccak.keccak256_ragged(w, offsets))
+            res[f"sponge_{name}_blocks"] = int(nbs.sum())
+            res[f"sponge_{name}_longest"] = int(nbs.max())
+            res[f"sponge_{name}_bound_ms"] = max(
+                (w.numel() * 4 + offsets.numel() * 8 + 32 * lengths.size)
+                / HBM_BYTES_PER_MS, int(nbs.sum()) * KECCAK_OPS
+                / INT32_OPS_PER_MS)
+            res[f"sponge_{name}_serial_floor_ms"] = \
+                int(nbs.max()) * perm_us / 1e3
+            del w, offsets
+        return res
+
     def main_b() -> dict:
         """chip_smoke.py's main-b: pipelined wall a call, K1's and K2's
         device time a call, lane 0's records a chunk."""
@@ -453,6 +545,13 @@ def main(argv=None) -> dict:
         if name == "units":
             if hasattr(fused_cycle, "precompile_units"):
                 out[name] = units_times()
+            continue
+        if name == "keccak":
+            out[name] = keccak_times()
+            k3 = out["sass_round"]["k3_kernel"]
+            # one permutation's SASS at one instruction a cycle
+            out[name]["k3_n1_bound_us"] = k3[0] * 24 / SM_MHZ if k3 else None
+            torch.cuda.empty_cache()
             continue
         cfg, entry, warm_calls = case(name)
         pq = fused_cycle.new_pq_block(cfg, K, dev)

@@ -1,8 +1,9 @@
 """Time-only variant trees of K1's keccak256 / sha256 precompile units, for
-decomposing the kPrecomp instance's time on the card.
+decomposing the kPrecomp instance's time on the card, and trees with other
+unrolls of keccak.cuh's permutation.
 
     python -m era_zk_evm_tpu_torch.tools.unit_variants --src DIR --out DIR
-        [--design old|new] [--variants name,...]
+        [--design old|new|perm] [--variants name,...]
 
 Copies the checkout `--src` (a tree of the repository, e.g. the parent
 commit unpacked with `git archive`) once per variant into `--out/<name>`,
@@ -14,7 +15,11 @@ on one card: the difference of two times is the piece's cost.  The
 variants compute wrong results: they serve timing only, and no program
 path reads them.  `--design old` edits the units as they were up to the
 byte-window design (commit e7a4b83), `new` the units that read each input
-word once into shared memory.
+word once into shared memory.  `--design perm` gives keccak_f1600 (K2, K3,
+the sponge, P1, P7) t rounds a loop trip (`tripT`, 24: no round loop)
+where the tree's own runs four, or theta's D formed apart (`theta_d`):
+these compute right results, and each tree times against the unedited
+one to choose the form.
 """
 
 from __future__ import annotations
@@ -96,6 +101,18 @@ VARIANTS = {
              "        *nslots = n_words + 1 + is_ec;\n    }\n"
              "    if (false) {\n        // the mem_out row"),
         ],
+    },
+    "perm": {
+        **{f"trip{t}": [("keccak.cuh", "constexpr int kKeccakTrip = 4;",
+                         f"constexpr int kKeccakTrip = {t};")]
+           for t in (1, 2, 24)},
+        # theta's D named once a column, as keccak.cuh had it first
+        "theta_d": [("keccak.cuh",
+                     "const uint64_t r = rotl64(c[(x + 1) % 5], 1);",
+                     "const uint64_t r = c[(x + 4) % 5] ^ "
+                     "rotl64(c[(x + 1) % 5], 1);"),
+                    ("keccak.cuh", "a[x + 5 * y] ^ c[(x + 4) % 5] ^ r,",
+                     "a[x + 5 * y] ^ r,")],
     },
 }
 

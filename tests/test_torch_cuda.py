@@ -210,19 +210,39 @@ def test_k1_log_matches_plain(cuda, run):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("iters", [1, 5])
-def test_k3_matches_plain(cuda, iters):
-    gen = torch.Generator().manual_seed(iters)
-    states = torch.randint(-2**31, 2**31 - 1, (1000, 25, 2), generator=gen,
-                           dtype=torch.int32)
+@pytest.mark.parametrize("iters", [0, 1, 2, 3, 5])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1000, 131072])
+def test_k3_matches_plain(cuda, n, iters):
+    # the ragged last block (127, 129, 1000), one state, and the
+    # fingerprints' shape 131072 x 1; the plain version on the card
+    gen = torch.Generator().manual_seed(n + iters)
+    states = torch.randint(-2**31, 2**31 - 1, (n, 25, 2), generator=gen,
+                           dtype=torch.int32).to(cuda)
+    want = keccak.keccak_f1600_plain(states, iters)
     before = keccak.K3_LAUNCHES
-    got = keccak.keccak_f1600(states.to(cuda), iters)
-    assert keccak.K3_LAUNCHES == before + 1
-    assert torch.equal(got.cpu(), keccak.keccak_f1600(states, iters))
-    inplace = states.to(cuda)
+    got = keccak.keccak_f1600(states, iters)
+    assert keccak.K3_LAUNCHES == before + (iters > 0)
+    assert torch.equal(got, want)
+    inplace = states.clone()
     assert keccak.keccak_f1600_(inplace, iters) is inplace
-    assert keccak.K3_LAUNCHES == before + 2
-    assert torch.equal(inplace.cpu(), got.cpu())
+    assert keccak.K3_LAUNCHES == before + 2 * (iters > 0)
+    assert torch.equal(inplace, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+def test_k3_unaligned_states(cuda, offset):
+    # states that start 4, 8 or 12 bytes past a 16-byte boundary stage
+    # word by word; 16 bytes past it, by 16-byte loads
+    gen = torch.Generator().manual_seed(offset)
+    buf = torch.randint(-2**31, 2**31 - 1, (300 * 50 + offset,),
+                        generator=gen, dtype=torch.int32).to(cuda)
+    states = buf[offset:].view(300, 25, 2)
+    want = keccak.keccak_f1600_plain(states, 2)
+    head = buf[:offset].clone()
+    assert keccak.keccak_f1600_(states, 2) is states
+    assert torch.equal(states, want)
+    assert torch.equal(buf[:offset], head)
 
 
 @pytest.mark.cuda

@@ -25,7 +25,8 @@ import torch
 import numpy as np
 
 from era_zk_evm_tpu.golden.precompiles import (
-    SHA256_IV, ecrecover_inner, keccak256, sha256_compress,
+    SHA256_IV, ecrecover_inner, keccak256, keccak_f1600 as golden_f1600,
+    sha256_compress,
 )
 
 from era_zk_evm_tpu_torch import _build
@@ -373,6 +374,56 @@ def test_k3_host_build_matches_plain(host, iters):
     got = states.clone()
     assert host.eravm_k3_host(got.data_ptr(), got.shape[0], iters) == 0
     assert torch.equal(got, keccak.keccak_f1600(states, iters))
+
+
+def _u32_states(seed, n):
+    """n random states over the whole u32 range, the first ones at its
+    edges (all zero bits, all one bits, only the top bit of each word)."""
+    st = np.random.default_rng(seed).integers(0, 1 << 32, (n, 25, 2),
+                                              dtype=np.uint64)
+    for i, word in enumerate((0, 0xFFFFFFFF, 0x80000000)[:n]):
+        st[i] = word
+    return torch.from_numpy(st.astype(np.uint32).view(np.int32))
+
+
+def _golden_chain(state, iters):
+    lanes = [(int(lo) & 0xFFFFFFFF) | ((int(hi) & 0xFFFFFFFF) << 32)
+             for lo, hi in state.tolist()]
+    for _ in range(iters):
+        lanes = golden_f1600(lanes)
+    return [[v & 0xFFFFFFFF, v >> 32] for v in lanes]
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1000])
+def test_k3_host_build_matches_plain_and_golden(host, n, iters):
+    # K3's lane body (csrc/keccak_f.cu, keccak.cuh's permutation)
+    # against the plain version, and a spread of its states against the
+    # JAX package's golden permutation on Python ints
+    states = _u32_states(100 * n + iters, n)
+    got = states.clone()
+    assert host.eravm_k3_host(got.data_ptr(), n, iters) == 0
+    assert torch.equal(got, keccak.keccak_f1600(states, iters))
+    u32 = got.numpy().view(np.uint32)
+    for i in sorted({0, 1, 2, n // 2, n - 1} & set(range(n))):
+        assert u32[i].tolist() == _golden_chain(states[i], iters)
+
+
+#: eravm_perm_host's forms of keccak.cuh: keccak_f1600, keccak_f1600_unit,
+#: 24 chained keccak_round, and keccak_rounds at the other loop trips that
+#: tools/unit_variants.py builds
+PERM_FORMS = {"keccak_f1600": 0, "unit": -1, "round_x24": -2, "trip2": 2,
+              "trip24": 24}
+
+
+@pytest.mark.parametrize("form", sorted(PERM_FORMS))
+def test_permutation_forms_agree_on_the_host(host, form):
+    states = _u32_states(7, 48)
+    got = states.clone()
+    assert host.eravm_perm_host(got.data_ptr(), 48, PERM_FORMS[form]) == 0
+    assert torch.equal(got, keccak.keccak_f1600(states, 1))
+    assert got.numpy().view(np.uint32)[5].tolist() \
+        == _golden_chain(states[5], 1)
 
 
 def _limbs(values):

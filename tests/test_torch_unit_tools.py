@@ -30,23 +30,36 @@ SASS = """
 """
 
 
-@pytest.mark.parametrize("name", sorted(unit_variants.VARIANTS["new"]))
-def test_unit_variant_applies_to_this_tree(name, tmp_path):
-    # a variant whose text no longer occurs would raise: the tool tracks
-    # the units' source
+def _variant_edits(design, name, tmp_path):
+    """The csrc/ files that variant `name` of `design` edits in a copy of
+    this tree's sources (a variant whose text no longer occurs raises)."""
     src = tmp_path / "src"
     (src / "era_zk_evm_tpu_torch").mkdir(parents=True)
     for path in (ROOT / "era_zk_evm_tpu_torch" / "csrc").iterdir():
         dst = src / "era_zk_evm_tpu_torch" / "csrc" / path.name
         dst.parent.mkdir(exist_ok=True)
         dst.write_bytes(path.read_bytes())
-    tree, = unit_variants.make_variants(src, tmp_path / "out", "new", [name])
+    tree, = unit_variants.make_variants(src, tmp_path / "out", design, [name])
     before = (src / unit_variants.SOURCE).read_text()
     after = (tree / unit_variants.SOURCE).read_text()
     edited = [p.name for p in (tree / "era_zk_evm_tpu_torch/csrc").iterdir()
               if p.read_text() != (src / "era_zk_evm_tpu_torch/csrc"
                                    / p.name).read_text()]
-    assert edited and (after != before) == ("cycle_kernel.cu" in edited)
+    assert (after != before) == ("cycle_kernel.cu" in edited)
+    return edited
+
+
+@pytest.mark.parametrize("name", sorted(unit_variants.VARIANTS["new"]))
+def test_unit_variant_applies_to_this_tree(name, tmp_path):
+    # a variant whose text no longer occurs would raise: the tool tracks
+    # the units' source
+    assert _variant_edits("new", name, tmp_path)
+
+
+@pytest.mark.parametrize("name", sorted(unit_variants.VARIANTS["perm"]))
+def test_perm_variant_applies_to_this_tree(name, tmp_path):
+    # the permutation's unrolls, in keccak.cuh alone
+    assert _variant_edits("perm", name, tmp_path) == ["keccak.cuh"]
 
 
 def test_sass_readers_count_a_known_listing():
@@ -62,3 +75,39 @@ def test_sass_readers_count_a_known_listing():
     assert k1_times.sass_loops(SASS, "k1_kernel") == [(5, 2)]
     assert k1_times.sass_loops(SASS, "k1_kernel", local=True) == [(5, 2, 1)]
     assert k1_times.unit_round_sass(SASS) == {"kPrecomp": None, "kEc": None}
+
+
+def _round_listing(function, rounds, logic, other, hoisted=False):
+    """A cuobjdump listing of `function` whose only loop holds `rounds`
+    keccak rounds of `logic` LOP3 / SHF and `other` MOVs each, every round
+    with its round constant's load (before the loop where `hoisted`), then
+    the branch back."""
+    rc = "ULDC.64 UR8, c[0x3][0x180]"
+    lines = [f"\tFunction : {function}",
+             "        /*0000*/                   LDG.E R2, [R4.64] ;"]
+    if hoisted:
+        lines += [f"        /*0008*/                   {rc} ;"] * rounds
+    lines.append(".L_x_3:")
+    body = (["LOP3.LUT R6, R2, R3, R4, 0x96, !PT",
+             "SHF.L.W.U32.HI R7, R6, 0x1, R6"] * (logic // 2)
+            + ["MOV R8, R9"] * other
+            + ([] if hoisted else ["LDC.64 R10, c[0x3][R0+0x180]"])) * rounds
+    body.append("@P0 BRA `(.L_x_3)")
+    lines += [f"        /*{16 * (i + 1):04x}*/                   {ins} ;"
+              for i, ins in enumerate(body)]
+    return "\n".join(lines) + "\n"
+
+
+def test_sass_round_divides_a_loop_by_its_rounds():
+    # K3 with all 24 rounds in its iters loop (their constants loaded
+    # before it), the sponge with one round a trip, K2 with four; a
+    # 64-bit load from another bank is no round constant
+    sass = (_round_listing("_Z9k3_kernelPjiii", 24, 190, 6, hoisted=True)
+            + _round_listing("_Z10k3s_kernelPKjPKlPKiPii", 1, 250, 150)
+            + _round_listing("_Z9k2_kernelPKiS0_S0_S0_PiS1_ii", 4, 180, 10)
+            .replace("MOV R8, R9", "LDC.64 R8, c[0x0][0x210]", 1))
+    counts = k1_times.keccak_round_sass(sass)
+    assert counts["k3_kernel"] == ((24 * 196 + 1) / 24, 190.0, 24)
+    assert counts["k3s_kernel"] == (402.0, 250.0, 1)
+    assert counts["k2_kernel"] == ((4 * 191 + 1) / 4, 180.0, 4)
+    assert counts["units_kernel"] is None
