@@ -127,7 +127,10 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 touches, on K1-precompile's and K1-ecrecover's scratch
                 blocks at B = 32768 and on K1-ecrecover's again with the
                 clock started near the capacity (overflow); times, the
-                bound of its bytes;
+                device time by kernel (torch.profiler), the bound of the
+                bytes it must move (k1_times.splice_bytes: the kept lanes'
+                data rows read, the surviving blocks' rows written) and its
+                share, the flagged and overflowed cycles;
   block-tiny    execute_block at bench_block's tiny-mix shape and knobs
                 (B = 4096, 8192 txs): a warm run, a timed run (txs/s,
                 utilization, the scheduler's profile) and a run under
@@ -268,6 +271,7 @@ from era_zk_evm_tpu_torch.testing.programs import (
     assemble, farcall_callee, farcall_caller, tiny_mix_program,
 )
 from era_zk_evm_tpu_torch.testing.wave import run_wave, wave_commitments
+from era_zk_evm_tpu_torch.tools.k1_times import splice_bytes
 from era_zk_evm_tpu_torch.tools import (
     bisect_fold, k1_times, probe_keccak, probe_uniform,
 )
@@ -726,25 +730,6 @@ def ecrecover_ops(signatures) -> int:
     return total
 
 
-def splice_bytes(config: VmConfig, pq_block: tuple, blocks0: int) -> int:
-    """The bytes one splice of K cycles must move: emit and nslots read, the
-    rows of the lanes that keep them read, each surviving block (one a
-    distinct base: the last cycle's there) written, and the lane scalars
-    (pq_count, pq_blocks, lane_error) read and written."""
-    emit = pq_block[3][:K].cpu()
-    B, ps = config.batch, pq_block[0].shape[1]
-    cap = config.precompile_queue_capacity
-    flagged = (emit != 0).any(1).to(torch.int64)
-    pos = blocks0 + torch.cumsum(flagged, 0) - flagged
-    base = torch.clamp(pos * ps, max=cap - ps)
-    last = torch.ones_like(flagged, dtype=torch.bool)
-    last[:-1] = base[1:] != base[:-1]
-    kept = int(((emit != 0) & ~(pos * ps > cap - ps)[:, None])[last].sum())
-    row = 13 * ps * 4
-    return (2 * emit.numel() * 4 + kept * row + int(last.sum()) * B * row
-            + 2 * B * (4 + 4 + 1))
-
-
 def splice_check(config: VmConfig, entry, pq_block: tuple, sm_mhz: float,
                  overflow: bool = False) -> dict:
     """pq-splice: the splice kernel against its plain version on the card,
@@ -752,8 +737,11 @@ def splice_check(config: VmConfig, entry, pq_block: tuple, sm_mhz: float,
     `overflow`, its clock started so that the later half of the flagged
     cycles, at least one, pass the capacity): every field the splice
     touches equal.  The kernel's best of 3 launches (each on a fresh copy
-    of the state), the plain version's time, the bound of the bytes it
-    must move, and the flagged and overflowed cycles."""
+    of the state), its device time by kernel (`torch.profiler`, a launch's
+    mean over 3 more; {} where the profiler saw no kernel), the plain
+    version's time, the bound of the bytes it must move
+    (`k1_times.splice_bytes`: the data rows its lanes keep read, the range
+    its blocks cover written), and the flagged and overflowed cycles."""
     ps = pq_block[0].shape[1]
     flagged = (pq_block[3][:K] != 0).any(1)
     start = (config.precompile_queue_capacity // ps
@@ -779,14 +767,34 @@ def splice_check(config: VmConfig, entry, pq_block: tuple, sm_mhz: float,
         times.append(timed_ms(lambda: fused_cycle.splice_rows(
             st, config, pq_block, K)))
         del st
+    # the device time by kernel, a launch's mean over 3 launches (the
+    # profiler can miss a window's first device events: up to 3 windows,
+    # until it has seen both kernels)
+    for _ in range(3):
+        states = [fresh() for _ in range(3)]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for st in states:
+                fused_cycle.splice_rows(st, config, pq_block, K)
+            torch.cuda.synchronize()
+        del states
+        kernels = {e.key.split("(")[0]: round(
+            e.self_device_time_total / 1e3 / e.count, 4)
+            for e in prof.key_averages() if e.key.startswith("pq_")}
+        if len(kernels) == 2:
+            break
     ovf = int(((start + torch.cumsum(flagged.long(), 0) - flagged.long())
                * ps > config.precompile_queue_capacity - ps)[flagged].sum())
     if overflow and not (ovf and bool(kst.lane_error.any())):
         raise AssertionError("pq-splice: the overflow case did not overflow")
-    n_bytes = splice_bytes(config, pq_block, start)
+    n_bytes = splice_bytes(pq_block[3][:K].cpu(), pq_block[4][:K].cpu(), ps,
+                           config.precompile_queue_capacity, start)
     bound = bound_ms(n_bytes, 0, sm_mhz)
     return {"ms": min(times), "ms_all": ";".join(f"{t:.4f}" for t in times),
+            "device_ms": json.dumps(kernels),
             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_share": bound[0] / min(times),
             "bytes": n_bytes, "flagged": int(flagged.sum()),
             "overflowed": ovf, "err": err}
 
@@ -3197,7 +3205,7 @@ def main() -> int:
                "precompile unit of _build_kernel :2794)", units["launches"],
                units["err"], units["ms"], units["plain_ms"],
                (units["bound_ms"], units["bound_by"])),
-        kernel("pq_splice round-witness splice", "pq_splice.cu",
+        kernel("pq_splice round-witness splice", "pq_splice.cu common.cuh",
                "era_zk_evm_tpu/models/fused_cycle.py:3529-3588 (the "
                "round-witness splice in _run_chunk, after K1's launch)",
                blocks["block-precompile"]["splice"]

@@ -383,8 +383,9 @@ class SpliceArgs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "meta_blk", "value_blk", "flags_blk", "emit", "nslots", "pq_meta",
         "pq_value", "pq_flags", "pq_count", "pq_blocks", "lane_error",
-        "partial",
-    )] + [(name, ctypes.c_int) for name in ("n", "ps", "cap", "batch")]
+        "scratch",
+    )] + [(name, ctypes.c_int) for name in ("n", "ps", "ps_in", "cap",
+                                            "batch")]
 
 
 class UnitsArgs(ctypes.Structure):
@@ -436,8 +437,8 @@ def load() -> ctypes.CDLL:
         lib.eravm_pq_splice_launch.argtypes = [ctypes.POINTER(SpliceArgs),
                                                ctypes.c_void_p]
         lib.eravm_pq_splice_launch.restype = ctypes.c_int
-        lib.eravm_pq_splice_partials.argtypes = [ctypes.c_int]
-        lib.eravm_pq_splice_partials.restype = ctypes.c_int
+        lib.eravm_pq_splice_scratch.argtypes = [ctypes.c_int] * 3
+        lib.eravm_pq_splice_scratch.restype = ctypes.c_int
         lib.eravm_ecrecover_launch.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int, ctypes.c_void_p]
         lib.eravm_ecrecover_launch.restype = ctypes.c_int
@@ -482,8 +483,8 @@ def load_host() -> ctypes.CDLL:
         lib.eravm_secp_split_host.restype = ctypes.c_int
         lib.eravm_pq_splice_host.argtypes = [ctypes.POINTER(SpliceArgs)]
         lib.eravm_pq_splice_host.restype = ctypes.c_int
-        lib.eravm_pq_splice_partials.argtypes = [ctypes.c_int]
-        lib.eravm_pq_splice_partials.restype = ctypes.c_int
+        lib.eravm_pq_splice_scratch.argtypes = [ctypes.c_int] * 3
+        lib.eravm_pq_splice_scratch.restype = ctypes.c_int
         _bind_probes(lib, "host", _PROBE_HOST)
         _HOST_LIB = lib
     return _HOST_LIB

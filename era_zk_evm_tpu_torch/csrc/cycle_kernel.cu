@@ -86,13 +86,17 @@
 // runs its rounds in trips of 16 (sha256.cuh), so the code a call fetches
 // stays small.  A lane writes its round-witness rows into a per-chunk
 // scratch block pq_*_blk[K, PS, ., B] (batch-last, so a warp's stores
-// coalesce) with an emit flag and a slot count per cycle.  The queue's block
-// clock is batch-global (it advances on every cycle in which any lane ran a
-// unit), a dependency across lanes that one launch of independent threads
-// cannot resolve: the splice kernel (pq_splice.cu, launched by
-// models/fused_cycle.py::splice_rows after K1) moves the scratch rows into
-// the queue, as the TPU kernel's wrapper does (:3529-3588); it writes only
-// the blocks that survive, so it is bound by those bytes.
+// coalesce) with an emit word and a slot count per cycle: only the rows
+// that carry data (the call's mem_in rows, at most PS_IN, and its one or
+// two mem_out rows), which the emit word names (PQ_EMIT, common.cuh); the
+// block's other rows stay unwritten.  The queue's block clock is
+// batch-global (it advances on every cycle in which any lane ran a unit), a
+// dependency across lanes that one launch of independent threads cannot
+// resolve: the splice kernel (pq_splice.cu, launched by
+// models/fused_cycle.py::splice_rows after K1) moves the data rows into the
+// queue and writes zeros for the rest, as the TPU kernel's wrapper does
+// (:3529-3588); it writes only the blocks that survive, so it is bound by
+// those bytes.
 // What bounds the units (PERF.md §6, measured on an H100): not their
 // operations (the units alone, units_kernel, run a call a thread at 2.7x
 // their keccak-f and compression count) but what a call costs inside
@@ -166,8 +170,8 @@ struct K1Args {
     int32_t *blk_count;     // [B]: each lane's rows, written at the end
     const int32_t *step0;   // device scalar: min(global_step) of the batch
     // per-chunk round-witness scratch, read only by the kPrecomp instance
-    // with a precompile queue: rows of the emitting lanes, and per cycle
-    // each lane's emit flag and slot count
+    // with a precompile queue: the data rows of the emitting lanes, and per
+    // cycle each lane's emit word (PQ_EMIT) and slot count
     int32_t *pq_meta_blk;   // [K, PS, 4, B]
     int32_t *pq_value_blk;  // [K, PS, 8, B]
     int32_t *pq_flags_blk;  // [K, PS, B]
@@ -572,9 +576,9 @@ HD void units_lane(const UnitsArgs &a, int i, uint32_t *win, uint32_t rs) {
 
 // The precompile unit of one lane's precompile call in cycle c: the
 // keccak256 or sha256 of its input or, with kEc, the ecrecover of its four
-// input words, its round-witness rows in the chunk's scratch block (with emit
-// flag and slot count), then its output word (ecrecover: the ok word and the
-// address).  The call's input words go from the read frame into the window
+// input words, its round-witness data rows in the chunk's scratch block
+// (with emit word and slot count), then its output word (ecrecover: the ok
+// word and the address).  The call's input words go from the read frame into the window
 // `win` (stride rs) once; the mem_in rows and the hash both read them there.
 // Inlined into the cycle: out of line, kPrecomp's launch took 6.2 ms
 // against 4.8 on an H100 (PERF.md).  Returns whether the call sets
@@ -623,19 +627,22 @@ HD bool precompile_unit(const K1Args &a, int b, int c, const uint32_t abi[8],
     const uint64_t B = a.batch;
     const uint32_t ps_out = kEc ? 2u : 1u;
     const uint32_t rounds_q = is_keccak ? kc.kc_blocks : (is_ec ? 1u : rounds);
+    // the block's data rows (PQ_EMIT): only these are stored, the splice
+    // writes the others as zeros
+    const uint32_t n_in = n_words < ps_in ? n_words : ps_in;
+    const uint32_t n_out = is_ec ? 2u : 1u;
     if (a.pq_capacity > 0) {
         // rows: the mem_in rows, consecutive words from the call's first
         err |= n_words > ps_in;
-        for (uint32_t i = 0; i < ps_in; i++) {
-            const bool v = i < n_words;
+        for (uint32_t i = 0; i < n_in; i++) {
             const uint64_t row = (uint64_t)c * (ps_in + ps_out) + i;
             const uint32_t meta[4] = {ts_log, 3u, page_r, first + i};
-            const U256 val = v ? window_word(win, rs, i) : u256_zero();
+            const U256 val = window_word(win, rs, i);
             for (int q = 0; q < 4; q++)
-                a.pq_meta_blk[(row * 4 + q) * B + b] = v ? (int32_t)meta[q] : 0;
+                a.pq_meta_blk[(row * 4 + q) * B + b] = (int32_t)meta[q];
             for (int l = 0; l < 8; l++)
                 a.pq_value_blk[(row * 8 + l) * B + b] = (int32_t)val.w[l];
-            a.pq_flags_blk[row * B + b] = v ? 4 : 0;
+            a.pq_flags_blk[row * B + b] = 4;
         }
     }
 
@@ -656,19 +663,18 @@ HD bool precompile_unit(const K1Args &a, int b, int c, const uint32_t abi[8],
     if (a.pq_capacity > 0) {
         // the mem_out row, which carries the round count, and with kEc a
         // second mem_out row (the address; an ecrecover call's only)
-        for (uint32_t j = 0; j < ps_out; j++) {
-            const bool v = j == 0 || is_ec;
+        for (uint32_t j = 0; j < n_out; j++) {
             const uint64_t row = (uint64_t)c * (ps_in + ps_out) + ps_in + j;
             const uint32_t meta[4] = {ts_log + 1, 1u, page_w, out_off + j};
-            const U256 val = !v ? u256_zero() : (j ? out2 : out);
+            const U256 val = j ? out2 : out;
             for (int q = 0; q < 4; q++)
-                a.pq_meta_blk[(row * 4 + q) * B + b] = v ? (int32_t)meta[q] : 0;
+                a.pq_meta_blk[(row * 4 + q) * B + b] = (int32_t)meta[q];
             for (int l = 0; l < 8; l++)
                 a.pq_value_blk[(row * 8 + l) * B + b] = (int32_t)val.w[l];
-            a.pq_flags_blk[row * B + b] = !v ? 0
-                : (int32_t)(j ? 5u : 5u | (rounds_q << 3));
+            a.pq_flags_blk[row * B + b] =
+                (int32_t)(j ? 5u : 5u | (rounds_q << 3));
         }
-        *emit = 1;
+        *emit = PQ_EMIT(n_in, n_out);
         *nslots = n_words + 1 + is_ec;
     }
 

@@ -154,12 +154,15 @@ extern "C" int eravm_secp_split_host(const void *k, void *out, int n) {
 }
 
 // the round-witness splice, lane after lane: the flag blocks' partials as
-// pq_flag_kernel writes them, then each lane's surviving blocks (each up
-// to the next one's base) and scalars as pq_move_kernel moves them
+// pq_flag_kernel writes them and the table as its last block does, then
+// each lane's emit words, scalars and range of rows as pq_move_kernel
+// moves them
 extern "C" int eravm_pq_splice_host(const SpliceArgs *args) {
     const SpliceArgs &a = *args;
     if (a.n <= 0 || a.batch <= 0) return 0;
-    if (a.n > 32 * PQ_MASK_WORDS || a.ps <= 0 || a.cap < a.ps) return 1;
+    if (a.n > PQ_MAX_CYCLES || a.ps <= 0 || a.ps_in <= 0 || a.ps_in >= a.ps
+            || a.ps >= 0x10000 || a.cap < a.ps)
+        return 1;
     const uint64_t B = a.batch;
     const int blocks = pq_flag_blocks(a.batch);
     const int gx = blocks / PQ_FLAG_GROUPS;
@@ -174,32 +177,34 @@ extern "C" int eravm_pq_splice_host(const SpliceArgs *args) {
             if (c0 == 0) m = a.pq_blocks[b] < m ? a.pq_blocks[b] : m;
         }
         for (int w = 0; w < PQ_MASK_WORDS; w++)
-            a.partial[i * 5 + w] = (int32_t)mask[w];
-        a.partial[i * 5 + 4] = m;
+            a.scratch[i * 5 + w] = (int32_t)mask[w];
+        a.scratch[i * 5 + 4] = m;
     }
-    const SpliceClock k = splice_clock(a, blocks, 0, 1);
-    const int ps = a.ps;
+    const SpliceClock k = splice_clock(a, a.scratch, blocks, 0, 1);
+    int32_t *table = a.scratch + blocks * 5;
+    for (int c = 0; c < a.n; c++) splice_table_cycle(k, c, table);
+    const int r0 = table[0], n_rows = table[1];
+    std::vector<int32_t> emitk(a.n);
     for (int b = 0; b < a.batch; b++) {
-        for (int c = 0; c < a.n; c++) {
-            if (!splice_last(k, c)) continue;
-            const bool keep = !splice_overflow(k, c) && splice_flagged(k, c)
-                && a.emit[c * B + b] != 0;
-            const uint64_t row = (uint64_t)b * a.cap + splice_base(k, c);
-            const int rows = splice_rows_written(k, c);
-            for (int j = 0; j < 4 * rows; j++)
-                a.pq_meta[row * 4 + j] = keep
-                    ? a.meta_blk[((uint64_t)c * ps * 4 + j) * B + b] : 0;
-            for (int j = 0; j < 8 * rows; j++)
-                a.pq_value[row * 8 + j] = keep
-                    ? a.value_blk[((uint64_t)c * ps * 8 + j) * B + b] : 0;
-            for (int j = 0; j < rows; j++)
-                a.pq_flags[row + j] = keep
-                    ? a.flags_blk[((uint64_t)c * ps + j) * B + b] : 0;
-        }
         int32_t count = 0;
         bool err = false;
-        splice_lane_part(a, k, b, 0, 1, &count, &err);
-        splice_lane_store(a, k, b, count, err);
+        for (int c = 0; c < a.n; c++)
+            emitk[c] = splice_lane_cycle(a, table, c, b, &count, &err);
+        a.pq_count[b] += count;
+        if (err) a.lane_error[b] = 1;
+        a.pq_blocks[b] += table[2];
+        for (int j = 0; j < n_rows; j++) {
+            const int32_t m = table[PQ_TABLE_MAP + j];
+            const int c = m >> 16, i = m & 0xffff;
+            const bool data = pq_data_row(emitk[c], i, a.ps_in);
+            const uint64_t row = (uint64_t)b * a.cap + r0 + j;
+            for (int w = 0; w < PQ_ROW_WORDS; w++) {
+                const int32_t v = data ? *splice_src(a, c, i, w, b) : 0;
+                if (w < 4) a.pq_meta[row * 4 + w] = v;
+                else if (w < 12) a.pq_value[row * 8 + w - 4] = v;
+                else a.pq_flags[row] = v;
+            }
+        }
     }
     return 0;
 }

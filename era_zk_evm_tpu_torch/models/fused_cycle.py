@@ -163,12 +163,24 @@ def new_pq_block(config: VmConfig, k_cycles: int,
                  device: torch.device | str) -> tuple | None:
     """Scratch (meta, value, flags, emit, nslots) for one chunk's
     round-witness rows, or None when K1 writes none.  K1 writes every
-    cycle's emit and nslots rows, and row blocks only where a lane emits:
-    the splice reads nothing else."""
+    cycle's emit and nslots rows, and of a lane's block only the rows that
+    carry data, which its emit word names (`pq_data_rows`): the splice
+    reads nothing else."""
     if not _pq_rows_in_kernel(config):
         return None
     return tuple(torch.empty(s, dtype=torch.int32, device=device)
                  for s in _pq_block_shapes(config, k_cycles))
+
+
+def pq_data_rows(emit: torch.Tensor, ps: int, ps_in: int) -> torch.Tensor:
+    """Which rows of each lane's block carry data, bool [n, PS, B], from
+    the emit words int32 [n, B] (csrc/common.cuh, PQ_EMIT): 0 where the
+    lane ran no unit, else its n_in mem_in rows (rows 0 .. n_in - 1) in
+    the low 16 bits and its n_out mem_out rows (rows PS_IN .. PS_IN +
+    n_out - 1) above them."""
+    rows = torch.arange(ps, device=emit.device)[None, :, None]
+    n_in, n_out = (emit & 0xFFFF)[:, None], (emit >> 16)[:, None]
+    return (rows < n_in) | ((rows >= ps_in) & (rows - ps_in < n_out))
 
 
 def splice_precompile_rows(state: BatchedVmState, config: VmConfig,
@@ -186,11 +198,14 @@ def splice_precompile_rows(state: BatchedVmState, config: VmConfig,
     position, the last cycle's there, and the clamped block (at cap - PS)
     after the others, so that where cap - PS is no multiple of PS it
     overwrites the block it overlaps, as the engine's cycle-after-cycle
-    writes do.  The splice kernel's plain version (`splice_rows`): torch
-    ops, with a host sync on a CUDA state."""
+    writes do.  Of a kept block only the rows that carry data are read
+    (`pq_data_rows`); its other rows are written as zeros, whatever the
+    scratch holds there.  The splice kernel's plain version
+    (`splice_rows`): torch ops, with a host sync on a CUDA state."""
     meta, value, flags, emit, nslots = (x[:n] for x in pq_block)
     B, ps = config.batch, meta.shape[1]
     cap = config.precompile_queue_capacity
+    data = pq_data_rows(emit, ps, precompile_queue_slots(config)[0])
     emitting = emit != 0                                   # [n, B]
     flagged = emitting.any(1).to(torch.int64)              # [n]
     pos = state.pq_blocks.min().to(torch.int64) + torch.cumsum(flagged, 0) \
@@ -199,7 +214,7 @@ def splice_precompile_rows(state: BatchedVmState, config: VmConfig,
     base = torch.clamp(pos * ps, max=cap - ps)
     is_last = torch.ones_like(overflow)                    # last at its base
     is_last[:-1] = base[1:] != base[:-1]
-    keep = emitting & ~overflow[:, None]                   # [n, B]
+    keep = data & ~overflow[:, None, None]                 # [n, PS, B]
     clamped = base == cap - ps
     for sel in (is_last & ~clamped, is_last & clamped):
         c = sel.nonzero()[:, 0]
@@ -207,11 +222,11 @@ def splice_precompile_rows(state: BatchedVmState, config: VmConfig,
         rows = (base[c, None] + torch.arange(ps, device=base.device)) \
             .reshape(-1)
         kc = keep[c]
-        state.pq_meta[:, rows] = (meta[c] * kc[:, None, None, :]) \
+        state.pq_meta[:, rows] = (meta[c] * kc[:, :, None, :]) \
             .permute(3, 0, 1, 2).reshape(B, m, 4)
-        state.pq_value[:, rows] = (value[c] * kc[:, None, None, :]) \
+        state.pq_value[:, rows] = (value[c] * kc[:, :, None, :]) \
             .permute(3, 0, 1, 2).reshape(B, m, 8)
-        state.pq_flags[:, rows] = (flags[c] * kc[:, None, :]) \
+        state.pq_flags[:, rows] = (flags[c] * kc) \
             .permute(2, 0, 1).reshape(B, m)
     state.lane_error |= (emitting & overflow[:, None]).any(0)
     state.pq_count += (nslots * ~overflow[:, None]).sum(0, dtype=torch.int32)
@@ -219,11 +234,12 @@ def splice_precompile_rows(state: BatchedVmState, config: VmConfig,
 
 
 def splice_args(state: BatchedVmState, config: VmConfig, pq_block: tuple,
-                n: int, partial: torch.Tensor):
+                n: int, scratch: torch.Tensor):
     """The SpliceArgs struct of one splice (csrc/pq_splice.cu) of the first
     n cycles of `pq_block` into the state's queue, after checking every
-    tensor's device, dtype, shape and contiguity; `partial` is the flag
-    kernel's scratch, int32[blocks, 5]."""
+    tensor's device, dtype, shape and contiguity; `scratch` is the
+    kernels' int32 scratch (the flag blocks' partials and the table),
+    `eravm_pq_splice_scratch(B, n, PS)` words."""
     from .._build import SpliceArgs
 
     B, cap = config.batch, config.precompile_queue_capacity
@@ -246,17 +262,19 @@ def splice_args(state: BatchedVmState, config: VmConfig, pq_block: tuple,
             ("lane_error", (B,), torch.bool)):
         setattr(args, name, _check(getattr(state, name), name, shape, dtype,
                                    device))
-    args.partial = _check(partial, "partial", tuple(partial.shape),
+    args.scratch = _check(scratch, "scratch", tuple(scratch.shape),
                           torch.int32, device)
     args.n, args.ps, args.cap, args.batch = n, ps, cap, B
+    args.ps_in = precompile_queue_slots(config)[0]
     return args
 
 
 def splice_rows(state: BatchedVmState, config: VmConfig, pq_block: tuple,
                 n: int) -> None:
     """`splice_precompile_rows`, in place: the splice kernel on a CUDA state
-    (two launches on the current stream, no host sync), the plain version on
-    a CPU state."""
+    (two launches on the current stream, no host sync; the two kernels of
+    one device's splices must run in stream order), the plain version on a
+    CPU state."""
     global PQ_SPLICE_LAUNCHES
     device = state.done.device
     if device.type == "cpu":
@@ -267,9 +285,10 @@ def splice_rows(state: BatchedVmState, config: VmConfig, pq_block: tuple,
     from .._build import load
 
     lib = load()
-    partial = torch.empty((lib.eravm_pq_splice_partials(config.batch), 5),
-                          dtype=torch.int32, device=device)
-    args = splice_args(state, config, pq_block, n, partial)
+    scratch = torch.empty(lib.eravm_pq_splice_scratch(
+        config.batch, n, pq_block[0].shape[1]), dtype=torch.int32,
+        device=device)
+    args = splice_args(state, config, pq_block, n, scratch)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.eravm_pq_splice_launch(ctypes.byref(args),
                                     ctypes.c_void_p(stream))

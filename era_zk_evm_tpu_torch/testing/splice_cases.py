@@ -4,11 +4,17 @@
 queue, a lane state holding only the fields the splice touches
 (`pq_meta`, `pq_value`, `pq_flags`, `pq_count`, `pq_blocks`,
 `lane_error`, drawn at random over the whole u32 range) and a scratch block
-(`fused_cycle.new_pq_block`'s layout) whose rows are random and whose emit
-flags follow the case: no flagged cycle, every cycle flagged, flagged
-cycles with silent lanes, trailing unflagged cycles, overflow at cap - PS
-(cap - PS a multiple of PS, or not), a nonzero starting `pq_blocks`, n < K,
-and PS as in kPrecomp and in kEc.  `SPLICE_CASES` names them.
+(`fused_cycle.new_pq_block`'s layout) as K1 leaves it: each emitting lane's
+emit word names its data rows (csrc/common.cuh, PQ_EMIT: n_in mem_in rows,
+one mem_out row, two for an ecrecover call), which hold random words, and
+every other row of the block holds `GARBAGE`, which the splice must never
+copy; its slot count is its data rows.  The emit flags follow the case: no
+flagged cycle, every cycle flagged, flagged cycles with silent lanes,
+trailing unflagged cycles, overflow at cap - PS (cap - PS a multiple of
+PS, or not), a nonzero starting `pq_blocks`, n < K, PS as in kPrecomp and
+in kEc, and in kEc an ecrecover call and a 5-word hash in the same cycle
+(`ec_and_hash`: both have 6 data rows, at other places).  `SPLICE_CASES`
+names them.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import types
 import torch
 
 from ..config import VmConfig, precompile_queue_slots
+from ..models import fused_cycle
 
 #: name: (batch, K, n, ecrecover, cap in blocks, extra cap rows, emitting
 #: density, flagged cycles, starting pq_blocks)
@@ -31,7 +38,11 @@ SPLICE_CASES = {
     "overflow_unaligned": (300, 16, 11, True, 6, 5, 0.4, "random", 2),
     "started": (64, 12, 12, True, 30, 0, 0.5, "random", 9),
     "short_chunk": (513, 130, 97, False, 200, 0, 0.2, "random", 5),
+    "ec_and_hash": (96, 8, 8, True, 20, 0, 0.6, "random", 0),
 }
+
+#: the word in every scratch row that carries no data
+GARBAGE = -0x21524111             # 0xDEADBEEF
 
 
 def splice_config(batch: int, ecrecover: bool, cap_blocks: int,
@@ -64,13 +75,28 @@ def splice_case(name: str, seed: int = 0):
             "head": cycles < n // 2,
             "random": torch.rand(K, generator=gen) < 0.5}[flagged]
     emitting = (torch.rand((K, B), generator=gen) < density) & flag[:, None]
-    # a flagged cycle has an emitting lane
+    # a flagged cycle has an emitting lane; in ec_and_hash lane 0 makes an
+    # ecrecover call and lane 1 hashes 5 words
     emitting[:, 0] |= flag
-    block = (_i32(gen, K, ps, 4, B), _i32(gen, K, ps, 8, B),
-             _i32(gen, K, ps, B),
-             emitting.to(torch.int32) * torch.randint(
-                 1, 4, (K, B), generator=gen, dtype=torch.int32),
-             torch.randint(0, 9, (K, B), generator=gen, dtype=torch.int32))
+    ps_in = precompile_queue_slots(cfg)[0]
+    n_in = torch.randint(0, ps_in + 1, (K, B), generator=gen,
+                         dtype=torch.int32)
+    is_ec = torch.zeros((K, B), dtype=torch.bool)
+    if ec:
+        is_ec = torch.rand((K, B), generator=gen) < 0.5
+    if name == "ec_and_hash":
+        emitting[:, 1] |= flag
+        is_ec = torch.arange(B)[None, :].expand(K, B) % 2 == 0
+        n_in = torch.where(is_ec, 4, 5).to(torch.int32)
+    n_out = 1 + is_ec.to(torch.int32)
+    n_in = torch.where(is_ec, 4, n_in)
+    emit = torch.where(emitting, n_in | (n_out << 16), 0)
+    rows = (_i32(gen, K, ps, 4, B), _i32(gen, K, ps, 8, B),
+            _i32(gen, K, ps, B))
+    data = fused_cycle.pq_data_rows(emit, ps, ps_in)
+    block = tuple(torch.where(data.reshape(K, ps, *[1] * (x.dim() - 3), B),
+                              x, GARBAGE) for x in rows) \
+        + (emit, torch.where(emitting, n_in + n_out, 0))
     state = types.SimpleNamespace(
         pq_meta=_i32(gen, B, cap, 4), pq_value=_i32(gen, B, cap, 8),
         pq_flags=_i32(gen, B, cap),

@@ -17,7 +17,9 @@ CUDA-event times of one 128-cycle `cycle_chunk` call (with the round-witness
 splice for kPrecomp and kEc, as `chip_smoke.py` times them), the splice
 alone (the tree's `splice_rows` where it has one, the kernel, else its
 torch `splice_precompile_rows`) with its device time by kernel from one
-`torch.profiler` pass, the launch's block size and, for kEc where
+`torch.profiler` pass and the bound of the bytes it must move
+(`splice_bytes`, counted alike for every tree), the launch's block size
+and, for kEc where
 the tree has `ops.secp256k1.ecrecover_unit`, the unit alone on the same
 32768 signatures; K1's device time alone (`k1_device_ms`) and every
 kernel's of the timed call from one `torch.profiler` pass.  `units` times
@@ -53,7 +55,9 @@ latency, beside `k3_n1_bound_us`: K3's permutation SASS at one instruction
 a cycle), and the sponge (`ops.keccak.keccak256_ragged`) on seeded ragged
 streams whose longest has 16954 blocks and on a T = 1 fold of 8192
 digests, with bounds and the sponge's serial floor; every tree since the
-ragged sponge has both entry points.
+ragged sponge has both entry points.  `blocks` runs block-precompile and
+block-ecrecover through the tree's own `chip_smoke.py` helpers (B = 4096,
+8192 txs): walls, txs/s, idle share, K1's and the splice's device time.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ import sys
 import time
 
 CASES = ("main-b", "a", "log", "precompile", "precompile-ec", "ec", "a4096",
-         "log4096", "units", "keccak")
+         "log4096", "units", "keccak", "blocks")
 
 #: int32 operations a keccak-f and a sha256 compression (chip_smoke.py's
 #: bounds count the same)
@@ -89,6 +93,31 @@ K3_SHAPES = ((131072, 1), (65536, 2048), (131072, 128))
 SERIAL_ITERS = 20000
 RAGGED_STREAMS, RAGGED_MEAN_BLOCKS, RAGGED_LONGEST = 8192, 1236, 16954
 FOLD_DIGESTS = 8192
+
+
+def splice_bytes(emit, nslots, ps: int, cap: int, blocks0: int) -> int:
+    """The bytes one splice of a chunk's round-witness rows must move (its
+    bound's count, the same for any tree): emit and nslots (int32 [n, B])
+    read; the data rows of each lane that keeps a surviving block read (its
+    slot count, at most PS: the call's mem_in and mem_out rows); the range
+    of queue rows that the surviving blocks cover written in full, 13 words
+    a row (meta 4, value 8, flags 1) a lane; the lane scalars (pq_count,
+    pq_blocks, lane_error) read and written.  `blocks0` is the clock,
+    min(pq_blocks)."""
+    import torch
+
+    n, B = emit.shape
+    flagged = (emit != 0).any(1).to(torch.int64)
+    pos = blocks0 + torch.cumsum(flagged, 0) - flagged
+    base = torch.clamp(pos * ps, max=cap - ps)
+    last = torch.ones(n, dtype=torch.bool)
+    last[:-1] = base[1:] != base[:-1]
+    kept = last & (pos * ps <= cap - ps)
+    rows_read = int(torch.where(emit[kept] != 0,
+                                torch.clamp(nslots[kept], max=ps), 0).sum())
+    rows_written = int(base[-1] + ps - base[0]) * B
+    return 2 * emit.numel() * 4 + (rows_read + rows_written) * 13 * 4 \
+        + 2 * B * (4 + 4 + 1)
 
 
 def ptxas(log: str) -> dict:
@@ -480,6 +509,40 @@ def main(argv=None) -> dict:
             del w, offsets
         return res
 
+    def blocks() -> dict:
+        """block-precompile and block-ecrecover as the tree's own
+        `chip_smoke.py` drives them (its `block_config`, `BLOCK_KNOBS`,
+        mixes and `block_phase`: a warm run, a timed one, a profiled one),
+        then `--reps` - 1 more synchronised walls: txs/s at the best wall,
+        the device's idle share, K1's and the splice's device time and the
+        launches."""
+        import chip_smoke as cs
+
+        ec_txs = cs.as_txs(ec_programs.ecrecover_mix(2 * cs.B_BLOCK))
+        res = {}
+        for tag, ec in (("block-precompile", False),
+                        ("block-ecrecover", True)):
+            cfg = cs.block_config(cs.B_BLOCK, precompile=True, ecrecover=ec)
+            knobs = dict(cs.BLOCK_KNOBS)
+            knobs["drain_compact_frac"] = dict(knobs["drain_compact_frac"],
+                                               precompile=0.25)
+            txs = ec_txs if ec else cs.mix_txs("precompile", 2 * cs.B_BLOCK)
+            _, wall, launches, prof = cs.block_phase(tag, cfg, txs, knobs,
+                                                     dev)
+            walls = [wall]
+            for _ in range(args.reps - 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cs.execute_block(cfg, txs, device=dev, **knobs)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            res[tag] = {"txs": len(txs), "walls_s": walls,
+                        "txs_per_sec": len(txs) / min(walls),
+                        "launches": launches,
+                        **{k: prof[k] for k in ("idle_share", "k1_device_ms",
+                                                "splice_device_ms")}}
+        return res
+
     def main_b() -> dict:
         """chip_smoke.py's main-b: pipelined wall a call, K1's and K2's
         device time a call, lane 0's records a chunk."""
@@ -538,6 +601,10 @@ def main(argv=None) -> dict:
     splice_fn = getattr(fused_cycle, "splice_rows",
                         fused_cycle.splice_precompile_rows)
     for name in cases:
+        if name == "blocks":
+            out[name] = blocks()
+            torch.cuda.empty_cache()
+            continue
         if name == "main-b":
             out[name] = main_b()
             torch.cuda.empty_cache()
@@ -558,7 +625,7 @@ def main(argv=None) -> dict:
         warm = clone_state(entry)
         fused_cycle.cycle_chunk(warm, cfg, K, pq_block=pq)   # loads, warms
         del warm
-        times, splice, kernels = [], None, None
+        times, splices, kernels = [], [], None
         for _ in range(args.reps):
             st = clone_state(entry)
             for _ in range(warm_calls):
@@ -567,7 +634,7 @@ def main(argv=None) -> dict:
                 st, cfg, K, pq_block=pq)))
             if pq is not None:
                 sp = clone_state(entry)
-                splice = timed(lambda: splice_fn(sp, cfg, pq, K))
+                splices.append(timed(lambda: splice_fn(sp, cfg, pq, K)))
                 del sp
                 kernels = splice_kernels(entry, cfg, pq)
             errors = int(st.lane_error.sum())
@@ -577,10 +644,17 @@ def main(argv=None) -> dict:
                      "k1_device_ms": sum(v for k, v in device_ms.items()
                                          if "k1_kernel" in k),
                      "device_ms": device_ms,
-                     "splice_ms": splice, "splice_kernels_ms": kernels,
+                     "splice_ms": min(splices, default=None),
+                     "splice_ms_all": splices, "splice_kernels_ms": kernels,
                      "lane_errors": errors,
                      "threads": getattr(fused_cycle, "k1_threads",
                                         lambda b: 128)(cfg.batch)}
+        if pq is not None:
+            n_bytes = splice_bytes(
+                pq[3].cpu(), pq[4].cpu(), pq[0].shape[1],
+                cfg.precompile_queue_capacity, int(entry.pq_blocks.min()))
+            out[name].update(splice_bytes=n_bytes,
+                             splice_bound_ms=n_bytes / HBM_BYTES_PER_MS)
         if name == "ec" and hasattr(secp256k1, "ecrecover_unit"):
             out[name].update(unit_times(cfg.batch))
         del entry, pq

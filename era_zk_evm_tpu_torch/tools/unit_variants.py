@@ -19,7 +19,13 @@ word once into shared memory.  `--design perm` gives keccak_f1600 (K2, K3,
 the sponge, P1, P7) t rounds a loop trip (`tripT`, 24: no round loop)
 where the tree's own runs four, or theta's D formed apart (`theta_d`):
 these compute right results, and each tree times against the unedited
-one to choose the form.
+one to choose the form.  `--design splice` prices the round-witness
+splice's design (csrc/pq_splice.cu): other step and block sizes, one step
+buffer in place of two, 4-byte stores in place of 16-byte ones, and K1
+storing every row of a call's block again (`k1_all_rows`); these compute
+right results too (K1's extra rows are ones the splice never reads), but
+`no_reads` and `no_stores`, which time the move without its reads or its
+stores.
 """
 
 from __future__ import annotations
@@ -97,10 +103,78 @@ VARIANTS = {
             ("    if (a.pq_capacity > 0) {\n        // rows: the mem_in rows",
              "    if (false) {\n        // rows: the mem_in rows"),
             ("    if (a.pq_capacity > 0) {\n        // the mem_out row",
-             "    if (a.pq_capacity > 0) {\n        *emit = 1;\n"
+             "    if (a.pq_capacity > 0) {\n"
+             "        *emit = PQ_EMIT(n_in, n_out);\n"
              "        *nslots = n_words + 1 + is_ec;\n    }\n"
              "    if (false) {\n        // the mem_out row"),
         ],
+    },
+    "splice": {
+        # the move's step of 4, 16 or 32 rows (8 in the tree)
+        **{f"chunk{r}": [("pq_splice.cu", "#define PQ_CHUNK 8 ",
+                          f"#define PQ_CHUNK {r} ")] for r in (4, 16, 32)},
+        # blocks of 512 threads, steps of 16 rows (a row a warp)
+        "threads512": [("pq_splice.cu", "#define PQ_CHUNK 8 ",
+                        "#define PQ_CHUNK 16 "),
+                       ("pq_splice.cu", "#define PQ_MOVE_THREADS 256\n",
+                        "#define PQ_MOVE_THREADS 512\n")],
+        # time only: no scratch word read (all zero fills), or no queue
+        # row stored: what the reads and the stores cost alone
+        "no_reads": [("pq_splice.cu",
+                      "        const bool d = pq_data_row(emitk[c * PQ_TILE "
+                      "+ l], i, a.ps_in);\n",
+                      "        const bool d = false;\n")],
+        "no_stores": [("pq_splice.cu",
+                       "        pq_move_store(a, bufs + (s & 1) * BUF, b0, "
+                       "lanes,\n",
+                       "        if (n_rows < 0) pq_move_store(a, bufs + "
+                       "(s & 1) * BUF, b0, lanes,\n")],
+        # one buffer: a step's copies issued after the last step's stores
+        "one_buffer": [
+            ("pq_splice.cu",
+             "        if (s + 1 < steps) {\n",
+             "        cp_async_wait<0>();\n        __syncthreads();\n"
+             "        pq_move_store(a, bufs, b0, lanes, (uint64_t)r0 + j0,\n"
+             "                      n_rows - j0 < PQ_CHUNK ? n_rows - j0"
+             " : PQ_CHUNK);\n        __syncthreads();\n"
+             "        if (s + 1 < steps) {\n"),
+            ("pq_splice.cu",
+             "            pq_move_issue(a, emitk, map, bufs + ((s + 1) & 1) "
+             "* BUF, b0,\n",
+             "            pq_move_issue(a, emitk, map, bufs, b0,\n"),
+            ("pq_splice.cu",
+             "        cp_async_commit();\n        cp_async_wait<1>();\n"
+             "        __syncthreads();\n        const int left = n_rows - "
+             "j0;\n        pq_move_store(a, bufs + (s & 1) * BUF, b0, "
+             "lanes,\n                      (uint64_t)r0 + j0, left < "
+             "PQ_CHUNK ? left : PQ_CHUNK);\n        __syncthreads();\n",
+             "        cp_async_commit();\n")],
+        # the queue's rows stored as 4-byte words, not 16-byte ones
+        "word_stores": [
+            ("pq_splice.cu",
+             "        ((int4 *)a.pq_meta)[row] = make_int4(t[0], t[PQ_PAD], "
+             "t[2 * PQ_PAD],\n                                             "
+             "t[3 * PQ_PAD]);\n",
+             "        for (int q = 0; q < 4; q++)\n"
+             "            a.pq_meta[row * 4 + q] = t[q * PQ_PAD];\n"),
+            ("pq_splice.cu",
+             "        ((int4 *)a.pq_value)[row * 2 + h] = make_int4(\n"
+             "            t[0], t[PQ_PAD], t[2 * PQ_PAD], t[3 * PQ_PAD]);\n",
+             "        for (int q = 0; q < 4; q++)\n"
+             "            a.pq_value[row * 8 + 4 * h + q] = t[q * PQ_PAD];\n")],
+        # K1 stores every row of a call's block again, zeros too (the
+        # splice still reads only the data rows): what the contract saves
+        "k1_all_rows": [
+            ("        for (uint32_t i = 0; i < n_in; i++) {\n",
+             "        for (uint32_t i = 0; i < ps_in; i++) {\n"),
+            ("            const U256 val = window_word(win, rs, i);\n",
+             "            const U256 val = i < n_in ? window_word(win, rs, i)"
+             " : u256_zero();\n"),
+            ("        for (uint32_t j = 0; j < n_out; j++) {\n",
+             "        for (uint32_t j = 0; j < ps_out; j++) {\n"),
+            ("            const U256 val = j ? out2 : out;\n",
+             "            const U256 val = j >= n_out ? u256_zero()"
+             " : (j ? out2 : out);\n")],
     },
     "perm": {
         **{f"trip{t}": [("keccak.cuh", "constexpr int kKeccakTrip = 4;",

@@ -412,16 +412,25 @@ def test_ecrecover_unit_matches_plain(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(splice_cases.SPLICE_CASES))
 def test_splice_matches_plain(cuda, case):
-    # the splice kernel against splice_precompile_rows on the CPU
+    # the splice kernel against splice_precompile_rows on the CPU, on
+    # scratch blocks whose rows past each lane's data rows hold garbage;
+    # twice, so that the second launch finds the flag kernel's ticket
+    # counter back at 0
     config, plain, block, n = splice_cases.splice_case(case)
     kern, kblock = splice_cases.to_device(plain, block, cuda)
+    again = splice_cases.to_device(plain, block, cuda)[0]
     before = fused_cycle.PQ_SPLICE_LAUNCHES
     fused_cycle.splice_rows(kern, config, kblock, n)
-    assert fused_cycle.PQ_SPLICE_LAUNCHES == before + 1
+    fused_cycle.splice_rows(again, config, kblock, n)
+    assert fused_cycle.PQ_SPLICE_LAUNCHES == before + 2
     fused_cycle.splice_precompile_rows(plain, config, block, n)
     for field in splice_cases.SPLICE_FIELDS:
         assert torch.equal(getattr(kern, field).cpu(),
                            getattr(plain, field)), field
+        assert torch.equal(getattr(again, field).cpu(),
+                           getattr(plain, field)), field
+    for field in ("pq_meta", "pq_value", "pq_flags"):
+        assert not bool((getattr(kern, field) == splice_cases.GARBAGE).any())
 
 
 def _block_on_card_and_cpu(cuda, config, txs, kw, counter):

@@ -76,8 +76,10 @@ def _config(batch, rolling, queue_capacity, code_words=32):
 def _host_run(host, st, config, n_cycles, k_inner, blocks=None):
     """fused_cycle.run_cycles with the host build in place of the kernels.
     The record block's rows are poisoned before each chunk (K2 must read
-    only the rows below a lane's count); `blocks`, when given, receives a
-    copy of each chunk's block as K1 wrote it."""
+    only the rows below a lane's count), and so are the round-witness
+    scratch rows (the splice must read only the rows that K1's emit words
+    name); `blocks`, when given, receives a copy of each chunk's block as
+    K1 wrote it."""
     block = (fused_cycle.new_slot_block(config, k_inner, "cpu")
              if config.rolling_commitment else None)
     pq_block = fused_cycle.new_pq_block(config, k_inner, "cpu")
@@ -87,6 +89,9 @@ def _host_run(host, st, config, n_cycles, k_inner, blocks=None):
         if block is not None:
             for x in block:
                 x.fill_(-7)
+        if pq_block is not None:
+            for x in pq_block[:3]:
+                x.fill_(splice_cases.GARBAGE)
         step0 = st.global_step.min()
         args = fused_cycle.k1_args(st, config, k, k, block, step0, pq_block)
         assert host.eravm_k1_host(
@@ -105,9 +110,9 @@ def _host_run(host, st, config, n_cycles, k_inner, blocks=None):
 
 def _host_splice(host, st, config, pq_block, n):
     """The splice kernel's host build (csrc/pq_splice.cu), in place."""
-    partial = torch.empty((host.eravm_pq_splice_partials(config.batch), 5),
-                          dtype=torch.int32)
-    args = fused_cycle.splice_args(st, config, pq_block, n, partial)
+    scratch = torch.empty(host.eravm_pq_splice_scratch(
+        config.batch, n, pq_block[0].shape[1]), dtype=torch.int32)
+    args = fused_cycle.splice_args(st, config, pq_block, n, scratch)
     assert host.eravm_pq_splice_host(ctypes.byref(args)) == 0
 
 
@@ -512,7 +517,8 @@ def test_ecrecover_unit_host_build_matches_plain(host):
 @pytest.mark.parametrize("case", list(splice_cases.SPLICE_CASES))
 def test_splice_host_build_matches_plain(host, case):
     # csrc/pq_splice.cu's body against splice_precompile_rows on random
-    # scratch blocks: every state field the splice touches
+    # scratch blocks whose rows past each lane's data rows hold garbage:
+    # every state field the splice touches, and no garbage word copied
     config, plain, block, n = splice_cases.splice_case(case)
     kern = copy.deepcopy(plain)
     blocks0 = plain.pq_blocks.clone()
@@ -520,6 +526,8 @@ def test_splice_host_build_matches_plain(host, case):
     _host_splice(host, kern, config, block, n)
     for field in splice_cases.SPLICE_FIELDS:
         assert torch.equal(getattr(kern, field), getattr(plain, field)), field
+    for field in ("pq_meta", "pq_value", "pq_flags"):
+        assert not bool((getattr(kern, field) == splice_cases.GARBAGE).any())
     flagged = int((block[3][:n] != 0).any(1).sum())
     assert bool((kern.pq_blocks - blocks0 == flagged).all())
     assert (flagged == 0) == (case == "none_flagged")

@@ -1,7 +1,8 @@
-"""The tools that measure K1's precompile units on the card, on the CPU:
-every time-only variant of `tools/unit_variants.py` applies to this tree's
-sources (exactly one match an edit), and `tools/k1_times.py`'s SASS
-readers count what they claim on a listing of known content."""
+"""The tools that measure K1's precompile units and the round-witness
+splice on the card, on the CPU: every variant of `tools/unit_variants.py`
+applies to this tree's sources (exactly one match an edit),
+`tools/k1_times.py`'s SASS readers count what they claim on a listing of
+known content, and its splice byte count adds up on a small clock."""
 
 import pathlib
 
@@ -54,6 +55,14 @@ def test_unit_variant_applies_to_this_tree(name, tmp_path):
     # a variant whose text no longer occurs would raise: the tool tracks
     # the units' source
     assert _variant_edits("new", name, tmp_path)
+
+
+@pytest.mark.parametrize("name", sorted(unit_variants.VARIANTS["splice"]))
+def test_splice_variant_applies_to_this_tree(name, tmp_path):
+    # the splice's design choices in pq_splice.cu; k1_all_rows in K1's
+    # round-witness stores alone
+    want = ["cycle_kernel.cu" if name == "k1_all_rows" else "pq_splice.cu"]
+    assert _variant_edits("splice", name, tmp_path) == want
 
 
 @pytest.mark.parametrize("name", sorted(unit_variants.VARIANTS["perm"]))
@@ -111,3 +120,20 @@ def test_sass_round_divides_a_loop_by_its_rounds():
     assert counts["k3s_kernel"] == (402.0, 250.0, 1)
     assert counts["k2_kernel"] == ((4 * 191 + 1) / 4, 180.0, 4)
     assert counts["units_kernel"] is None
+
+
+def test_splice_bytes_counts_a_small_clock():
+    # 3 cycles, 2 lanes, PS = 2: cycles 0 and 2 flagged, cycle 1 shares
+    # cycle 2's base; lane 0 keeps 2 rows of cycle 0, lane 1 its 3 slots of
+    # cycle 2 (at most PS: 2); the blocks cover rows 0 .. 3 of each lane
+    import torch
+
+    emit = torch.tensor([[1 | 1 << 16, 0], [0, 0], [0, 2 | 1 << 16]],
+                        dtype=torch.int32)
+    nslots = torch.tensor([[2, 0], [0, 0], [0, 3]], dtype=torch.int32)
+    reads, written, scalars = 2 + 2, 4 * 2, 2 * 2 * (4 + 4 + 1)
+    assert k1_times.splice_bytes(emit, nslots, 2, 10, 0) \
+        == 2 * emit.numel() * 4 + (reads + written) * 13 * 4 + scalars
+    # the clock past the capacity: every block at cap - PS, none kept
+    assert k1_times.splice_bytes(emit, nslots, 2, 10, 5) \
+        == 2 * emit.numel() * 4 + 2 * 2 * 13 * 4 + scalars
