@@ -77,10 +77,18 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 tools' shapes where the plain version is quick; then the
                 tools' entry points (`main`) with the launch counts, and
                 CUDA-event times at the JAX tools' default shapes (P1
-                131072 x 128, tile 2048; P2 / P5 G8 = 128 and 4096; P3 8
+                131072 x 128, tile 2048; P2 / P5 G8 = 128 and 4096, the
+                best of 3, each against the plain version and K3, with its
+                share of the bound, the warps an SM holds, the SASS a
+                round and P2 at G8 = 4096 over K3 on as many permutations
+                (bench_keccak's 65536 x 2048); P3 8
                 rows, inner 512, iters 65536 on 132 x 2048 columns, with
                 its loop's SASS instructions a step; P4 4096 rounds; P6 W =
-                256, TB = 256, 4096 and 32768, REPS 512, the tool's index
+                256, TB = 256, 4096 and 32768, REPS 512, its bound
+                re-derived (its loads' kind and how many are in flight from
+                the SASS, one load's latency from a warp's dependent chain:
+                the larger of the latency floor and the bytes; beside it
+                the same loads to distinct lines), the tool's index
                 and a random one, elements in the tool's batch-last arena
                 and a lane-major one, and whole 256-bit words in the
                 lane-major word arena (8 x 32-bit and 2 x 128-bit loads)
@@ -2054,12 +2062,11 @@ def sponge_phase(dev, sm_mhz: float, memory_streams: list,
              fields["realistic_memory_bound_by"]))
 
 
-def p3_sass_per_step(lib_path) -> dict:
-    """SASS instructions a step of P3's main loop at 8 rows, by op, read
-    with cuobjdump from the built library: (all, logic) in the first loop,
-    the unrolled one, over the steps a trip (eravm_p3_unroll); {} where
-    the toolkit has no cuobjdump."""
-    sass = k1_times.read_sass(lib_path)
+def p3_sass_per_step(sass: str | None) -> dict:
+    """SASS instructions a step of P3's main loop at 8 rows, by op, in the
+    built library's cuobjdump listing: (all, logic) in the first loop, the
+    unrolled one, over the steps a trip (eravm_p3_unroll); {} where the
+    toolkit has no cuobjdump."""
     if sass is None:
         return {}
     unroll = _build.load().eravm_p3_unroll()
@@ -2084,12 +2091,15 @@ def p7_permutations(flags: torch.Tensor, count: torch.Tensor,
     return n
 
 
-def probe_phases(dev, sm_mhz: float, lib_path) -> dict:
+def probe_phases(dev, sm_mhz: float, listing: str | None,
+                 k3_same_perms_ms: float) -> dict:
     """The tool probes P1-P7: each kernel against its plain version on the
     card; times at the tools' shapes; then the tools' entry points, the
-    probes' main path, with the launch counts zeroed just before.  Returns
-    {probe: (launches, max abs err, ms, plain ms, bound)} for the kernels
-    line."""
+    probes' main path, with the launch counts zeroed just before.
+    `listing` is the built library's SASS (cuobjdump; None without it),
+    `k3_same_perms_ms` K3's time at bench_keccak's 65536 x 2048, as many
+    permutations as P2 runs at G8 = 4096.  Returns {probe: (launches, max
+    abs err, ms, plain ms, bound)} for the kernels line."""
     pk, pu, bf = probe_keccak, probe_uniform, bisect_fold
     gen = torch.Generator().manual_seed(21)
 
@@ -2133,7 +2143,15 @@ def probe_phases(dev, sm_mhz: float, lib_path) -> dict:
 
     # -- P2 / P5 -----------------------------------------------------------
     # the planes of random states, so that each output is held against its
-    # plain version and, through planes_to_states, against K3
+    # plain version and, through planes_to_states, against K3; each kernel
+    # the best of 3 at both G8, its share of the bound, the warps an SM
+    # holds, the SASS a round, and P2 at G8 = 4096 (as many permutations as
+    # bench_keccak) over K3's time there
+    lib = _build.load()
+    design = k1_times.bitslice_design(pathlib.Path(__file__).resolve().parent)
+    occupancy = {"P2": lib.eravm_p2_warps_per_sm(0),
+                 "P5": lib.eravm_p2_warps_per_sm(1)}
+    p2_sass = k1_times.bitslice_round_sass(listing, design["trip"])
     times = {}
     for g8 in P_G8:
         states = rand(256 * g8, 25, 2)
@@ -2152,8 +2170,7 @@ def probe_phases(dev, sm_mhz: float, lib_path) -> dict:
         for name, f in (("P2", pk.keccak_bitslice),
                         ("P5", pk.keccak_bitslice_fused)):
             if g8 == P_G8[0]:
-                ms = best_ms(lambda: box.__setitem__("k", f(planes, P_ITERS)),
-                             reps=1)
+                ms = best_ms(lambda: box.__setitem__("k", f(planes, P_ITERS)))
                 err = max(check(f"{name} G8={g8}", box["k"], box["p"]),
                           check(f"{name} G8={g8} against K3",
                                 pk.planes_to_states(box["k"]), k3))
@@ -2165,19 +2182,32 @@ def probe_phases(dev, sm_mhz: float, lib_path) -> dict:
                           check(f"{name} G8={g8} against K3",
                                 pk.planes_to_states(got), k3))
                 del got
-                ms = timed_ms(lambda: f(planes, P_ITERS))
+                ms = best_ms(lambda: f(planes, P_ITERS))
                 rows[name][0] = err
             times[(name, g8)] = (ms, bound[0])
         del planes, states, k3
+    sass_fields = {f"{n}_sass_round": "not measured" if v is None else
+                   ", ".join(f"{k} {x:g}" for k, x in v.items())
+                   for n, v in p2_sass.items()}
     phase("P2-P5", iters=P_ITERS, equal=True, **{
-        f"{n}_g{g}_ms": round(t[0], 3) for (n, g), t in times.items()}, **{
+        f"{n}_g{g}_ms": round(t[0], 4) for (n, g), t in times.items()}, **{
         f"{n}_g{g}_perms_per_sec": 256 * g * P_ITERS / (t[0] / 1e3)
         for (n, g), t in times.items()}, **{
-        f"g{g}_bound_ms": round(t[1], 4) for (n, g), t in times.items()},
+        f"g{g}_bound_ms": round(t[1], 4) for (n, g), t in times.items()}, **{
+        f"{n}_g{g}_share_of_bound": round(t[1] / t[0], 4)
+        for (n, g), t in times.items()}, **{
+        f"P5_over_P2_g{g}": round(times[("P5", g)][0]
+                                  / times[("P2", g)][0], 3) for g in P_G8},
+        **design, **{f"{n}_warps_an_sm_held": w for n, w in occupancy.items()},
+        **{f"g{g}_warps_an_sm": round(min(8 * g / 132, occupancy["P2"]), 2)
+           for g in P_G8}, **sass_fields,
+        k3_same_perms_ms=round(k3_same_perms_ms, 3),
+        p2_g4096_vs_k3_same_perms=round(
+            times[("P2", P_G8[1])][0] / k3_same_perms_ms, 4),
         plain_g128_ms=round(rows["P2"][2], 1))
 
     # -- P3 ----------------------------------------------------------------
-    sass = p3_sass_per_step(lib_path)
+    sass = p3_sass_per_step(listing)
     peak = INT32_LANES * sm_mhz * 1e6
     steps = P3_ITERS * (P3_INNER // P3_ROWS)
     fields = {}
@@ -2285,6 +2315,55 @@ def probe_phases(dev, sm_mhz: float, lib_path) -> dict:
                 fields[f"{tag}_ms"] = ms
                 del arena, idx
             del box
+    # its bound, re-derived: the loop's loads are strong (served by L2) and
+    # `in_flight` of them issue before the first is read (the SASS), so a
+    # lane waits at least ceil(REPS / in_flight) times for one load's
+    # latency, from one warp's chain of dependent loads (2 REPS less REPS
+    # loads, over REPS); the bound is the larger of that floor and the
+    # bytes'.  line_sum (P6's launch shape and load count, each load to
+    # another line than the 15 before it) is a comparison, not a bound:
+    # P6's re-reads of one address are served faster than it
+    loads = k1_times.load_overlap_sass(listing, "p6_kernel")
+    in_flight = P6_REPS if loads is None else loads["in_flight"]
+    box = {}
+    # the chain held against its plain version where each step reads
+    # another word, before it is timed on the identity arena
+    perm_arena = torch.randperm(1024, generator=gen).to(torch.int32).to(dev)
+    perm_start = torch.randint(0, 1024, (32,), generator=gen,
+                               dtype=torch.int32).to(dev)
+    for reps in (1, 7, 64):
+        err = max(err, check(
+            f"P6 chain x{reps} permuted",
+            pu.chain_gather(perm_arena, perm_start, reps),
+            pu.chain_gather_plain(perm_arena, perm_start, reps)))
+    chain_arena = torch.arange(1024, dtype=torch.int32, device=dev)
+    chain_start = torch.arange(32, dtype=torch.int32, device=dev)
+    chain_ms = {}
+    for reps in (P6_REPS, 2 * P6_REPS):
+        chain_ms[reps] = best_ms(lambda: box.__setitem__(
+            "k", pu.chain_gather(chain_arena, chain_start, reps)))
+        err = max(err, check(f"P6 chain x{reps}", box["k"], chain_start))
+    latency_ns = (chain_ms[2 * P6_REPS] - chain_ms[P6_REPS]) / P6_REPS * 1e6
+    floor_ms = math.ceil(P6_REPS / in_flight) * latency_ns / 1e6
+    p6_bound = max((floor_ms, "latency"), rows["P6"][3])
+    lines = rand(16 * 8 * P6_W)
+    lines_ms = best_ms(lambda: box.__setitem__(
+        "k", pu.line_sum(lines, P6_W, 8, P6_REPS)))
+    err = max(err, check("P6 lines", box["k"],
+                         pu.line_sum_plain(lines, P6_W, 8, P6_REPS)))
+    fields.update(
+        load_opcodes="not measured" if loads is None
+        else ",".join(loads["load_opcodes"]),
+        loads_in_flight="not measured" if loads is None else in_flight,
+        l2_latency_ns=round(latency_ns, 2),
+        chain_ms=round(chain_ms[P6_REPS], 5),
+        latency_floor_ms=round(floor_ms, 5),
+        rederived_bound_ms=round(p6_bound[0], 5),
+        rederived_bound_by=p6_bound[1],
+        share_of_rederived_bound=round(p6_bound[0] / rows["P6"][1], 4),
+        lines_ms=round(lines_ms, 5),
+        p6_over_lines=round(rows["P6"][1] / lines_ms, 4))
+    del box, lines, chain_arena, chain_start, perm_arena, perm_start
     rows["P6"][0] = err
     phase("P6", w=P6_W, reps=P6_REPS, equal=True, **fields)
 
@@ -2960,7 +3039,8 @@ def main() -> int:
     # one permutation's latency on one thread (N = 1, chained), beside its
     # bound: the permutation's SASS at one instruction a cycle; and the
     # SASS a keccak round of K3, K2 and the sponge (cuobjdump)
-    sass_round = k1_times.keccak_round_sass(k1_times.read_sass(lib_path))
+    listing = k1_times.read_sass(lib_path)
+    sass_round = k1_times.keccak_round_sass(listing)
     one = torch.zeros((1, 25, 2), dtype=torch.int32, device=dev)
     keccak.keccak_f1600_(one, 16)
     n1_us = timed_ms(lambda: keccak.keccak_f1600_(one, SERIAL_ITERS)) \
@@ -2983,7 +3063,7 @@ def main() -> int:
           **{f"{K3_PLAIN_BENCH}_plain_ms": round(bench_plain_ms, 3)})
 
     # -- the tool probes P1-P7 ------------------------------------------
-    probes = probe_phases(dev, sm_mhz, lib_path)
+    probes = probe_phases(dev, sm_mhz, listing, rates["bench_keccak"][0])
 
     # -- the witness wave at full size: the log family's main path ------
     cfg_w = wave_config(B_WAVE)

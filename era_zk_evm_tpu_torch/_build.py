@@ -400,10 +400,12 @@ class UnitsArgs(ctypes.Structure):
 
 #: the probes' C entries, eravm_<probe>_launch and eravm_<probe>_host: their
 #: arguments ("p" a pointer, "i" an int) before the launchers' stream
-_PROBE_LAUNCH = {"p1": "piiii", "p2": "ppiii", "p3": "piiii", "p4": "pii",
-                 "p6": "pppiiiii", "p6w": "pppiiii", "p7": "ppiii"}
-_PROBE_HOST = {"p1": "piii", "p2": "ppiii", "p3": "piiii", "p4": "pii",
-               "p6": "pppiiii", "p6w": "pppiiii", "p7": "ppiii"}
+_PROBE_LAUNCH = {"p1": "piiii", "p2": "piii", "p3": "piiii", "p4": "pii",
+                 "p6": "pppiiiii", "p6w": "pppiiii", "p6c": "pppiii",
+                 "p7": "ppiii"}
+_PROBE_HOST = {"p1": "piii", "p2": "piii", "p2_rho": "p", "p3": "piiii",
+               "p4": "pii", "p6": "pppiiii", "p6w": "pppiiii",
+               "p6c": "pppiii", "p7": "ppiii"}
 
 
 def _bind_probes(lib: ctypes.CDLL, kind: str, specs: dict) -> None:
@@ -448,6 +450,8 @@ def load() -> ctypes.CDLL:
         _bind_probes(lib, "launch", _PROBE_LAUNCH)
         lib.eravm_p3_unroll.argtypes = []
         lib.eravm_p3_unroll.restype = ctypes.c_int
+        lib.eravm_p2_warps_per_sm.argtypes = [ctypes.c_int]
+        lib.eravm_p2_warps_per_sm.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 

@@ -221,18 +221,45 @@ extern "C" int eravm_p1_host(void *rows, int B, int iters, int unroll) {
     return 0;
 }
 
-// P2 (fused = 0) or P5 (fused = 1) over state, scratch u32[1600, cols]
-extern "C" int eravm_p2_host(void *state, void *scratch, int cols, int iters,
-                             int fused) {
-    uint32_t parity[320];
-    for (int c = 0; c < cols; c++) {
-        if (fused)
-            p2_run_column<true>((uint32_t *)state, (uint32_t *)scratch,
-                                parity, 1, cols, c, iters);
-        else
-            p2_run_column<false>((uint32_t *)state, (uint32_t *)scratch,
-                                 parity, 1, cols, c, iters);
+// the host's emulated warp: p2_kernel's phase functions run lane after
+// lane, every lane finishing a phase before any lane starts the next, so
+// that an emulated shuffle (p2_from) reads what its source lane wrote
+struct P2HostWarp {
+    P2Regs *lanes;
+    template <class F> void each(F f) const {
+        for (int t = 0; t < 32; t++) f(lanes[t], t);
     }
+};
+
+// P2 (fused = 0) or P5 (fused = 1) over state u32[1600, cols], a column
+// after another, each on an emulated warp
+extern "C" int eravm_p2_host(void *state, int cols, int iters, int fused) {
+    std::vector<P2Regs> lanes(32);
+    const P2HostWarp w{lanes.data()};
+    uint32_t *st = (uint32_t *)state;
+    for (int c = 0; c < cols; c++) {
+        for (int t = 0; t < 32; t++) p2_load(lanes[t], st, cols, c, t);
+        if (fused) p2_permute<true>(w, iters);
+        else p2_permute<false>(w, iters);
+        for (int t = 0; t < 32; t++) p2_store(lanes[t], st, cols, c, t);
+    }
+    return 0;
+}
+
+// rho + pi's lane map as p2_rho moves it: out int32[1600], for each plane
+// of rho's output the plane of its input that it came from (every register
+// of the emulated warp labelled with its own plane, then one p2_rho<false>)
+extern "C" int eravm_p2_rho_host(void *out) {
+    std::vector<P2Regs> lanes(32);
+    const P2HostWarp w{lanes.data()};
+    for (int t = 0; t < 32; t++)
+        for (int i = 0; i < 50; i++)
+            lanes[t].a[i] = (uint32_t)((i >> 1) * 64 + 2 * t + (i & 1));
+    w.each([&](P2Regs &x, int t) { p2_rho<false>(x, t); });
+    for (int t = 0; t < 32; t++)
+        for (int i = 0; i < 50; i++)
+            ((int32_t *)out)[(i >> 1) * 64 + 2 * t + (i & 1)] =
+                (int32_t)lanes[t].b[i];
     return 0;
 }
 
@@ -277,6 +304,19 @@ extern "C" int eravm_p6w_host(const void *arena, const void *idx, void *out,
                 ((const uint32_t *)idx)[t], t, reps, acc);
         for (int l = 0; l < 8; l++) ((uint32_t *)out)[(uint64_t)l * TB + t] = acc[l];
     }
+    return 0;
+}
+
+// P6's bound measurements (eravm_p6c_launch): blocks = 0 the chain, out
+// u32[n] from arena and start u32[n]; else the lines, out u32[blocks, n]
+extern "C" int eravm_p6c_host(const void *arena, const void *start, void *out,
+                              int n, int reps, int blocks) {
+    const uint32_t *a = (const uint32_t *)arena;
+    for (int b = 0; b < (blocks ? blocks : 1); b++)
+        for (int t = 0; t < n; t++)
+            ((uint32_t *)out)[(uint64_t)b * n + t] = blocks
+                ? p6r_sum(a, n, b, t, reps)
+                : p6c_chase(a, ((const uint32_t *)start)[t], reps);
     return 0;
 }
 

@@ -82,7 +82,81 @@ HD uint32_t p6_sum(const uint32_t *arena, int W, int TB, int k, uint32_t i,
     return acc;
 }
 
+// P6's bound.  P6's loads are strong (volatile: LDG.E.STRONG.SYS, served
+// by L2) and its loop issues 16 before it reads the first, so a lane waits
+// at least REPS / 16 times for one load's latency: that floor, or the
+// bytes', whichever is larger, bounds it.  Two measurements, neither a port
+// of a TPU kernel:
+//   chain (p6c_kernel, `blocks` = 0): one block of n lanes, each chasing
+//     `reps` dependent volatile loads through an arena of u32 indices (i =
+//     arena[i], from start[t]); with arena[i] = i each lane reads its own
+//     word again and each address waits on the load before it: the time a
+//     load is one load's latency, the floor's;
+//   lines (p6r_kernel, `blocks` > 0): P6's launch shape, `blocks` blocks of
+//     n lanes, lane t of block b summing `reps` volatile loads that cycle
+//     over 16 lines of n words, arena[(16 b + r % 16) * n + t] (start
+//     unused), issued 16 at a time as P6's are: P6's count of loads, none
+//     to the line of the 15 before it.  A comparison, not a bound: P6's
+//     re-reads of one address are served faster than these.
+HD uint32_t p6c_chase(const uint32_t *arena, uint32_t i, int reps) {
+    for (int r = 0; r < reps; r++) i = *(const volatile uint32_t *)(arena + i);
+    return i;
+}
+
+// the lines' sum, 16 loads issued before they are summed (as P6's loop
+// issues its own), then the rest one at a time
+HD uint32_t p6r_sum(const uint32_t *arena, int n, int b, int t, int reps) {
+    const volatile uint32_t *line = arena + (uint64_t)16 * b * n + t;
+    uint32_t acc = 0;
+    int r = 0;
+    for (; r + 16 <= reps; r += 16) {
+        uint32_t v[16];
 #ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int j = 0; j < 16; j++) v[j] = line[(uint64_t)j * n];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int j = 0; j < 16; j++) acc += v[j];
+    }
+    for (; r < reps; r++) acc += line[(uint64_t)(r & 15) * n];
+    return acc;
+}
+
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(1024) p6c_kernel(const uint32_t *arena,
+                                                   const uint32_t *start,
+                                                   uint32_t *out, int n,
+                                                   int reps) {
+    const int t = threadIdx.x;
+    if (t < n) out[t] = p6c_chase(arena, start[t], reps);
+}
+
+__global__ void __launch_bounds__(1024) p6r_kernel(const uint32_t *arena,
+                                                   uint32_t *out, int n,
+                                                   int reps) {
+    const int t = threadIdx.x, b = blockIdx.x;
+    if (t < n) out[(uint64_t)b * n + t] = p6r_sum(arena, n, b, t, reps);
+}
+
+// n <= 1024 lanes a block; blocks = 0: the chain, out u32[n]; blocks > 0:
+// the lines, arena u32[16 * blocks * n], out u32[blocks, n]
+extern "C" int eravm_p6c_launch(const void *arena, const void *start,
+                                void *out, int n, int reps, int blocks,
+                                void *stream) {
+    if (n < 1 || n > 1024 || blocks < 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (blocks == 0)
+        p6c_kernel<<<1, n, 0, s>>>((const uint32_t *)arena,
+                                   (const uint32_t *)start, (uint32_t *)out,
+                                   n, reps);
+    else
+        p6r_kernel<<<blocks, n, 0, s>>>((const uint32_t *)arena,
+                                        (uint32_t *)out, n, reps);
+    return (int)cudaGetLastError();
+}
+
 __global__ void __launch_bounds__(256) p6_kernel(const uint32_t *arena,
                                                  const uint32_t *idx,
                                                  uint32_t *out, int W, int TB,

@@ -58,6 +58,10 @@ digests, with bounds and the sponge's serial floor; every tree since the
 ragged sponge has both entry points.  `blocks` runs block-precompile and
 block-ecrecover through the tree's own `chip_smoke.py` helpers (B = 4096,
 8192 txs): walls, txs/s, idle share, K1's and the splice's device time.
+`bitslice` times the bit-sliced probes P2 and P5 at G8 = 128 and 4096 x
+128 permutations beside their operation bound and K3 on the same 134217728
+permutations, checks each against K3, and gives the tree's design, the
+warps an SM holds and the SASS a round (LOP3, SHF, SHFL; `cuobjdump`).
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ import sys
 import time
 
 CASES = ("main-b", "a", "log", "precompile", "precompile-ec", "ec", "a4096",
-         "log4096", "units", "keccak", "blocks")
+         "log4096", "units", "keccak", "blocks", "bitslice")
 
 #: int32 operations a keccak-f and a sha256 compression (chip_smoke.py's
 #: bounds count the same)
@@ -93,6 +97,11 @@ K3_SHAPES = ((131072, 1), (65536, 2048), (131072, 128))
 SERIAL_ITERS = 20000
 RAGGED_STREAMS, RAGGED_MEAN_BLOCKS, RAGGED_LONGEST = 8192, 1236, 16954
 FOLD_DIGESTS = 8192
+#: the bitslice case: P2 / P5 at chip_smoke.py's G8s x 128 permutations;
+#: int32 operations of a bit-sliced round of 32 states (chip_smoke.py's
+#: BITSLICE_ROUND_OPS); K3 on as many permutations as P2 at G8 = 4096
+BITSLICE_G8, BITSLICE_ITERS, BITSLICE_ROUND_OPS = (128, 4096), 128, 3840
+BITSLICE_K3 = (65536, 2048)
 
 
 def splice_bytes(emit, nslots, ps: int, cap: int, blocks0: int) -> int:
@@ -153,20 +162,22 @@ def read_sass(lib_path) -> str | None:
 
 
 def sass_loops(sass: str, function: str, local: bool = False,
-               consts: bool = False) -> list[tuple[int, ...]]:
+               consts: bool = False,
+               opcodes: tuple[str, ...] = ()) -> list[tuple[int, ...]]:
     """The backward-branch loops of one function in cuobjdump's SASS (its
     mangled name matching the regex `function`), in address order: (all
     instructions, the logic ones: LOP3 and the funnel shift SHF) from the
     branch target to the branch, with `local` the local-memory loads and
-    stores (spills) among them, and with `consts` the 64-bit loads from
-    the constant bank of the module's tables (c[0x3]: keccak's round
-    constants are its only 64-bit table)."""
+    stores (spills) among them, with `consts` the 64-bit loads from the
+    constant bank of the module's tables (c[0x3]: keccak's round constants
+    are its only 64-bit table), then the count of each of `opcodes` (by
+    the opcode's name before its first dot, e.g. SHFL)."""
     m = re.search(rf"Function : \S*{function}\S*\n(.*?)"
                   r"(?=\n\s*Function :|\Z)", sass, re.S)
     if not m:
         return []
     offsets, logic, labels, branches, pending = [], [], {}, [], []
-    spills, const64 = [], []
+    spills, const64, named = [], [], {name: [] for name in opcodes}
     for line in m.group(1).splitlines():
         label = re.match(r"\s*(\.L_x_\d+):", line)
         if label:
@@ -185,6 +196,8 @@ def sass_loops(sass: str, function: str, local: bool = False,
             logic.append(off)
         if opcode.split(".")[0] in ("LDL", "STL"):
             spills.append(off)
+        if opcode.split(".")[0] in named:
+            named[opcode.split(".")[0]].append(off)
         if opcode.split(".")[0] in ("LDC", "ULDC") and ".64" in opcode \
                 and "c[0x3]" in ins.group(2):
             const64.append(off)
@@ -198,7 +211,9 @@ def sass_loops(sass: str, function: str, local: bool = False,
             loops.append((sum(t <= o <= off for o in offsets),
                           sum(t <= o <= off for o in logic))
                          + (sum(t <= o <= off for o in spills),) * local
-                         + (sum(t <= o <= off for o in const64),) * consts)
+                         + (sum(t <= o <= off for o in const64),) * consts
+                         + tuple(sum(t <= o <= off for o in named[name])
+                                 for name in opcodes))
     return loops
 
 
@@ -254,6 +269,76 @@ def keccak_round_sass(sass: str | None) -> dict:
         n_all, n_logic, n_rc = min(loops)
         rounds = n_rc or 24
         out[fn] = (n_all / rounds, n_logic / rounds, rounds)
+    return out
+
+
+def load_overlap_sass(sass: str | None, function: str) -> dict | None:
+    """The loop of `function` (a regex of its mangled name) in cuobjdump's
+    SASS that holds the most global loads (LDG): their opcodes, how many a
+    trip, and how many issue before the first instruction of the trip that
+    reads a loaded register (the loads a thread has in flight at once);
+    None without cuobjdump or such a loop."""
+    m = sass and re.search(rf"Function : \S*{function}\S*\n(.*?)"
+                           r"(?=\n\s*Function :|\Z)", sass, re.S)
+    if not m:
+        return None
+    ins = [(int(off, 16), text) for off, text in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", m.group(1))]
+    best = None
+    for off, text in ins:
+        br = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+        if not br or int(br.group(1), 16) >= off:
+            continue
+        body = [t.split(None, 1) for o, t in ins
+                if int(br.group(1), 16) <= o <= off]
+        body = [w[1].split(None, 1) if w[0].startswith("@") else w
+                for w in body]
+        loads = [w for w in body if w[0].startswith("LDG")]
+        if not loads or (best and len(loads) <= best["loads_a_trip"]):
+            continue
+        pending, in_flight = set(), len(loads)
+        for w in body:
+            regs = re.findall(r"\bR(\d+)\b", w[1] if len(w) > 1 else "")
+            if w[0].startswith("LDG"):
+                pending.add(regs[0])
+            elif pending & set(regs[1:]):
+                in_flight = len(pending)
+                break
+        best = {"load_opcodes": sorted({w[0] for w in loads}),
+                "loads_a_trip": len(loads), "in_flight": in_flight}
+    return best
+
+
+def bitslice_design(tree) -> dict:
+    """The warps a block and rounds a loop trip (kP2Warps, kP2Trip) that
+    `tree`'s csrc/probe_keccak.cu builds P2 / P5 with, as a variant tree
+    edits them: {"warps_a_block": w, "trip": t}, {} where the source has
+    neither (a tree before the warp-a-column design)."""
+    src = (pathlib.Path(tree) / "era_zk_evm_tpu_torch" / "csrc"
+           / "probe_keccak.cu").read_text()
+    found = {k: re.search(rf"constexpr int {c} = (\d+);", src)
+             for k, c in (("warps_a_block", "kP2Warps"), ("trip", "kP2Trip"))}
+    return {k: int(m.group(1)) for k, m in found.items() if m} \
+        if all(found.values()) else {}
+
+
+#: the opcodes that bitslice_round_sass counts a round
+BITSLICE_OPCODES = ("LOP3", "SHF", "SHFL", "LDS", "STS")
+
+
+def bitslice_round_sass(sass: str | None, trip: int | None) -> dict:
+    """{P2, P5: {all, LOP3, SHF, SHFL, LDS, STS}} SASS instructions a round
+    of p2_kernel<false> and <true>: the kernel's smallest loop with 100
+    logic instructions or more holds `trip` rounds (the tree's
+    kP2Trip); None without cuobjdump, such a loop or a trip (a tree
+    before the warp-a-column design)."""
+    out = {}
+    for name, fn in (("P2", r"p2_kernelILb0E"), ("P5", r"p2_kernelILb1E")):
+        loops = [x for x in sass_loops(sass, fn, opcodes=BITSLICE_OPCODES)
+                 if x[1] >= 100] if sass is not None and trip else []
+        out[name] = None if not loops else dict(zip(
+            ("all", "logic") + BITSLICE_OPCODES,
+            (v / trip for v in min(loops))))
     return out
 
 
@@ -509,6 +594,59 @@ def main(argv=None) -> dict:
             del w, offsets
         return res
 
+    def bitslice_times() -> dict:
+        """P2 and P5 (`tools/probe_keccak.keccak_bitslice`, `_fused`, entry
+        points every tree has) at BITSLICE_G8 x BITSLICE_ITERS on the planes
+        of seeded random states: the best of `--reps` CUDA-event times
+        beside the operation bound, each kernel's one-permutation output
+        held against K3 through `planes_to_states` (`equal`), K3 on as many
+        permutations as P2 at G8 = 4096 (BITSLICE_K3, in place), and where
+        the tree has them its design (`bitslice_design`), the warps an SM
+        holds at once (eravm_p2_warps_per_sm) and the SASS a round."""
+        import ctypes
+
+        from era_zk_evm_tpu_torch.ops import keccak
+        from era_zk_evm_tpu_torch.tools import probe_keccak as pk
+
+        gen = torch.Generator(device=dev).manual_seed(17)
+        lib = _build.load()
+        design = bitslice_design(args.tree)
+        if hasattr(lib, "eravm_p2_warps_per_sm"):
+            lib.eravm_p2_warps_per_sm.argtypes = [ctypes.c_int]
+            design.update({f"{k}_warps_per_sm": lib.eravm_p2_warps_per_sm(f)
+                           for f, k in enumerate(("p2", "p5"))})
+        res = {"design": design, "sass_round": bitslice_round_sass(
+            sass, design.get("trip"))}
+
+        def best(fn):
+            fn()
+            return min(timed(fn) for _ in range(args.reps))
+
+        for g8 in BITSLICE_G8:
+            n = 256 * g8
+            states = torch.randint(-2**31, 2**31 - 1, (n, 25, 2),
+                                   generator=gen, dtype=torch.int32,
+                                   device=dev)
+            planes = pk.states_to_planes(states)
+            k3 = keccak.keccak_f1600(states, 1)
+            cols = 8 * g8
+            res[f"g{g8}_bound_ms"] = max(
+                2 * 6400 * cols / HBM_BYTES_PER_MS,
+                cols * 24 * BITSLICE_ITERS * BITSLICE_ROUND_OPS
+                / INT32_OPS_PER_MS)
+            for name, f in (("p2", pk.keccak_bitslice),
+                            ("p5", pk.keccak_bitslice_fused)):
+                res[f"{name}_g{g8}_equal"] = torch.equal(
+                    pk.planes_to_states(f(planes, 1)), k3)
+                res[f"{name}_g{g8}_ms"] = best(
+                    lambda: f(planes, BITSLICE_ITERS))
+            del states, planes, k3
+        n, iters = BITSLICE_K3
+        st = torch.randint(-2**31, 2**31 - 1, (n, 25, 2), generator=gen,
+                           dtype=torch.int32, device=dev)
+        res["k3_same_perms_ms"] = best(lambda: keccak.keccak_f1600_(st, iters))
+        return res
+
     def blocks() -> dict:
         """block-precompile and block-ecrecover as the tree's own
         `chip_smoke.py` drives them (its `block_config`, `BLOCK_KNOBS`,
@@ -612,6 +750,10 @@ def main(argv=None) -> dict:
         if name == "units":
             if hasattr(fused_cycle, "precompile_units"):
                 out[name] = units_times()
+            continue
+        if name == "bitslice":
+            out[name] = bitslice_times()
+            torch.cuda.empty_cache()
             continue
         if name == "keccak":
             out[name] = keccak_times()

@@ -206,11 +206,10 @@ def _bitslice(planes: torch.Tensor, iters: int, fused: bool) -> torch.Tensor:
     _require_card(planes, what)
     state = planes.contiguous().clone()
     cols = state.shape[1] * state.shape[2]
-    if cols == 0 or iters == 0:
+    if cols == 0:
         return state
-    scratch = torch.empty_like(state)
-    _launched(_lib().eravm_p2_launch(_args(state), _args(scratch), cols,
-                                     iters, int(fused), _stream(state)), what)
+    _launched(_lib().eravm_p2_launch(_args(state), cols, iters, int(fused),
+                                     _stream(state)), what)
     if fused:
         P5_LAUNCHES += 1
     else:

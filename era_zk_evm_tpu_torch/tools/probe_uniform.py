@@ -12,9 +12,16 @@ K1's own access, a thread reading a whole 256-bit word: the same function
 with the arena in one of `WORD_LAYOUTS` ("lane_words" [TB, W, 8], K1's
 lane-major arenas, read as 8 x 32-bit loads; "lane_words_v4", the same read
 as 2 x 128-bit loads; "words_batch_last" [W, 8, TB]).  `P6_LAUNCHES` counts
-launches of both kernels.  `main(argv)` runs both modes on the tool's arena
-and index (every lane 37), checks that they agree, and prints the time a
-gather (`--sweep` times every layout, element and word, at the given TBs):
+launches of both kernels.  Two measurements stand beside P6
+(`P6C_LAUNCHES`): `chain_gather(arena, start, reps)`, one warp's chain of
+dependent loads, gives one load's latency, and with the loads P6 has in
+flight its latency floor, its bound; `line_sum(arena, n, blocks, reps)`
+times P6's launch shape and load count with each load to another line
+than the 15 before it, a comparison (P6's re-reads of one address are
+served faster) and not a bound.
+`main(argv)` runs both modes on the tool's arena and index (every lane
+37), checks that they agree, and prints the time a gather (`--sweep` times
+every layout, element and word, at the given TBs):
 
     python -m era_zk_evm_tpu_torch.tools.probe_uniform [--tb 32768] \
         [--random] [--lane-major]
@@ -31,6 +38,7 @@ import sys
 import torch
 
 P6_LAUNCHES = 0
+P6C_LAUNCHES = 0
 W, TB, REPS = 256, 256, 512
 INDEX = 37          # the tool's index, every lane alike
 #: the word layouts: (kernel layout id, permutation from the canonical
@@ -81,6 +89,81 @@ def uniform_gather(arena: torch.Tensor, idx: torch.Tensor, reps: int,
         raise RuntimeError(f"P6 launch failed: cudaError {rc}")
     P6_LAUNCHES += 1
     return out
+
+
+def chain_gather_plain(arena: torch.Tensor, start: torch.Tensor,
+                       reps: int) -> torch.Tensor:
+    """The plain version of P6's chain: `reps` times i = arena[i] from
+    start (int32 indices into arena)."""
+    i = start.to(torch.int64)
+    for _ in range(reps):
+        i = arena[i].to(torch.int64)
+    return i.to(torch.int32)
+
+
+def line_sum_plain(arena: torch.Tensor, n: int, blocks: int,
+                   reps: int) -> torch.Tensor:
+    """The plain version of P6's lines: int32[blocks, n], lane t of block b
+    the sum mod 2^32 of arena[(16 b + r % 16) * n + t] over r < reps."""
+    lines = arena[:16 * blocks * n].reshape(blocks, 16, n).to(torch.int64)
+    counts = torch.tensor([len(range(j, reps, 16)) for j in range(16)],
+                          dtype=torch.int64, device=arena.device)
+    out = (lines * counts[None, :, None]).sum(1) & 0xFFFFFFFF
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
+def _p6c(arena, start, out, n, reps, blocks):
+    global P6C_LAUNCHES
+    from .._build import load
+
+    stream = torch.cuda.current_stream(arena.device).cuda_stream
+    rc = load().eravm_p6c_launch(
+        ctypes.c_void_p(arena.data_ptr()), ctypes.c_void_p(start.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), n, reps, blocks,
+        ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"P6 bound launch failed: cudaError {rc}")
+    P6C_LAUNCHES += 1
+    return out
+
+
+def _p6c_device(arena: torch.Tensor, what: str) -> bool:
+    """True on a CUDA arena, False on a CPU one (the plain version)."""
+    if arena.dim() != 1 or arena.dtype != torch.int32:
+        raise ValueError(f"P6 {what}: arena {arena.dtype}{list(arena.shape)}")
+    if arena.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no P6 {what} kernel for device {arena.device}")
+    return arena.device.type == "cuda"
+
+
+def chain_gather(arena: torch.Tensor, start: torch.Tensor,
+                 reps: int) -> torch.Tensor:
+    """P6's chain: int32[n] (n <= 1024, one block), `reps` dependent volatile
+    loads a lane (csrc/probe_uniform.cu, p6c_kernel): with arena[i] = i,
+    each lane's loads read its own L2-resident word, each address waiting
+    on the load before it.  Every index must lie in the arena."""
+    n = start.shape[0] if start.dim() == 1 else 0
+    if not 1 <= n <= 1024 or start.dtype != torch.int32:
+        raise ValueError(f"P6 chain: start {start.dtype}{list(start.shape)}")
+    if not _p6c_device(arena, "chain"):
+        return chain_gather_plain(arena, start, reps)
+    arena, start = arena.contiguous(), start.contiguous()
+    return _p6c(arena, start, torch.empty_like(start), n, reps, 0)
+
+
+def line_sum(arena: torch.Tensor, n: int, blocks: int,
+             reps: int) -> torch.Tensor:
+    """P6's lines: `line_sum_plain`'s function (csrc/probe_uniform.cu,
+    p6r_kernel: `blocks` blocks of n <= 1024 lanes, each lane's `reps`
+    volatile loads independent and cycling over 16 lines)."""
+    if not 1 <= n <= 1024 or blocks < 1 or arena.numel() < 16 * blocks * n:
+        raise ValueError(f"P6 lines: n={n}, blocks={blocks}, arena "
+                         f"{list(arena.shape)}")
+    if not _p6c_device(arena, "lines"):
+        return line_sum_plain(arena, n, blocks, reps)
+    arena = arena.contiguous()
+    out = torch.empty((blocks, n), dtype=torch.int32, device=arena.device)
+    return _p6c(arena, arena, out, n, reps, blocks)
 
 
 def _canonical(arena: torch.Tensor, layout: str) -> torch.Tensor:

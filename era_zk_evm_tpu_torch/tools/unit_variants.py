@@ -3,7 +3,7 @@ decomposing the kPrecomp instance's time on the card, and trees with other
 unrolls of keccak.cuh's permutation.
 
     python -m era_zk_evm_tpu_torch.tools.unit_variants --src DIR --out DIR
-        [--design old|new|perm] [--variants name,...]
+        [--design old|new|perm|splice|bitslice] [--variants name,...]
 
 Copies the checkout `--src` (a tree of the repository, e.g. the parent
 commit unpacked with `git archive`) once per variant into `--out/<name>`,
@@ -25,7 +25,14 @@ buffer in place of two, 4-byte stores in place of 16-byte ones, and K1
 storing every row of a call's block again (`k1_all_rows`); these compute
 right results too (K1's extra rows are ones the splice never reads), but
 `no_reads` and `no_stores`, which time the move without its reads or its
-stores.
+stores.  `--design bitslice` prices the bit-sliced probes P2 / P5
+(csrc/probe_keccak.cu, a warp a column): rho through shared memory in
+place of shuffles (`rho_shared`, built on the card only), 1 or 2 warps a
+block (`warps1`, `warps2`) where the tree has 4, registers capped for 5
+blocks an SM (`minblocks5`), 1, 2, 4, 6, 12 or 24 rounds a loop trip
+(`tripT`) where it has 8, and P5's D formed at the receiver
+(`p5_d_at_receiver`); these compute right results, timed with
+`k1_times.py --tree T --cases bitslice`, which holds each against K3.
 """
 
 from __future__ import annotations
@@ -175,6 +182,59 @@ VARIANTS = {
             ("            const U256 val = j ? out2 : out;\n",
              "            const U256 val = j >= n_out ? u256_zero()"
              " : (j ? out2 : out);\n")],
+    },
+    "bitslice": {
+        # rho (and P5's D) through a shared-memory buffer a warp in place
+        # of shuffles (card only: the g++ build has no shared memory)
+        "rho_shared": [
+            ("probe_keccak.cu",
+             "HD void p2_rho(P2Regs &x, int t) {\n",
+             "HD void p2_rho(P2Regs &x, int t) {\n"
+             "    __shared__ uint32_t staged[kP2Warps][60 * 32];\n"
+             "    uint32_t *buf = staged[threadIdx.x >> 5];\n"
+             "    __syncwarp();\n"
+             "    for (int j = 0; j < 50; j++) buf[j * 32 + t] = x.a[j];\n"
+             "    if (kFused)\n"
+             "        for (int j = 0; j < 10; j++) buf[(50 + j) * 32 + t] = "
+             "x.d[j];\n"
+             "    __syncwarp();\n"),
+            ("probe_keccak.cu",
+             "uint32_t v = p2_from(x, &x.a[2 * src + hs], t, k);",
+             "uint32_t v = buf[(2 * src + hs) * 32 + ((t - k) & 31)];"),
+            ("probe_keccak.cu",
+             "if (kFused) v ^= p2_from(x, &x.d[2 * (src % 5) + hs], t, k);",
+             "if (kFused) v ^= buf[(50 + 2 * (src % 5) + hs) * 32"
+             " + ((t - k) & 31)];")],
+        # 1 or 2 warps (columns) a block where the tree has 4
+        **{f"warps{w}": [("probe_keccak.cu", "constexpr int kP2Warps = 4;",
+                          f"constexpr int kP2Warps = {w};")]
+           for w in (1, 2)},
+        # registers capped so that an SM holds 5 blocks (20 warps) where
+        # the tree's ~128 registers let it hold 4
+        "minblocks5": [("probe_keccak.cu",
+                        "__launch_bounds__(32 * kP2Warps, 1)\n",
+                        "__launch_bounds__(32 * kP2Warps, 5)\n")],
+        # 1 to 24 rounds a loop trip where the tree has 8
+        **{f"trip{t}": [("probe_keccak.cu", "constexpr int kP2Trip = 8;",
+                         f"constexpr int kP2Trip = {t};")]
+           for t in (1, 2, 4, 6, 12, 24)},
+        # P5: no D formed at the sender (nor theta's exchange); the receiver
+        # forms it from C[xs - 1] at the plane's z and C[xs + 1] at z - 1,
+        # shuffled from the source (three shuffles a register, not two)
+        "p5_d_at_receiver": [
+            ("probe_keccak.cu",
+             "    w.each([&](P2Regs &x, int t) { p2_exchange(x, t); });\n",
+             "    if (!kFused)\n"
+             "        w.each([&](P2Regs &x, int t) { p2_exchange(x, t); });\n"),
+            ("probe_keccak.cu",
+             "    else w.each([&](P2Regs &x, int) { p5_d(x); });\n", ""),
+            ("probe_keccak.cu",
+             "if (kFused) v ^= p2_from(x, &x.d[2 * (src % 5) + hs], t, k);",
+             "if (kFused)\n"
+             "            v ^= p2_from(x, &x.c[2 * ((src % 5 + 4) % 5) + hs], t, k)\n"
+             "                ^ (hs ? p2_from(x, &x.c[2 * ((src % 5 + 1) % 5)], t, k)\n"
+             "                      : p2_from(x, &x.c[2 * ((src % 5 + 1) % 5) + 1],\n"
+             "                                t, k + 1));")],
     },
     "perm": {
         **{f"trip{t}": [("keccak.cuh", "constexpr int kKeccakTrip = 4;",

@@ -556,13 +556,32 @@ def test_p1_matches_plain(cuda, tile, unroll):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,iters", [((8, 5), 2), ((1, 1), 3),
+                                         ((3, 7), 0), ((3, 7), 3)])
 @pytest.mark.parametrize("fused", [False, True])
-def test_p2_p5_match_plain(cuda, fused):
+def test_p2_p5_match_plain(cuda, fused, shape, iters):
+    # 40 columns fill whole blocks of warps; 1 and 21 fill no block
     f = (probe_keccak.keccak_bitslice_fused if fused
          else probe_keccak.keccak_bitslice)
-    _on_card_and_cpu(cuda, lambda p: f(p, 2),
+    _on_card_and_cpu(cuda, lambda p: f(p, iters),
                      (probe_keccak, "P5_LAUNCHES" if fused else "P2_LAUNCHES"),
-                     _random_i32(2, (1600, 8, 5)))
+                     _random_i32(2, (1600,) + shape))
+
+
+@pytest.mark.cuda
+def test_p6_chain_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(6)
+    arena = torch.randperm(4096, generator=gen).to(torch.int32)
+    start = torch.randint(0, 4096, (96,), generator=gen, dtype=torch.int32)
+    _on_card_and_cpu(cuda, lambda a, s: probe_uniform.chain_gather(a, s, 33),
+                     (probe_uniform, "P6C_LAUNCHES"), arena, start)
+
+
+@pytest.mark.cuda
+def test_p6_lines_match_plain(cuda):
+    _on_card_and_cpu(cuda, lambda a: probe_uniform.line_sum(a, 256, 8, 77),
+                     (probe_uniform, "P6C_LAUNCHES"),
+                     _random_i32(7, (16 * 8 * 256,)))
 
 
 @pytest.mark.cuda

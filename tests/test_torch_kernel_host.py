@@ -10,7 +10,8 @@ endomorphism split against Python ints), the keccak256 / sha256 units
 alone (against the JAX package's golden hashes), the splice kernel's body,
 K1's compacted record block, K2's fold of it, K3's chained
 permutation and the probes P1-P7 (csrc/probe_keccak.cu, probe_rate.cu,
-probe_uniform.cu, bisect_fold.cu).  The kernels themselves are held against
+probe_uniform.cu, bisect_fold.cu; P2 / P5 a warp a column, over 32
+emulated lanes, with rho's lane map).  The kernels themselves are held against
 the plain versions on the card by chip_smoke.py.
 """
 
@@ -571,13 +572,46 @@ def test_p1_host_build_matches_plain(host, unroll):
                        probe_keccak.keccak_rows2d(states, 4, 8, unroll))
 
 
+@pytest.mark.parametrize("columns", [1, 8, 24])
+@pytest.mark.parametrize("iters", [0, 1, 2])
 @pytest.mark.parametrize("fused", [0, 1])
-def test_p2_p5_host_build_matches_plain(host, fused):
-    planes = _random_i32(11, (1600, 8, 1))
-    state, scratch = planes.clone(), torch.empty_like(planes)
-    assert host.eravm_p2_host(state.data_ptr(), scratch.data_ptr(), 8, 1,
-                              fused) == 0
-    assert torch.equal(state, probe_keccak.keccak_bitslice_plain(planes, 1))
+def test_p2_p5_host_build_matches_plain(host, fused, iters, columns):
+    # p2_kernel's phase functions over 32 emulated lanes a column; 24
+    # columns fill no block of several warps
+    planes = _random_i32(11, (1600, min(columns, 8), max(columns // 8, 1)))
+    state = planes.clone()
+    assert host.eravm_p2_host(state.data_ptr(), columns, iters, fused) == 0
+    assert torch.equal(state,
+                       probe_keccak.keccak_bitslice_plain(planes, iters))
+
+
+def test_p2_rho_lane_map():
+    # the table of csrc/probe_keccak.cu's p2_rho_source in numpy: output
+    # register h (z = 2t + h) of keccak lane (y, 2x + 3y) takes, for r =
+    # rho(x, y) even, register h of lane t - r/2, for r odd register 1 - h
+    # of lane t - (r + 1)/2 (h = 0) or t - (r - 1)/2 (h = 1), mod 32
+    rot = np.array(keccak.KECCAK_ROTATIONS)
+    x, y = np.meshgrid(np.arange(5), np.arange(5), indexing="ij")
+    x, y = x.ravel(), y.ravel()
+    dst = y + 5 * ((2 * x + 3 * y) % 5)
+    r = rot[x + 5 * y]
+    t = np.arange(32)[None, :, None]
+    h = np.arange(2)[None, None, :]
+    r3 = r[:, None, None]
+    hs = np.where(r3 % 2 == 0, h, 1 - h)
+    k = np.where(r3 % 2 == 0, r3 // 2, np.where(h == 0, (r3 + 1) // 2,
+                                                (r3 - 1) // 2))
+    src_plane = (x + 5 * y)[:, None, None] * 64 + 2 * ((t - k) % 32) + hs
+    out = np.empty(1600, dtype=np.int64)
+    out[(dst[:, None, None] * 64 + 2 * t + h).ravel()] = src_plane.ravel()
+    # a permutation of the 1600 planes, equal to chi's first source in the
+    # round plan, and to what p2_rho moves in the host build
+    assert sorted(out) == list(range(1600))
+    plan = np.array(probe_keccak.bitslice_round_plan())
+    assert np.array_equal(out, plan[:, 0])
+    got = torch.empty(1600, dtype=torch.int32)
+    assert _build.load_host().eravm_p2_rho_host(got.data_ptr()) == 0
+    assert np.array_equal(got.numpy(), out)
 
 
 @pytest.mark.parametrize("op", ["xor", "mix", "andnot"])
@@ -622,6 +656,36 @@ def test_p6_word_host_build_matches_plain(host, random_index, layout):
                                probe_uniform.WORD_LAYOUTS[layout][0]) == 0
     assert torch.equal(out, probe_uniform.word_gather_plain(
         arena, idx, 5, layout))
+
+
+@pytest.mark.parametrize("self_loop", [False, True])
+def test_p6_chain_host_build_matches_plain(host, self_loop):
+    # P6's dependent-load chain: a random permutation, or arena[i] = i
+    # (each lane reads its own word again, as on the card)
+    gen = torch.Generator().manual_seed(17)
+    arena = (torch.arange(64, dtype=torch.int32) if self_loop
+             else torch.randperm(64, generator=gen).to(torch.int32))
+    start = torch.randint(0, 64, (32,), generator=gen, dtype=torch.int32)
+    out = torch.empty(32, dtype=torch.int32)
+    assert host.eravm_p6c_host(arena.data_ptr(), start.data_ptr(),
+                               out.data_ptr(), 32, 7, 0) == 0
+    want = probe_uniform.chain_gather_plain(arena, start, 7)
+    assert torch.equal(out, want)
+    assert torch.equal(probe_uniform.chain_gather(arena, start, 7), want)
+    assert torch.equal(want, start) == self_loop
+
+
+@pytest.mark.parametrize("reps", [5, 40])
+def test_p6_lines_host_build_matches_plain(host, reps):
+    # P6's request-rate probe: 3 blocks of 40 lanes over 16 lines each (a
+    # remainder of the 16-line cycle at 40 loads)
+    arena = _random_i32(18, (16 * 3 * 40 + 7,))
+    out = torch.empty((3, 40), dtype=torch.int32)
+    assert host.eravm_p6c_host(arena.data_ptr(), arena.data_ptr(),
+                               out.data_ptr(), 40, reps, 3) == 0
+    want = probe_uniform.line_sum_plain(arena, 40, 3, reps)
+    assert torch.equal(out, want)
+    assert torch.equal(probe_uniform.line_sum(arena, 40, 3, reps), want)
 
 
 @pytest.mark.parametrize("variant", ["old", "wrapb", "sel", "two"])

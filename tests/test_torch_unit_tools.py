@@ -1,6 +1,7 @@
-"""The tools that measure K1's precompile units and the round-witness
-splice on the card, on the CPU: every variant of `tools/unit_variants.py`
-applies to this tree's sources (exactly one match an edit),
+"""The tools that measure K1's precompile units, the round-witness splice
+and the bit-sliced probes on the card, on the CPU: every variant of
+`tools/unit_variants.py` applies to this tree's sources (exactly one match
+an edit),
 `tools/k1_times.py`'s SASS readers count what they claim on a listing of
 known content, and its splice byte count adds up on a small clock."""
 
@@ -65,6 +66,34 @@ def test_splice_variant_applies_to_this_tree(name, tmp_path):
     assert _variant_edits("splice", name, tmp_path) == want
 
 
+@pytest.mark.parametrize("name", sorted(unit_variants.VARIANTS["bitslice"]))
+def test_bitslice_variant_applies_to_this_tree(name, tmp_path):
+    # the bit-sliced probes' design choices, in probe_keccak.cu alone
+    assert _variant_edits("bitslice", name, tmp_path) == ["probe_keccak.cu"]
+
+
+@pytest.mark.parametrize("name,want", [
+    (None, (4, 8)), ("warps1", (1, 8)), ("warps2", (2, 8)),
+    ("trip2", (4, 2)), ("trip24", (4, 24)), ("minblocks5", (4, 8))])
+def test_bitslice_design_reads_the_tree(name, want, tmp_path):
+    # the warps a block and the rounds a trip as the tree's source (a
+    # variant's edit) has them; none in a tree without the constants
+    tree = ROOT
+    if name is not None:
+        src = tmp_path / "src" / "era_zk_evm_tpu_torch" / "csrc"
+        src.mkdir(parents=True)
+        for path in (ROOT / "era_zk_evm_tpu_torch" / "csrc").iterdir():
+            (src / path.name).write_bytes(path.read_bytes())
+        tree, = unit_variants.make_variants(tmp_path / "src", tmp_path / "out",
+                                            "bitslice", [name])
+    assert k1_times.bitslice_design(tree) == dict(
+        zip(("warps_a_block", "trip"), want))
+    bare = tmp_path / "bare" / "era_zk_evm_tpu_torch" / "csrc"
+    bare.mkdir(parents=True)
+    (bare / "probe_keccak.cu").write_text("constexpr int kP2Warps = 4;\n")
+    assert k1_times.bitslice_design(tmp_path / "bare") == {}
+
+
 @pytest.mark.parametrize("name", sorted(unit_variants.VARIANTS["perm"]))
 def test_perm_variant_applies_to_this_tree(name, tmp_path):
     # the permutation's unrolls, in keccak.cuh alone
@@ -120,6 +149,56 @@ def test_sass_round_divides_a_loop_by_its_rounds():
     assert counts["k3s_kernel"] == (402.0, 250.0, 1)
     assert counts["k2_kernel"] == ((4 * 191 + 1) / 4, 180.0, 4)
     assert counts["units_kernel"] is None
+
+
+def test_bitslice_round_sass_divides_by_the_trip():
+    # P2's loop of two rounds: per round 120 LOP3, 4 SHF, 52 SHFL, 10
+    # MOVs; P5 has no loop of 100 logic instructions; without a trip (a
+    # tree before the warp-a-column design) nothing is read
+    body = (["LOP3.LUT R6, R2, R3, R4, 0x96, !PT"] * 120
+            + ["SHF.R.U32.HI R7, RZ, 0x1, R6"] * 4
+            + ["SHFL.IDX PT, R8, R9, R10, 0x1f"] * 52
+            + ["MOV R8, R9"] * 10) * 2 + ["@P0 BRA `(.L_x_5)"]
+    sass = ("\tFunction : _Z9p2_kernelILb0EEvPjii\n.L_x_5:\n"
+            + "".join(f"        /*{16 * i:04x}*/                   {ins} ;\n"
+                      for i, ins in enumerate(body))
+            + "\tFunction : _Z9p2_kernelILb1EEvPjii\n"
+            "        /*0000*/                   LOP3.LUT R6, R2, R3, R4, "
+            "0x96, !PT ;\n")
+    got = k1_times.bitslice_round_sass(sass, 2)
+    assert got["P2"] == {"all": 186.5, "logic": 124.0, "LOP3": 120.0,
+                         "SHF": 4.0, "SHFL": 52.0, "LDS": 0.0, "STS": 0.0}
+    assert got["P5"] is None
+    assert k1_times.bitslice_round_sass(sass, None) == {"P2": None,
+                                                        "P5": None}
+
+
+def test_load_overlap_reads_loads_in_flight():
+    # P6's loop as cuobjdump lists it: four strong loads, then the sums;
+    # the chain's loop: each load's address from the load before
+    sass = "\n".join([
+        "\tFunction : _Z9p6_kernelPKjS0_Pjiiiii",
+        *(f"        /*{16 * i:04x}*/                   {t} ;" for i, t in
+          enumerate(["LDG.E.STRONG.SYS R13, desc[UR4][R6.64]",
+                     "LDG.E.STRONG.SYS R14, desc[UR4][R6.64]",
+                     "LDG.E.STRONG.SYS R16, desc[UR4][R6.64]",
+                     "LDG.E.STRONG.SYS R15, desc[UR4][R6.64]",
+                     "VIADD R8, R8, 0xfffffffc",
+                     "IADD3 R13, R14, R13, R0",
+                     "IADD3 R0, R15, R16, R13",
+                     "@P2 BRA 0x0"])),
+        "\tFunction : _Z10p6c_kernelPKjS0_Pjii",
+        *(f"        /*{16 * i:04x}*/                   {t} ;" for i, t in
+          enumerate(["IMAD.WIDE.U32 R8, R5, 0x4, R6",
+                     "LDG.E.STRONG.SYS R9, desc[UR4][R8.64]",
+                     "IMAD.WIDE.U32 R10, R9, 0x4, R6",
+                     "LDG.E.STRONG.SYS R5, desc[UR4][R10.64]",
+                     "@P1 BRA 0x0"]))]) + "\n"
+    assert k1_times.load_overlap_sass(sass, "p6_kernel") == {
+        "load_opcodes": ["LDG.E.STRONG.SYS"], "loads_a_trip": 4,
+        "in_flight": 4}
+    assert k1_times.load_overlap_sass(sass, "p6c_kernel")["in_flight"] == 1
+    assert k1_times.load_overlap_sass(None, "p6_kernel") is None
 
 
 def test_splice_bytes_counts_a_small_clock():
