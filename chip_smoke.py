@@ -83,16 +83,19 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 round and P2 at G8 = 4096 over K3 on as many permutations
                 (bench_keccak's 65536 x 2048); P3 8
                 rows, inner 512, iters 65536 on 132 x 2048 columns, with
-                its loop's SASS instructions a step; P4 4096 rounds; P6 W =
-                256, TB = 256, 4096 and 32768, REPS 512, its bound
-                re-derived (its loads' kind and how many are in flight from
-                the SASS, one load's latency from a warp's dependent chain:
-                the larger of the latency floor and the bytes; beside it
-                the same loads to distinct lines), the tool's index
-                and a random one, elements in the tool's batch-last arena
-                and a lane-major one, and whole 256-bit words in the
-                lane-major word arena (8 x 32-bit and 2 x 128-bit loads)
-                and the lane-last one K1 reads; P7 B = 32768, 16 slots,
+                its loop's SASS instructions a step; P4 4096 rounds,
+                beside its serial floor (4096 rounds of K3's N = 1 latency
+                over 24); P6 W = 256, TB = 256, 4096 and 32768, REPS 512,
+                the tool's index and a random one, elements in the tool's
+                batch-last arena and a lane-major one in both modes, and
+                whole 256-bit words in the lane-major word arena (8 x
+                32-bit and 2 x 128-bit loads) and the lane-last one K1
+                reads, each beside its L1 floor (its warp loads' sectors)
+                and its share of it, the split S at each TB, the loops'
+                load opcodes and loads in flight (SASS), an empty launch
+                beside the tool's shape, and the earlier design's latency
+                floor (a warp's chain of dependent strong loads) and
+                line_sum, which bound nothing; P7 B = 32768, 16 slots,
                 every variant);
   K1-wave-segment  the witness wave's first 256-cycle segment, B = 4096,
                 kernel vs plain over the whole batch;
@@ -2092,13 +2095,14 @@ def p7_permutations(flags: torch.Tensor, count: torch.Tensor,
 
 
 def probe_phases(dev, sm_mhz: float, listing: str | None,
-                 k3_same_perms_ms: float) -> dict:
+                 k3_same_perms_ms: float, n1_us: float) -> dict:
     """The tool probes P1-P7: each kernel against its plain version on the
     card; times at the tools' shapes; then the tools' entry points, the
     probes' main path, with the launch counts zeroed just before.
     `listing` is the built library's SASS (cuobjdump; None without it),
     `k3_same_perms_ms` K3's time at bench_keccak's 65536 x 2048, as many
-    permutations as P2 runs at G8 = 4096.  Returns {probe: (launches, max
+    permutations as P2 runs at G8 = 4096, `n1_us` K3's single-thread
+    latency a permutation (P4's serial floor).  Returns {probe: (launches, max
     abs err, ms, plain ms, bound)} for the kernels line."""
     pk, pu, bf = probe_keccak, probe_uniform, bisect_fold
     gen = torch.Generator().manual_seed(21)
@@ -2261,12 +2265,17 @@ def probe_phases(dev, sm_mhz: float, listing: str | None,
     err = check("P4", box["k"], box["p"])
     rows["P4"] = [err, ms, plain_ms, bound_ms(
         2 * P4_TILE * 200, P4_TILE * P4_ITERS * KECCAK_OPS // 24, sm_mhz)]
+    # each thread's P4_ITERS rounds are dependent: at most one round of K3's
+    # single-thread permutation (its N = 1 latency over 24) at a time
+    serial_ms = P4_ITERS * n1_us / 24 / 1e3
     big = rand(P4_COLS, 25, 2)
     big_ms = best_ms(lambda: pk.round_chain(big, P4_ITERS), reps=1)
     big_bound = bound_ms(2 * P4_COLS * 200,
                          P4_COLS * P4_ITERS * KECCAK_OPS // 24, sm_mhz)
     phase("P4", iters=P4_ITERS, tile=P4_TILE, equal=True, ms=round(ms, 3),
           plain_ms=round(plain_ms, 1), bound_ms=round(rows["P4"][3][0], 4),
+          serial_floor_ms=round(serial_ms, 4),
+          share_of_serial_floor=round(serial_ms / ms, 4),
           perm_equiv_per_sec=P4_TILE * P4_ITERS / 24 / (ms / 1e3),
           states_full=P4_COLS, ms_full=round(big_ms, 3),
           bound_ms_full=round(big_bound[0], 3),
@@ -2274,57 +2283,75 @@ def probe_phases(dev, sm_mhz: float, listing: str | None,
     del x, big, box
 
     # -- P6 ----------------------------------------------------------------
-    # the tool's batch-last arena [8, W, TB] and K1's lane-major [TB, 8, W];
-    # bound: the gathered elements, the index and the output once, and one
-    # operation an output (REPS a power of two: the sum is a shift)
+    # the tool's batch-last arena [8, W, TB], K1's lane-major [TB, 8, W] and
+    # K1's word reads, each case against its plain version and beside its
+    # floor: its warp loads' sectors through the card's L1s at 128 bytes a
+    # clock an SM, or its compulsory bytes over device memory's rate
+    # (k1_times.p6_sectors, p6_floor_ms); the kernels line's row is the
+    # batch-last arena at the largest TB, the tool's index, mode 1
     fields, err = {}, 0
     for tb in P6_TBS:
-        bound = bound_ms(4 * 17 * tb, 8 * tb, sm_mhz)
-        fields[f"tb{tb}_bound_ms"] = bound[0]
+        fields[f"tb{tb}_split"] = pu.card_split(tb, dev)
+        fields[f"tb{tb}_words_split"] = pu.card_split(tb, dev, words=True)
         for random_index in (False, True):
+            kind = "random" if random_index else "uniform"
             box = {}
-            for lane_major in (False, True):
-                arena, idx = pu.tool_inputs(P6_W, tb, dev, random_index,
-                                            lane_major)
-                if not lane_major:
+            for layout in ("batch_last", "lane_major") + tuple(pu.WORD_LAYOUTS):
+                words = layout in pu.WORD_LAYOUTS
+                arena, idx = pu.tool_inputs(
+                    P6_W, tb, dev, random_index, layout == "lane_major",
+                    layout if words else None)
+                floor = k1_times.p6_floor_ms(
+                    k1_times.p6_sectors(idx, P6_W, tb, layout), P6_REPS, tb,
+                    sm_mhz)
+                if layout == "batch_last":
                     plain_ms = timed_ms(lambda: box.__setitem__(
                         "p", pu.uniform_gather_plain(arena, idx, P6_REPS)))
-                for mode in (0, 1):
-                    ms = best_ms(lambda: box.__setitem__(
-                        "k", pu.uniform_gather(arena, idx, P6_REPS, mode,
-                                               lane_major)))
-                    tag = (f"tb{tb}_{'lane_major' if lane_major else 'batch_last'}"
-                           f"_{'random' if random_index else 'uniform'}")
-                    err = max(err, check(f"P6 {tag} mode={mode}", box["k"],
-                                         box["p"]))
-                    fields[f"{tag}_mode{mode}_ms"] = ms
-                    if tb == P6_TBS[0] and not random_index \
-                            and not lane_major and mode == 1:
-                        rows["P6"] = [err, ms, plain_ms, bound]
-                del arena, idx
-            # K1's word reads: a whole 256-bit word a lane, in the port's
-            # old lane-major word arena (8 x 32-bit or 2 x 128-bit loads)
-            # and in its lane-last one
-            for layout in pu.WORD_LAYOUTS:
-                arena, idx = pu.tool_inputs(P6_W, tb, dev, random_index,
-                                            word_layout=layout)
-                ms = best_ms(lambda: box.__setitem__(
-                    "k", pu.word_gather(arena, idx, P6_REPS, layout)))
-                tag = f"tb{tb}_{layout}_{'random' if random_index else 'uniform'}"
-                err = max(err, check(f"P6 {tag}", box["k"], box["p"]))
-                fields[f"{tag}_ms"] = ms
+                if words:
+                    runs = {"": lambda: pu.word_gather(arena, idx, P6_REPS,
+                                                       layout)}
+                else:
+                    runs = {f"_mode{m}": lambda m=m: pu.uniform_gather(
+                        arena, idx, P6_REPS, m, layout == "lane_major")
+                        for m in (0, 1)}
+                for suffix, run in runs.items():
+                    ms = best_ms(lambda: box.__setitem__("k", run()))
+                    dev_ms = min(k1_times.held_ms(run) for _ in range(3))
+                    tag = f"tb{tb}_{layout}_{kind}{suffix}"
+                    err = max(err, check(f"P6 {tag}", box["k"], box["p"]))
+                    fields.update({f"{tag}_ms": ms,
+                                   f"{tag}_device_ms": dev_ms,
+                                   f"{tag}_floor_ms": floor,
+                                   f"{tag}_share": floor / dev_ms})
+                    if tb == P6_TBS[-1] and not random_index \
+                            and layout == "batch_last" and suffix == "_mode1":
+                        rows["P6"] = [err, dev_ms, plain_ms,
+                                      (floor, "bytes")]
                 del arena, idx
             del box
-    # its bound, re-derived: the loop's loads are strong (served by L2) and
-    # `in_flight` of them issue before the first is read (the SASS), so a
-    # lane waits at least ceil(REPS / in_flight) times for one load's
-    # latency, from one warp's chain of dependent loads (2 REPS less REPS
-    # loads, over REPS); the bound is the larger of that floor and the
-    # bytes'.  line_sum (P6's launch shape and load count, each load to
-    # another line than the 15 before it) is a comparison, not a bound:
-    # P6's re-reads of one address are served faster than it
-    loads = k1_times.load_overlap_sass(listing, "p6_kernel")
-    in_flight = P6_REPS if loads is None else loads["in_flight"]
+    # the tool's own shape, whose work is shorter than a launch, beside an
+    # empty kernel launched the same way (both timings)
+    empty_ms = best_ms(lambda: pu.empty_launch(dev))
+    empty_dev_ms = min(k1_times.held_ms(lambda: pu.empty_launch(dev))
+                       for _ in range(3))
+    tool = f"tb{P6_TBS[0]}_batch_last_uniform_mode1"
+    fields.update(
+        empty_launch_ms=empty_ms, empty_launch_device_ms=empty_dev_ms,
+        tool_shape_over_empty=fields[f"{tool}_ms"] / empty_ms,
+        tool_shape_device_over_empty=fields[f"{tool}_device_ms"]
+        / empty_dev_ms)
+    for name, fn in (("", "p6_kernel"), ("words_", "p6w_kernel")):
+        loads = k1_times.load_overlap_sass(listing, fn)
+        fields.update({f"{name}{k}": "not measured" if loads is None else
+                       (",".join(loads[k]) if k == "load_opcodes" else loads[k])
+                       for k in ("load_opcodes", "loads_a_trip", "in_flight",
+                                 "instructions_a_trip")})
+    # the earlier design's latency floor, which explains it and bounds
+    # nothing now: its loads were strong (served by L2), 16 issued before
+    # the first was read, so a lane waited at least REPS / 16 times for one
+    # load's latency, from one warp's chain of dependent strong loads (2
+    # REPS less REPS loads, over REPS); line_sum, those loads each to
+    # another line than the 15 before it
     box = {}
     # the chain held against its plain version where each step reads
     # another word, before it is timed on the identity arena
@@ -2344,25 +2371,17 @@ def probe_phases(dev, sm_mhz: float, listing: str | None,
             "k", pu.chain_gather(chain_arena, chain_start, reps)))
         err = max(err, check(f"P6 chain x{reps}", box["k"], chain_start))
     latency_ns = (chain_ms[2 * P6_REPS] - chain_ms[P6_REPS]) / P6_REPS * 1e6
-    floor_ms = math.ceil(P6_REPS / in_flight) * latency_ns / 1e6
-    p6_bound = max((floor_ms, "latency"), rows["P6"][3])
     lines = rand(16 * 8 * P6_W)
     lines_ms = best_ms(lambda: box.__setitem__(
         "k", pu.line_sum(lines, P6_W, 8, P6_REPS)))
     err = max(err, check("P6 lines", box["k"],
                          pu.line_sum_plain(lines, P6_W, 8, P6_REPS)))
     fields.update(
-        load_opcodes="not measured" if loads is None
-        else ",".join(loads["load_opcodes"]),
-        loads_in_flight="not measured" if loads is None else in_flight,
-        l2_latency_ns=round(latency_ns, 2),
+        strong_latency_ns=round(latency_ns, 2),
         chain_ms=round(chain_ms[P6_REPS], 5),
-        latency_floor_ms=round(floor_ms, 5),
-        rederived_bound_ms=round(p6_bound[0], 5),
-        rederived_bound_by=p6_bound[1],
-        share_of_rederived_bound=round(p6_bound[0] / rows["P6"][1], 4),
-        lines_ms=round(lines_ms, 5),
-        p6_over_lines=round(rows["P6"][1] / lines_ms, 4))
+        old_latency_floor_ms=round(math.ceil(P6_REPS / 16) * latency_ns / 1e6,
+                                   5),
+        lines_ms=round(lines_ms, 5))
     del box, lines, chain_arena, chain_start, perm_arena, perm_start
     rows["P6"][0] = err
     phase("P6", w=P6_W, reps=P6_REPS, equal=True, **fields)
@@ -3063,7 +3082,8 @@ def main() -> int:
           **{f"{K3_PLAIN_BENCH}_plain_ms": round(bench_plain_ms, 3)})
 
     # -- the tool probes P1-P7 ------------------------------------------
-    probes = probe_phases(dev, sm_mhz, listing, rates["bench_keccak"][0])
+    probes = probe_phases(dev, sm_mhz, listing, rates["bench_keccak"][0],
+                          n1_us)
 
     # -- the witness wave at full size: the log family's main path ------
     cfg_w = wave_config(B_WAVE)

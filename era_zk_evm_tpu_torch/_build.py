@@ -401,10 +401,10 @@ class UnitsArgs(ctypes.Structure):
 #: the probes' C entries, eravm_<probe>_launch and eravm_<probe>_host: their
 #: arguments ("p" a pointer, "i" an int) before the launchers' stream
 _PROBE_LAUNCH = {"p1": "piiii", "p2": "piii", "p3": "piiii", "p4": "pii",
-                 "p6": "pppiiiii", "p6w": "pppiiii", "p6c": "pppiii",
-                 "p7": "ppiii"}
+                 "p6": "pppiiiiiii", "p6w": "pppiiiiii", "p6c": "pppiii",
+                 "p6_empty": "", "p7": "ppiii"}
 _PROBE_HOST = {"p1": "piii", "p2": "piii", "p2_rho": "p", "p3": "piiii",
-               "p4": "pii", "p6": "pppiiii", "p6w": "pppiiii",
+               "p4": "pii", "p6": "pppiiiiii", "p6w": "pppiiiii",
                "p6c": "pppiii", "p7": "ppiii"}
 
 

@@ -283,25 +283,44 @@ extern "C" int eravm_p4_host(void *states, int n, int iters) {
 }
 
 // P6: out u32[8, TB] from arena u32[8, W, TB] (or u32[TB, 8, W] when
-// lane_major) and idx u32[TB]
+// lane_major) and idx u32[TB], as eravm_p6_launch computes it: each group
+// of 32 lanes a warp (mode 1: lane 0's index where every live lane holds
+// it), its gathers split over S warps and their sums added as the group's
+// first warp adds them from shared memory
 extern "C" int eravm_p6_host(const void *arena, const void *idx, void *out,
-                             int W, int TB, int reps, int lane_major) {
+                             int W, int TB, int reps, int mode,
+                             int lane_major, int S) {
+    const uint32_t *ix = (const uint32_t *)idx;
     for (int k = 0; k < 8; k++)
-        for (int t = 0; t < TB; t++)
-            ((uint32_t *)out)[(uint64_t)k * TB + t] = p6_sum(
-                (const uint32_t *)arena, W, TB, k,
-                ((const uint32_t *)idx)[t], t, reps, lane_major);
+        for (int t0 = 0; t0 < TB; t0 += 32) {
+            const int n = TB - t0 < 32 ? TB - t0 : 32;
+            bool uniform = true;
+            for (int t = t0; t < t0 + n; t++) uniform &= ix[t] == ix[t0];
+            for (int t = t0; t < t0 + n; t++) {
+                const uint32_t i = mode == 1 && uniform ? ix[t0] : ix[t];
+                uint32_t acc = 0;
+                for (int s = 0; s < S && i < (uint32_t)W; s++)
+                    acc += p6_reps((const uint32_t *)arena +
+                                       p6_offset(W, TB, k, i, t, lane_major),
+                                   p6_share(reps, S, s), 0);
+                ((uint32_t *)out)[(uint64_t)k * TB + t] = acc;
+            }
+        }
     return 0;
 }
 
 // P6's word reads: out u32[8, TB] from a word arena (layouts as
-// eravm_p6w_launch)
+// eravm_p6w_launch), the gathers split over S warps as there
 extern "C" int eravm_p6w_host(const void *arena, const void *idx, void *out,
-                              int W, int TB, int reps, int layout) {
+                              int W, int TB, int reps, int layout, int S) {
     for (int t = 0; t < TB; t++) {
-        uint32_t acc[8];
-        p6w_sum((const uint32_t *)arena, W, TB, layout,
-                ((const uint32_t *)idx)[t], t, reps, acc);
+        uint32_t acc[8] = {0}, part[8];
+        for (int s = 0; s < S; s++) {
+            p6w_sum((const uint32_t *)arena, W, TB, layout,
+                    ((const uint32_t *)idx)[t], t, p6_share(reps, S, s), 0,
+                    part);
+            for (int l = 0; l < 8; l++) acc[l] += part[l];
+        }
         for (int l = 0; l < 8; l++) ((uint32_t *)out)[(uint64_t)l * TB + t] = acc[l];
     }
     return 0;

@@ -62,6 +62,18 @@ block-ecrecover through the tree's own `chip_smoke.py` helpers (B = 4096,
 128 permutations beside their operation bound and K3 on the same 134217728
 permutations, checks each against K3, and gives the tree's design, the
 warps an SM holds and the SASS a round (LOP3, SHF, SHFL; `cuobjdump`).
+`uniform` times the uniform-index probe P6 (`tools/probe_uniform`:
+`uniform_gather`, `word_gather`, entry points every tree has) at W = 256,
+REPS = 512 and TB = 256, 4096 and 32768, every layout with the tool's
+index and a random one (elements in both modes), each held against its
+plain version: the CUDA-event time of one call and its device time (the
+call queued while the card is held busy, so the host's launch work is not
+timed), beside its L1 floor (`p6_sectors`, `p6_floor_ms`, counted alike
+for every tree); where the tree's wrapper takes `split`, the
+batch-last and lane-major elements (uniform index, mode 1) and the
+batch-last words again at S = 1, 2, 4, 8 and 16; an empty launch where
+the tree has one; the tree's load design (`uniform_design`) and the SASS
+of P6's loops (`load_overlap_sass`).
 """
 
 from __future__ import annotations
@@ -78,7 +90,7 @@ import sys
 import time
 
 CASES = ("main-b", "a", "log", "precompile", "precompile-ec", "ec", "a4096",
-         "log4096", "units", "keccak", "blocks", "bitslice")
+         "log4096", "units", "keccak", "blocks", "bitslice", "uniform")
 
 #: int32 operations a keccak-f and a sha256 compression (chip_smoke.py's
 #: bounds count the same)
@@ -102,6 +114,17 @@ FOLD_DIGESTS = 8192
 #: BITSLICE_ROUND_OPS); K3 on as many permutations as P2 at G8 = 4096
 BITSLICE_G8, BITSLICE_ITERS, BITSLICE_ROUND_OPS = (128, 4096), 128, 3840
 BITSLICE_K3 = (65536, 2048)
+#: the uniform case: P6 at chip_smoke.py's W, TBs and REPS, and the splits
+#: timed beside each tree's own; P6's floor: the card's SMs, each moving one
+#: 128-byte line (4 sectors of 32 bytes) a clock through its L1
+UNIFORM_W, UNIFORM_TBS, UNIFORM_REPS = 256, (256, 4096, 32768), 512
+UNIFORM_SPLITS = (1, 2, 4, 8, 16)
+#: clocks the card spins ahead of a `held` timing (~1 ms at 1980 MHz)
+HOLD_CYCLES = 2_000_000
+SMS, L1_BYTES_PER_CLOCK, SECTOR = 132, 128, 32
+#: P6's element and word layouts
+P6_LAYOUTS = ("batch_last", "lane_major", "lane_words", "lane_words_v4",
+              "words_batch_last")
 
 
 def splice_bytes(emit, nslots, ps: int, cap: int, blocks0: int) -> int:
@@ -127,6 +150,23 @@ def splice_bytes(emit, nslots, ps: int, cap: int, blocks0: int) -> int:
     rows_written = int(base[-1] + ps - base[0]) * B
     return 2 * emit.numel() * 4 + (rows_read + rows_written) * 13 * 4 \
         + 2 * B * (4 + 4 + 1)
+
+
+def held_ms(fn) -> float:
+    """One call's device time in ms: the card is held busy
+    (`torch.cuda._sleep`, HOLD_CYCLES clocks) while the host queues the
+    call between two CUDA events, so the host's own launch work is not
+    timed."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def ptxas(log: str) -> dict:
@@ -272,12 +312,50 @@ def keccak_round_sass(sass: str | None) -> dict:
     return out
 
 
+def p6_sectors(idx, w: int, tb: int, layout: str) -> int:
+    """The 32-byte sectors that one repetition of P6's gathers touches, in
+    `layout` (P6_LAYOUTS), summed over its warp loads: a warp load is 32
+    consecutive lanes' load of one k (the elements), one limb (the words'
+    32-bit loads) or one 16-byte half of a word (`lane_words_v4`), and
+    touches the distinct sectors of its live lanes (index below `w`)."""
+    import torch
+
+    i = idx.to(torch.int64) & 0xFFFFFFFF
+    live = i < w
+    i = torch.where(live, i, 0)
+    t = torch.arange(tb, dtype=torch.int64, device=idx.device)
+    k = torch.arange(8, dtype=torch.int64, device=idx.device)[:, None]
+    words = {"batch_last": lambda: (k * w + i) * tb + t,
+             "lane_major": lambda: (t * 8 + k) * w + i,
+             "lane_words": lambda: (t * w + i) * 8 + k,
+             "lane_words_v4": lambda: (t * w + i) * 8 + 4 * k[:2],
+             "words_batch_last": lambda: (i * 8 + k) * tb + t}[layout]()
+    sector = torch.where(live, words * 4 // SECTOR, -1)
+    pad = -tb % 32
+    sector = torch.nn.functional.pad(sector, (0, pad), value=-1)
+    sector = sector.view(sector.shape[0], -1, 32).sort(-1).values
+    first = torch.ones_like(sector, dtype=torch.bool)
+    first[..., 1:] = sector[..., 1:] != sector[..., :-1]
+    return int((first & (sector >= 0)).sum())
+
+
+def p6_floor_ms(sectors: int, reps: int, tb: int, sm_mhz: float) -> float:
+    """P6's floor in ms: `reps` repetitions of `sectors` sectors through the
+    card's L1s (SMS of them, each L1_BYTES_PER_CLOCK a clock at `sm_mhz`),
+    or the compulsory bytes over device memory's rate (the 8 gathered words
+    and the index read, the 8 output words written: 17 a lane), whichever
+    is larger."""
+    l1_ms = reps * sectors * SECTOR / (SMS * L1_BYTES_PER_CLOCK * sm_mhz * 1e3)
+    return max(l1_ms, 4 * 17 * tb / HBM_BYTES_PER_MS)
+
+
 def load_overlap_sass(sass: str | None, function: str) -> dict | None:
     """The loop of `function` (a regex of its mangled name) in cuobjdump's
     SASS that holds the most global loads (LDG): their opcodes, how many a
-    trip, and how many issue before the first instruction of the trip that
-    reads a loaded register (the loads a thread has in flight at once);
-    None without cuobjdump or such a loop."""
+    trip, all the trip's instructions, and how many loads issue before the
+    first instruction of the trip that reads a loaded register (the loads
+    a thread has in flight at once); None without cuobjdump or such a
+    loop."""
     m = sass and re.search(rf"Function : \S*{function}\S*\n(.*?)"
                            r"(?=\n\s*Function :|\Z)", sass, re.S)
     if not m:
@@ -305,8 +383,31 @@ def load_overlap_sass(sass: str | None, function: str) -> dict | None:
                 in_flight = len(pending)
                 break
         best = {"load_opcodes": sorted({w[0] for w in loads}),
-                "loads_a_trip": len(loads), "in_flight": in_flight}
+                "loads_a_trip": len(loads), "in_flight": in_flight,
+                "instructions_a_trip": len(body)}
     return best
+
+
+def uniform_design(tree) -> dict:
+    """The load design that `tree`'s csrc/probe_uniform.cu builds P6 with,
+    as a variant tree edits it: the load's PTX (P6_LD_OP), the loads a trip
+    issues before the first is summed (kP6InFlight), whether each load is
+    offset by the kernel argument that the wrapper passes as 0
+    (kP6Offset) and whether the arena tile is staged in shared memory (the
+    `staged` variant's p6s_kernel); {} where the source has none of them (a
+    tree before the weak-load design)."""
+    src = (pathlib.Path(tree) / "era_zk_evm_tpu_torch" / "csrc"
+           / "probe_uniform.cu").read_text()
+    found = {"load": re.search(r'#define P6_LD_OP "([\w.]+)"', src),
+             **{k: re.search(rf"constexpr \w+ {c} = (\w+);", src)
+                for k, c in (("in_flight", "kP6InFlight"),
+                             ("offset", "kP6Offset"))}}
+    if not all(found.values()):
+        return {}
+    design = {k: m.group(1) for k, m in found.items()}
+    design["in_flight"] = int(design["in_flight"])
+    design["staged"] = "p6s_kernel" in src
+    return design
 
 
 def bitslice_design(tree) -> dict:
@@ -647,6 +748,84 @@ def main(argv=None) -> dict:
         res["k3_same_perms_ms"] = best(lambda: keccak.keccak_f1600_(st, iters))
         return res
 
+    def uniform_times() -> dict:
+        """P6 at UNIFORM_TBS: every layout, index and mode as the module
+        docstring says, {case: [ms, device ms, floor ms, floor over device
+        ms]} (the best of `--reps` CUDA-event times of one call, and of
+        `held_ms`'s device times; `equal` false and
+        the case in `unequal` where it differs from the plain version), the
+        splits where the wrapper takes one (`split<S>` cases), the S each
+        TB gets, an empty launch (both times), the design and the loops'
+        SASS."""
+        import inspect
+
+        from era_zk_evm_tpu_torch.tools import probe_uniform as pu
+
+        def best(fn):
+            fn()
+            return min(timed(fn) for _ in range(args.reps))
+
+        def best_held(fn):
+            fn()
+            return min(held_ms(fn) for _ in range(args.reps))
+
+        takes_split = "split" in inspect.signature(
+            pu.uniform_gather).parameters
+        res = {"design": uniform_design(args.tree),
+               "sass": {f: load_overlap_sass(sass, f)
+                        for f in ("p6_kernel", "p6w_kernel")},
+               "cases": {}, "unequal": []}
+        if hasattr(pu, "empty_launch"):
+            res["empty_ms"] = best(lambda: pu.empty_launch(dev))
+            res["empty_device_ms"] = best_held(lambda: pu.empty_launch(dev))
+        for tb in UNIFORM_TBS:
+            if takes_split:
+                res[f"tb{tb}_split"] = pu.card_split(tb, dev)
+                res[f"tb{tb}_words_split"] = pu.card_split(tb, dev, True)
+            for random_index in (False, True):
+                kind = "random" if random_index else "uniform"
+                for layout in P6_LAYOUTS:
+                    words = layout not in ("batch_last", "lane_major")
+                    arena, idx = pu.tool_inputs(
+                        UNIFORM_W, tb, dev, random_index,
+                        layout == "lane_major", layout if words else None)
+                    floor = p6_floor_ms(
+                        p6_sectors(idx, UNIFORM_W, tb, layout),
+                        UNIFORM_REPS, tb, SM_MHZ)
+                    if words:
+                        want = pu.word_gather_plain(arena, idx, UNIFORM_REPS,
+                                                    layout)
+                        runs = {"": lambda s: pu.word_gather(
+                            arena, idx, UNIFORM_REPS, layout,
+                            **({"split": s} if s else {}))}
+                    else:
+                        want = pu.uniform_gather_plain(
+                            arena, idx, UNIFORM_REPS, layout == "lane_major")
+                        runs = {f"_mode{m}": lambda s, m=m: pu.uniform_gather(
+                            arena, idx, UNIFORM_REPS, m,
+                            layout == "lane_major",
+                            **({"split": s} if s else {})) for m in (0, 1)}
+                    splits = [0]
+                    if takes_split and not random_index and layout in (
+                            "batch_last", "lane_major", "words_batch_last"):
+                        splits += list(UNIFORM_SPLITS)
+                    for suffix, run in runs.items():
+                        for s in splits:
+                            if s and suffix == "_mode0":
+                                continue
+                            tag = (f"tb{tb}_{layout}_{kind}{suffix}"
+                                   + (f"_split{s}" if s else ""))
+                            box = {}
+                            ms = best(lambda: box.__setitem__("k", run(s)))
+                            if not torch.equal(box["k"], want):
+                                res["unequal"].append(tag)
+                            dev_ms = best_held(lambda: run(s))
+                            res["cases"][tag] = [ms, dev_ms, floor,
+                                                 floor / dev_ms]
+                    del arena, idx, want
+        res["equal"] = not res["unequal"]
+        return res
+
     def blocks() -> dict:
         """block-precompile and block-ecrecover as the tree's own
         `chip_smoke.py` drives them (its `block_config`, `BLOCK_KNOBS`,
@@ -753,6 +932,10 @@ def main(argv=None) -> dict:
             continue
         if name == "bitslice":
             out[name] = bitslice_times()
+            torch.cuda.empty_cache()
+            continue
+        if name == "uniform":
+            out[name] = uniform_times()
             torch.cuda.empty_cache()
             continue
         if name == "keccak":

@@ -6,19 +6,21 @@ int32[8, TB] = reps x arena[k, idx[t], t] mod 2^32 (0 where idx[t] >= W) for
 arena int32[8, W, TB] (the tool's batch-last layout; int32[TB, 8, W],
 arena[t, k, idx[t]], when `lane_major`) and idx int32[TB], as a sum of
 `reps` gathers: on a CUDA tensor with csrc/probe_uniform.cu (mode 0 a
-per-lane load, mode 1 the warp-uniform fast path), on a CPU tensor with
+per-lane load, mode 1 the warp-uniform fast path; each gather one weak
+load, served by L1 after the first, `split` warps sharing a lane's gathers,
+by default `split_for`'s count), on a CPU tensor with
 `uniform_gather_plain`.  `word_gather(arena, idx, reps, layout)` prices
 K1's own access, a thread reading a whole 256-bit word: the same function
 with the arena in one of `WORD_LAYOUTS` ("lane_words" [TB, W, 8], K1's
 lane-major arenas, read as 8 x 32-bit loads; "lane_words_v4", the same read
 as 2 x 128-bit loads; "words_batch_last" [W, 8, TB]).  `P6_LAUNCHES` counts
-launches of both kernels.  Two measurements stand beside P6
-(`P6C_LAUNCHES`): `chain_gather(arena, start, reps)`, one warp's chain of
-dependent loads, gives one load's latency, and with the loads P6 has in
-flight its latency floor, its bound; `line_sum(arena, n, blocks, reps)`
-times P6's launch shape and load count with each load to another line
-than the 15 before it, a comparison (P6's re-reads of one address are
-served faster) and not a bound.
+launches of both kernels.  Three measurements stand beside P6
+(`P6C_LAUNCHES`): `empty_launch(device)`, an empty kernel launched as P6
+is, what a launch costs alone; and two that explain P6's earlier design
+(strong loads, served by L2) and bound nothing now:
+`chain_gather(arena, start, reps)`, one warp's chain of dependent strong
+loads, gives one such load's latency; `line_sum(arena, n, blocks, reps)`
+sums strong loads with each load to another line than the 15 before it.
 `main(argv)` runs both modes on the tool's arena and index (every lane
 37), checks that they agree, and prints the time a gather (`--sweep` times
 every layout, element and word, at the given TBs):
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import sys
 
@@ -41,6 +44,8 @@ P6_LAUNCHES = 0
 P6C_LAUNCHES = 0
 W, TB, REPS = 256, 256, 512
 INDEX = 37          # the tool's index, every lane alike
+SPLIT_MAX = 16      # the most warps that share a lane group's gathers
+SPLIT_WARPS_PER_SM = 16   # the warps an SM that split_for aims at
 #: the word layouts: (kernel layout id, permutation from the canonical
 #: arena [8, W, TB])
 WORD_LAYOUTS = {"lane_words": (0, (2, 1, 0)), "lane_words_v4": (1, (2, 1, 0)),
@@ -61,10 +66,40 @@ def uniform_gather_plain(arena: torch.Tensor, idx: torch.Tensor,
     return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
 
 
+def split_for(warps: int, sms: int) -> int:
+    """S, the warps that share one lane group's gathers: the smallest power
+    of two up to SPLIT_MAX at which `warps` (the launch's warps at S = 1)
+    times S reach a quarter of the card's resident warps (SPLIT_WARPS_PER_SM
+    an SM of `sms`)."""
+    s = 1
+    while s < SPLIT_MAX and warps * s < SPLIT_WARPS_PER_SM * sms:
+        s *= 2
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def card_split(tb: int, device, words: bool = False) -> int:
+    """`split_for`'s S for P6 (8 warps a lane group of 32, one a k) or its
+    word reads (one) at TB on the card `device`."""
+    return split_for((1 if words else 8) * -(-tb // 32),
+                     _sms(torch.device(device)))
+
+
+def _check_split(split: int) -> None:
+    if not 0 <= split <= SPLIT_MAX:
+        raise ValueError(f"P6: split {split} outside 0 .. {SPLIT_MAX}")
+
+
 def uniform_gather(arena: torch.Tensor, idx: torch.Tensor, reps: int,
-                   mode: int = 0, lane_major: bool = False) -> torch.Tensor:
+                   mode: int = 0, lane_major: bool = False,
+                   split: int = 0) -> torch.Tensor:
     """P6: int32[8, TB] from arena int32[8, W, TB] (int32[TB, 8, W] when
-    `lane_major`) and idx int32[TB]."""
+    `lane_major`) and idx int32[TB]; on the card `split` warps share a
+    lane's gathers (0: `card_split`'s)."""
     global P6_LAUNCHES
     k_dim, tb = (1, arena.shape[0]) if lane_major else (0, arena.shape[-1])
     if arena.dim() != 3 or arena.shape[k_dim] != 8 \
@@ -72,6 +107,7 @@ def uniform_gather(arena: torch.Tensor, idx: torch.Tensor, reps: int,
             or arena.dtype != torch.int32 or idx.dtype != torch.int32:
         raise ValueError(f"P6: arena {arena.dtype}{list(arena.shape)}, idx "
                          f"{idx.dtype}{list(idx.shape)}")
+    _check_split(split)
     if arena.device.type == "cpu":
         return uniform_gather_plain(arena, idx, reps, lane_major)
     if arena.device.type != "cuda":
@@ -84,11 +120,26 @@ def uniform_gather(arena: torch.Tensor, idx: torch.Tensor, reps: int,
     rc = load().eravm_p6_launch(
         ctypes.c_void_p(arena.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), arena.shape[-1 if lane_major else 1],
-        tb, reps, mode, int(lane_major), ctypes.c_void_p(stream))
+        tb, reps, mode, int(lane_major),
+        split or card_split(tb, arena.device), 0, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"P6 launch failed: cudaError {rc}")
     P6_LAUNCHES += 1
     return out
+
+
+def empty_launch(device) -> None:
+    """An empty kernel on `device`'s current stream, launched as P6 is."""
+    global P6C_LAUNCHES
+    from .._build import load
+
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"no empty kernel for device {device}")
+    rc = load().eravm_p6_empty_launch(ctypes.c_void_p(
+        torch.cuda.current_stream(device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"empty launch failed: cudaError {rc}")
+    P6C_LAUNCHES += 1
 
 
 def chain_gather_plain(arena: torch.Tensor, start: torch.Tensor,
@@ -179,9 +230,10 @@ def word_gather_plain(arena: torch.Tensor, idx: torch.Tensor, reps: int,
 
 
 def word_gather(arena: torch.Tensor, idx: torch.Tensor, reps: int,
-                layout: str) -> torch.Tensor:
+                layout: str, split: int = 0) -> torch.Tensor:
     """P6's word reads: int32[8, TB], limb l of word (t, idx[t]) times
-    reps, from a word arena in `layout` (see WORD_LAYOUTS)."""
+    reps, from a word arena in `layout` (see WORD_LAYOUTS); `split` as
+    `uniform_gather`'s."""
     global P6_LAUNCHES
     if layout not in WORD_LAYOUTS or arena.dim() != 3 \
             or _canonical(arena, layout).shape[0] != 8 \
@@ -190,6 +242,7 @@ def word_gather(arena: torch.Tensor, idx: torch.Tensor, reps: int,
         raise ValueError(f"P6 words ({layout}): arena {arena.dtype}"
                          f"{list(arena.shape)}, idx {idx.dtype}"
                          f"{list(idx.shape)}")
+    _check_split(split)
     if arena.device.type == "cpu":
         return word_gather_plain(arena, idx, reps, layout)
     if arena.device.type != "cuda":
@@ -203,6 +256,7 @@ def word_gather(arena: torch.Tensor, idx: torch.Tensor, reps: int,
     rc = load().eravm_p6w_launch(
         ctypes.c_void_p(arena.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), w, tb, reps, WORD_LAYOUTS[layout][0],
+        split or card_split(tb, arena.device, words=True), 0,
         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"P6 word launch failed: cudaError {rc}")

@@ -3,7 +3,8 @@ decomposing the kPrecomp instance's time on the card, and trees with other
 unrolls of keccak.cuh's permutation.
 
     python -m era_zk_evm_tpu_torch.tools.unit_variants --src DIR --out DIR
-        [--design old|new|perm|splice|bitslice] [--variants name,...]
+        [--design old|new|perm|splice|bitslice|uniform]
+        [--variants name,...]
 
 Copies the checkout `--src` (a tree of the repository, e.g. the parent
 commit unpacked with `git archive`) once per variant into `--out/<name>`,
@@ -33,6 +34,20 @@ blocks an SM (`minblocks5`), 1, 2, 4, 6, 12 or 24 rounds a loop trip
 (`tripT`) where it has 8, and P5's D formed at the receiver
 (`p5_d_at_receiver`); these compute right results, timed with
 `k1_times.py --tree T --cases bitslice`, which holds each against K3.
+`--design uniform` prices the uniform-index probe P6
+(csrc/probe_uniform.cu): in place of its weak loads (`ld.global`), weak
+ones through L2 alone (`cg`), strong ones at the CTA's scope (`relaxed`,
+served by L1) or at the system's (`strong`, LDG.E.STRONG.SYS, past L1); 8
+or 32 loads a trip in flight (`inflight8`, `inflight32`) where it has 16;
+every load at the element's own address, without the offset by a kernel
+argument that the wrapper passes as 0 (`same_address`: ptxas then folds
+the weak loads into one; `relaxed_same`, the CTA-scope strong loads at
+one address, which it keeps); and the block's arena tile staged once into shared
+memory by bulk copies, each gather then one `ld.shared` (`staged`, the
+form closest to the TPU kernel's VMEM arena, built on the card only;
+where W <= 256 and TB is a multiple of 32).  These compute right results, timed with `k1_times.py
+--tree T --cases uniform`, which holds each against its plain version;
+the split S is an argument of the launch, which that case times itself.
 """
 
 from __future__ import annotations
@@ -42,6 +57,89 @@ import pathlib
 import shutil
 
 SOURCE = "era_zk_evm_tpu_torch/csrc/cycle_kernel.cu"
+
+#: P6's staged form (the `uniform` design's `staged`): a block of S warps
+#: over one lane group at one k copies the group's arena tile, W x 32
+#: elements, into shared memory once (bulk copies, an mbarrier counting
+#: their bytes), then gathers from it: batch-last [W][32], a uniform
+#: index's 32 lanes on 32 banks; lane-major [32][W], on one bank where W is
+#: a multiple of 32
+P6_STAGED_KERNEL = r"""constexpr int kP6StageW = 256;
+
+__global__ void __launch_bounds__(32 * kP6MaxSplit)
+    p6s_kernel(const uint32_t *arena, const uint32_t *idx, uint32_t *out,
+               int W, int TB, int reps, int mode, int lane_major, int S,
+               uint32_t zero) {
+    __shared__ alignas(128) uint32_t tile[kP6StageW * 32];
+    __shared__ uint32_t part[32 * kP6MaxSplit];
+    __shared__ alignas(8) uint64_t bar;
+    const int lane = threadIdx.x & 31, s = threadIdx.x >> 5;
+    const int t0 = blockIdx.x * 32, t = t0 + lane, k = blockIdx.y;
+    const uint32_t b = (uint32_t)__cvta_generic_to_shared(&bar);
+    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(tile);
+    if (threadIdx.x == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b));
+        asm volatile("fence.mbarrier_init.release.cluster;");
+    }
+    __syncthreads();
+    if (s == 0) {
+        const int rows = lane_major ? 32 : W;
+        const uint32_t row_bytes = lane_major ? 4 * W : 128;
+        if (lane == 0)
+            asm volatile("{ .reg .b64 st; mbarrier.arrive.expect_tx."
+                         "shared::cta.b64 st, [%0], %1; }"
+                         ::"r"(b), "r"(rows * row_bytes) : "memory");
+        __syncwarp();
+        for (int row = lane; row < rows; row += 32) {
+            const uint32_t *src = arena + (lane_major
+                ? ((uint64_t)(t0 + row) * 8 + k) * W
+                : ((uint64_t)k * W + row) * TB + t0);
+            asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+                         "complete_tx::bytes [%0], [%1], %2, [%3];"
+                         ::"r"(dst + row * row_bytes), "l"(src),
+                         "r"(row_bytes), "r"(b) : "memory");
+        }
+    }
+    uint32_t done = 0;
+    while (!done)
+        asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta"
+                     ".b64 p, [%1], 0; selp.u32 %0, 1, 0, p; }"
+                     : "=r"(done) : "r"(b) : "memory");
+    const bool live = t < TB;
+    const uint32_t i = p6_index(live ? idx[t] : 0, live, mode);
+    uint32_t acc = 0;
+    if (live && i < (uint32_t)W) {
+        // as p6_reps: load j of a trip at 4j x zero bytes on, the trip's
+        // address moved on by 4 kP6InFlight x zero (zero = 0)
+        uint32_t a = dst + 4 * (lane_major ? lane * W + i : i * 32 + lane);
+        const int n = p6_share(reps, S, s);
+        int r = 0;
+        for (; r + kP6InFlight <= n; r += kP6InFlight,
+                                     a += 4 * kP6InFlight * zero) {
+            uint32_t v[kP6InFlight];
+#pragma unroll
+            for (int j = 0; j < kP6InFlight; j++)
+                asm volatile("{ .reg .u32 b; mad.lo.u32 b, %1, %2, %3; "
+                             "ld.shared.u32 %0, [b]; }"
+                             : "=r"(v[j]) : "r"(zero), "r"(4 * j), "r"(a));
+#pragma unroll
+            for (int j = 0; j < kP6InFlight; j++) acc += v[j];
+        }
+        for (; r < n; r++, a += 4 * zero) {
+            uint32_t v;
+            asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a));
+            acc += v;
+        }
+    }
+    if (S > 1) {
+        part[threadIdx.x] = acc;
+        __syncthreads();
+        if (s == 0)
+            for (int q = 1; q < S; q++) acc += part[q * 32 + lane];
+    }
+    if (s == 0 && live) out[(uint64_t)k * TB + t] = acc;
+}
+"""
 
 #: variant -> [(old text, new text)] for each design, or (file, old text,
 #: new text) for a file of csrc/ other than cycle_kernel.cu; every old text
@@ -235,6 +333,42 @@ VARIANTS = {
              "                ^ (hs ? p2_from(x, &x.c[2 * ((src % 5 + 1) % 5)], t, k)\n"
              "                      : p2_from(x, &x.c[2 * ((src % 5 + 1) % 5) + 1],\n"
              "                                t, k + 1));")],
+    },
+    "uniform": {
+        **{name: [("probe_uniform.cu", '#define P6_LD_OP "ld.global"\n',
+                   f'#define P6_LD_OP "{op}"\n')]
+           for name, op in (("cg", "ld.global.cg"),
+                            ("relaxed", "ld.relaxed.cta.global"),
+                            ("strong", "ld.volatile.global"))},
+        **{f"inflight{n}": [("probe_uniform.cu",
+                             "constexpr int kP6InFlight = 16;",
+                             f"constexpr int kP6InFlight = {n};")]
+           for n in (8, 32)},
+        "same_address": [("probe_uniform.cu",
+                          "constexpr bool kP6Offset = true;",
+                          "constexpr bool kP6Offset = false;")],
+        "relaxed_same": [("probe_uniform.cu",
+                          '#define P6_LD_OP "ld.global"\n',
+                          '#define P6_LD_OP "ld.relaxed.cta.global"\n'),
+                         ("probe_uniform.cu",
+                          "constexpr bool kP6Offset = true;",
+                          "constexpr bool kP6Offset = false;")],
+        "staged": [
+            ("probe_uniform.cu",
+             "// arena u32[8, W, TB] (lane_major 0) or u32[TB, 8, W] "
+             "(lane_major 1), idx\n",
+             P6_STAGED_KERNEL + "\n// arena u32[8, W, TB] (lane_major 0) or "
+             "u32[TB, 8, W] (lane_major 1), idx\n"),
+            ("probe_uniform.cu",
+             "    p6_shape(TB, S, 8, &grid, &block);\n",
+             "    if (W <= kP6StageW && W % 4 == 0 && TB % 32 == 0) {\n"
+             "        p6s_kernel<<<dim3(TB / 32, 8), 32 * S, 0,\n"
+             "                     (cudaStream_t)stream>>>(\n"
+             "            (const uint32_t *)arena, (const uint32_t *)idx,\n"
+             "            (uint32_t *)out, W, TB, reps, mode, lane_major, S,\n"
+             "            (uint32_t)zero);\n"
+             "        return (int)cudaGetLastError();\n    }\n"
+             "    p6_shape(TB, S, 8, &grid, &block);\n")],
     },
     "perm": {
         **{f"trip{t}": [("keccak.cuh", "constexpr int kKeccakTrip = 4;",

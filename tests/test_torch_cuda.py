@@ -624,6 +624,39 @@ def test_p6_word_reads_match_plain(cuda, random_index, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tb", [77, 1000])
+@pytest.mark.parametrize("reps", [1, 7, 37])
+@pytest.mark.parametrize("split", [1, 3, 4, 8, 16])
+@pytest.mark.parametrize("layout", ["batch_last", "lane_major"]
+                         + sorted(probe_uniform.WORD_LAYOUTS))
+def test_p6_split_matches_plain(cuda, layout, split, reps, tb):
+    # S warps sharing a lane group's gathers, REPS below S and not a
+    # multiple of it, TB not a multiple of 32; an index past the arena;
+    # values near 2^32, so the sums wrap
+    words = layout in probe_uniform.WORD_LAYOUTS
+    arena, idx = probe_uniform.tool_inputs(64, tb, "cpu", True,
+                                           layout == "lane_major",
+                                           layout if words else None)
+    arena = -1 - arena                       # 2^32 - 1, 2^32 - 2, ...
+    idx[7] = 64
+    if words:
+        fn = lambda a, i: probe_uniform.word_gather(  # noqa: E731
+            a, i, reps, layout, split)
+    else:
+        fn = lambda a, i: probe_uniform.uniform_gather(  # noqa: E731
+            a, i, reps, 1, layout == "lane_major", split)
+    _on_card_and_cpu(cuda, fn, (probe_uniform, "P6_LAUNCHES"), arena, idx)
+
+
+@pytest.mark.cuda
+def test_p6_empty_launch_counts(cuda):
+    before = probe_uniform.P6C_LAUNCHES
+    probe_uniform.empty_launch(cuda)
+    torch.cuda.synchronize()
+    assert probe_uniform.P6C_LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["old", "wrapb", "sel", "two"])
 def test_p7_matches_plain(cuda, variant):
     gen = torch.Generator().manual_seed(7)

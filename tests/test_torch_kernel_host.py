@@ -639,7 +639,8 @@ def test_p6_host_build_matches_plain(host, random_index, lane_major):
     idx[5] = 48                                   # past the arena: reads 0
     out = torch.empty((8, 40), dtype=torch.int32)
     assert host.eravm_p6_host(arena.data_ptr(), idx.data_ptr(),
-                              out.data_ptr(), 48, 40, 5, lane_major) == 0
+                              out.data_ptr(), 48, 40, 5, 0, lane_major,
+                              1) == 0
     assert torch.equal(out, probe_uniform.uniform_gather_plain(
         arena, idx, 5, lane_major))
 
@@ -653,9 +654,52 @@ def test_p6_word_host_build_matches_plain(host, random_index, layout):
     out = torch.empty((8, 40), dtype=torch.int32)
     assert host.eravm_p6w_host(arena.data_ptr(), idx.data_ptr(),
                                out.data_ptr(), 48, 40, 5,
-                               probe_uniform.WORD_LAYOUTS[layout][0]) == 0
+                               probe_uniform.WORD_LAYOUTS[layout][0], 1) == 0
     assert torch.equal(out, probe_uniform.word_gather_plain(
         arena, idx, 5, layout))
+
+
+def _p6_split_inputs(lane_major=False, word_layout=None):
+    """P6's arena at W = 48, TB = 40 with values near 2^32 (2^32 - 1,
+    2^32 - 2, ...: the sums wrap) and an index whose first 32 lanes hold
+    the tool's 37 (mode 1's uniform warp) and whose last 8 are random, one
+    past the arena."""
+    arena, idx = probe_uniform.tool_inputs(48, 40, "cpu", True, lane_major,
+                                           word_layout)
+    idx[:32] = probe_uniform.INDEX
+    idx[35] = 48
+    return -1 - arena, idx
+
+
+@pytest.mark.parametrize("lane_major", [False, True])
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("reps", [1, 7, 512])
+@pytest.mark.parametrize("split", [1, 3, 4, 8])
+def test_p6_split_host_build_matches_plain(host, split, reps, mode,
+                                           lane_major):
+    # the gathers of each lane split over S warps, REPS below S and not a
+    # multiple of it, their sums added as the kernel's first warp adds them
+    arena, idx = _p6_split_inputs(lane_major)
+    out = torch.empty((8, 40), dtype=torch.int32)
+    assert host.eravm_p6_host(arena.data_ptr(), idx.data_ptr(),
+                              out.data_ptr(), 48, 40, reps, mode, lane_major,
+                              split) == 0
+    assert torch.equal(out, probe_uniform.uniform_gather_plain(
+        arena, idx, reps, lane_major))
+
+
+@pytest.mark.parametrize("layout", sorted(probe_uniform.WORD_LAYOUTS))
+@pytest.mark.parametrize("reps", [1, 7, 512])
+@pytest.mark.parametrize("split", [1, 3, 4, 8])
+def test_p6_word_split_host_build_matches_plain(host, split, reps, layout):
+    arena, idx = _p6_split_inputs(word_layout=layout)
+    out = torch.empty((8, 40), dtype=torch.int32)
+    assert host.eravm_p6w_host(arena.data_ptr(), idx.data_ptr(),
+                               out.data_ptr(), 48, 40, reps,
+                               probe_uniform.WORD_LAYOUTS[layout][0],
+                               split) == 0
+    assert torch.equal(out, probe_uniform.word_gather_plain(
+        arena, idx, reps, layout))
 
 
 @pytest.mark.parametrize("self_loop", [False, True])

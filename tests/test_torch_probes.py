@@ -12,7 +12,9 @@ version on a CPU tensor.
     returns only a rate), for the three ops;
   * P4 against JAX `ops/keccak._round` iterated with the tool's constant;
   * P6 against the tool's `kernel` in a `pallas_call` in interpret mode,
-    with the arena in the tool's batch-last layout and lane-major;
+    with the arena in the tool's batch-last layout and lane-major; its sums
+    against numpy where they wrap mod 2^32, and the rule that picks its
+    split;
   * P7 against the tool's `build(variant)` with its B and TILE set to 16 and
     `pallas_call` in interpret mode, for every variant;
   * the copies (bit-slice plan, plane converters) against their originals.
@@ -204,6 +206,54 @@ def test_p6_index_past_the_arena_reads_zero():
     idx[3] = 64
     got = probe_uniform.uniform_gather(arena, idx, 3)
     assert not got[:, 3].any() and got[:, 2].equal(3 * arena[:, idx[2], 2])
+
+
+@pytest.mark.parametrize("reps", [1, 7, 512])
+@pytest.mark.parametrize("layout", ["batch_last", "lane_major"]
+                         + sorted(probe_uniform.WORD_LAYOUTS))
+def test_p6_sums_wrap_mod_2_32(layout, reps):
+    """The wrappers (their plain versions on the CPU) against numpy on an
+    arena of values near 2^32, so that the sums of REPS gathers wrap; a
+    random index, one lane's past the arena."""
+    words = layout in probe_uniform.WORD_LAYOUTS
+    rng = np.random.RandomState(18)
+    canon = (2**32 - 1 - rng.randint(0, 1000, size=(8, 40, 24))).astype(
+        np.uint32)
+    idx = rng.randint(0, 40, size=24).astype(np.uint32)
+    idx[3] = 40
+    take = canon[:, np.minimum(idx, 39), np.arange(24)].astype(np.uint64)
+    want = np.where(idx < 40, take * reps % 2**32, 0).astype(np.uint32)
+    perm = (probe_uniform.WORD_LAYOUTS[layout][1] if words
+            else (2, 0, 1) if layout == "lane_major" else (0, 1, 2))
+    arena = _t(canon.transpose(perm))
+    got = (probe_uniform.word_gather(arena, _t(idx), reps, layout) if words
+           else probe_uniform.uniform_gather(arena, _t(idx), reps, 1,
+                                             layout == "lane_major"))
+    assert np.array_equal(_np(got), want)
+
+
+@pytest.mark.parametrize("tb,words,want", [
+    (256, False, 16), (4096, False, 4), (32768, False, 1),
+    (256, True, 16), (4096, True, 16), (32768, True, 4), (1, False, 16)])
+def test_p6_split_fills_a_quarter_of_the_resident_warps(tb, words, want):
+    # the smallest power of two up to 16 whose warps reach 16 an SM of
+    # the H100's 132 (8 warps a lane group of 32 for the elements, one for
+    # the words)
+    warps = (1 if words else 8) * -(-tb // 32)
+    s = probe_uniform.split_for(warps, 132)
+    assert s == want
+    assert s == probe_uniform.SPLIT_MAX or warps * s >= 16 * 132
+    assert s == 1 or warps * s // 2 < 16 * 132
+
+
+def test_p6_split_out_of_range_raises():
+    arena, idx = probe_uniform.tool_inputs(64, 8, "cpu")
+    with pytest.raises(ValueError):
+        probe_uniform.uniform_gather(arena, idx, 3, split=17)
+    words, _ = probe_uniform.tool_inputs(64, 8, "cpu",
+                                         word_layout="lane_words")
+    with pytest.raises(ValueError):
+        probe_uniform.word_gather(words, idx, 3, "lane_words", split=-1)
 
 
 @pytest.mark.parametrize("variant", ["old", "wrapb", "sel", "two"])

@@ -1,9 +1,11 @@
-"""The tools that measure K1's precompile units, the round-witness splice
-and the bit-sliced probes on the card, on the CPU: every variant of
+"""The tools that measure K1's precompile units, the round-witness splice,
+the bit-sliced probes and the uniform-index probe P6 on the card, on the
+CPU: every variant of
 `tools/unit_variants.py` applies to this tree's sources (exactly one match
 an edit),
 `tools/k1_times.py`'s SASS readers count what they claim on a listing of
-known content, and its splice byte count adds up on a small clock."""
+known content, its splice byte count adds up on a small clock, and P6's
+sector count and floor do on known indices."""
 
 import pathlib
 
@@ -196,9 +198,110 @@ def test_load_overlap_reads_loads_in_flight():
                      "@P1 BRA 0x0"]))]) + "\n"
     assert k1_times.load_overlap_sass(sass, "p6_kernel") == {
         "load_opcodes": ["LDG.E.STRONG.SYS"], "loads_a_trip": 4,
-        "in_flight": 4}
+        "in_flight": 4, "instructions_a_trip": 8}
     assert k1_times.load_overlap_sass(sass, "p6c_kernel")["in_flight"] == 1
     assert k1_times.load_overlap_sass(None, "p6_kernel") is None
+
+
+def test_load_overlap_reads_weak_loads():
+    # the weak-load design's loop: each of 16 loads' address formed by one
+    # IMAD.WIDE from its opaque offset, the 16 weak LDG.E issued before the
+    # first sum, then the base moved on by the trip's step
+    body = []
+    for j in range(16):
+        body += [f"IMAD.WIDE.U32 R{40 + 2 * j}, R{20 + j}, 0x4, R2",
+                 f"LDG.E R{4 + j}, desc[UR4][R{40 + 2 * j}.64]"]
+    body += [f"IADD3 R0, R{4 + 2 * j}, R{5 + 2 * j}, R0" for j in range(8)]
+    body += ["IADD3 R2, P0, R2, R3, RZ", "IADD3.X R3, RZ, R3, RZ, P0, !PT",
+             "@P1 BRA 0x0"]
+    sass = "\n".join(
+        ["\tFunction : _Z9p6_kernelPKjS0_Pjiiiiij"]
+        + [f"        /*{16 * i:04x}*/                   {t} ;"
+           for i, t in enumerate(body)]) + "\n"
+    assert k1_times.load_overlap_sass(sass, "p6_kernel") == {
+        "load_opcodes": ["LDG.E"], "loads_a_trip": 16, "in_flight": 16,
+        "instructions_a_trip": 43}
+
+
+@pytest.mark.parametrize("name", sorted(unit_variants.VARIANTS["uniform"]))
+def test_uniform_variant_applies_to_this_tree(name, tmp_path):
+    # P6's design choices, in probe_uniform.cu alone
+    assert _variant_edits("uniform", name, tmp_path) == ["probe_uniform.cu"]
+
+
+@pytest.mark.parametrize("name,want", [
+    (None, ("ld.global", 16, "true", False)),
+    ("strong", ("ld.volatile.global", 16, "true", False)),
+    ("relaxed_same", ("ld.relaxed.cta.global", 16, "false", False)),
+    ("inflight8", ("ld.global", 8, "true", False)),
+    ("same_address", ("ld.global", 16, "false", False)),
+    ("staged", ("ld.global", 16, "true", True))])
+def test_uniform_design_reads_the_tree(name, want, tmp_path):
+    # the load design as the tree's source (a variant's edit) has it; none
+    # in a tree before the weak-load design
+    tree = ROOT
+    if name is not None:
+        src = tmp_path / "src" / "era_zk_evm_tpu_torch" / "csrc"
+        src.mkdir(parents=True)
+        for path in (ROOT / "era_zk_evm_tpu_torch" / "csrc").iterdir():
+            (src / path.name).write_bytes(path.read_bytes())
+        tree, = unit_variants.make_variants(tmp_path / "src", tmp_path / "out",
+                                            "uniform", [name])
+    assert k1_times.uniform_design(tree) == dict(
+        zip(("load", "in_flight", "offset", "staged"), want))
+    bare = tmp_path / "bare" / "era_zk_evm_tpu_torch" / "csrc"
+    bare.mkdir(parents=True)
+    (bare / "probe_uniform.cu").write_text("constexpr int kP6InFlight = 16;\n")
+    assert k1_times.uniform_design(tmp_path / "bare") == {}
+
+
+def test_p6_sectors_count_each_warp_load():
+    import torch
+
+    # 40 lanes: a warp of 32 and one of 8; W = 64, TB = 40
+    uniform = torch.full((40,), 5, dtype=torch.int32)
+    # batch-last, one index: a warp's 32 words are 128 contiguous bytes
+    # (4 sectors, less where the row's start is not 32-byte aligned), the
+    # 8 lanes' one sector or two; 8 k
+    rows = [((k * 64 + 5) * 40 * 4) for k in range(8)]
+    want = sum(len({(r + 4 * t) // 32 for t in range(0, 32)})
+               + len({(r + 4 * t) // 32 for t in range(32, 40)})
+               for r in rows)
+    assert k1_times.p6_sectors(uniform, 64, 40, "batch_last") == want
+    # lane-major: lanes 8 x 64 words apart, a sector a lane
+    assert k1_times.p6_sectors(uniform, 64, 40, "lane_major") == 8 * 40
+    # K1's lane-major words: 8 limb loads of a sector a lane; as v4, 2
+    assert k1_times.p6_sectors(uniform, 64, 40, "lane_words") == 8 * 40
+    assert k1_times.p6_sectors(uniform, 64, 40, "lane_words_v4") == 2 * 40
+    # an index past the arena loads nothing
+    dead = uniform.clone()
+    dead[32:] = 64
+    assert k1_times.p6_sectors(dead, 64, 40, "lane_major") == 8 * 32
+
+
+def test_p6_floor_at_the_tools_shapes():
+    import torch
+
+    # TB = 32768, the tool's index, batch-last: one line a warp load, 8 x
+    # 1024 warp loads a repetition, 512 repetitions through 132 L1s at 128
+    # bytes a clock, 1980 MHz: 16.05 us; a sector a lane: 8 x that
+    idx = torch.full((32768,), 37, dtype=torch.int32)
+    line = k1_times.p6_sectors(idx, 256, 32768, "batch_last")
+    assert line == 8 * 1024 * 4
+    assert k1_times.p6_floor_ms(line, 512, 32768, 1980) \
+        == pytest.approx(0.016047, rel=1e-3)
+    scattered = k1_times.p6_sectors(idx, 256, 32768, "lane_major")
+    assert scattered == 8 * line
+    assert k1_times.p6_floor_ms(scattered, 512, 32768, 1980) \
+        == pytest.approx(0.12838, rel=1e-3)
+    # TB = 256: 0.125 us, above the compulsory bytes' 0.0052 us
+    small = torch.full((256,), 37, dtype=torch.int32)
+    assert k1_times.p6_floor_ms(k1_times.p6_sectors(
+        small, 256, 256, "batch_last"), 512, 256, 1980) \
+        == pytest.approx(1.254e-4, rel=1e-3)
+    # one repetition: the compulsory bytes, 17 words a lane, set it
+    assert k1_times.p6_floor_ms(line, 1, 32768, 1980) \
+        == pytest.approx(4 * 17 * 32768 / 3.35e9)
 
 
 def test_splice_bytes_counts_a_small_clock():
