@@ -20,6 +20,19 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 what they need) at 96 lanes through K1, every field equal
                 to the plain engine on the CPU, and their lane_error;
   K1            WORKLOAD at B = 32768, one 128-cycle call, kernel vs plain;
+  K1-ablate     K1's development hooks (models/fused_cycle.py: DEBUG_SKIP,
+                DEBUG_STAGE; dev-only, their results wrong by design):
+                two hooked builds of K1, compiled beside the main build,
+                DEBUG_SKIP = {stack_rw, heap_rw} (a perfect cache's
+                bound) and DEBUG_STAGE = 7 (the last cut before the
+                cycle's first store), each timed on WORKLOAD at
+                B = 32768 for 128 cycles beside the default K1 in the same
+                phase, with their ptxas lines; checks: the stage-cut launch
+                leaves every field but timestamp as the entry state had it
+                (global_step advanced by the chunk), the skip build equals
+                the default K1 on a program that touches neither arena
+                (ablate_fused.PROG_ALU), and a default launch after both
+                still equals its plain version;
   K1-b / K2     mode (b) at B = 32768: a second 128-cycle K1 chunk alone,
                 timed, against the plain engine (every field, and K1's
                 compacted records against the plain compaction of the
@@ -284,7 +297,7 @@ from era_zk_evm_tpu_torch.testing.programs import (
 from era_zk_evm_tpu_torch.testing.wave import run_wave, wave_commitments
 from era_zk_evm_tpu_torch.tools.k1_times import splice_bytes
 from era_zk_evm_tpu_torch.tools import (
-    bisect_fold, k1_times, probe_keccak, probe_uniform,
+    ablate_fused, bisect_fold, k1_times, probe_keccak, probe_uniform,
 )
 from era_zk_evm_tpu_torch.witness import packed, sorted_queue
 from era_zk_evm_tpu_torch.witness.commitment import (
@@ -320,6 +333,9 @@ INT32_LANES = 132 * 64                        # SMs x int32 lanes per SM
 #: and decoding an instruction and the 256-bit add and sub every cycle
 #: computes take more than this
 K1_MIN_OPS = 64
+#: K1-ablate's hooked builds: a perfect stack / heap cache, and the cut
+#: after stage 7 (far call, flags, dst), the last before the first store
+ABLATE_SKIP, ABLATE_STAGE = frozenset({"stack_rw", "heap_rw"}), 7
 #: int32 operations of one keccak-f[1600], counting 3-input logic ops as
 #: one: per round theta 80 (column parities 20, their rotations 10, the
 #: update folded into one 3-input XOR per word 50), rho 48, chi 50, iota 2
@@ -2439,6 +2455,62 @@ def probe_phases(dev, sm_mhz: float, listing: str | None,
     return {p: [launches[p]] + rows[p] for p in PROBE_COUNTS}
 
 
+def ablate_phase(config: VmConfig, entry, flags: list, build_s: float):
+    """K1-ablate: the default K1, the perfect-cache build (ABLATE_SKIP) and
+    the stage cut (ABLATE_STAGE) on WORKLOAD, each the best of 3 calls on a
+    fresh copy of the entry state after a warm one; then the checks."""
+    t_phase = time.perf_counter()
+    variants = {"default": {}, "skip_stack_heap": {"skip": ABLATE_SKIP},
+                f"stage{ABLATE_STAGE}": {"stage": ABLATE_STAGE}}
+    fields, states = {}, {}
+    for (name, kw), f in zip(variants.items(), [()] + flags):
+        with fused_cycle.k1_hooks(**kw):
+            warm = clone_state(entry)
+            fused_cycle.cycle_chunk(warm, config, K)          # loads
+            del warm
+            times = []
+            for _ in range(3):
+                st = clone_state(entry)
+                times.append(timed_ms(
+                    lambda: fused_cycle.cycle_chunk(st, config, K)))
+                states[name] = st
+        fields[f"ms_{name}"] = round(min(times), 4)
+        fields[f"ptxas_{name}"] = repr(ablate_fused.ptxas_text(
+            ablate_fused.ptxas_line(config, tuple(f))))
+    # the cut leaves the lanes as they entered but for timestamp; the
+    # chunk advances global_step, as the JAX body does on a cut
+    want = state_tensors(entry)
+    want["global_step"] = want["global_step"] + K
+    got = state_tensors(states.pop(f"stage{ABLATE_STAGE}"))
+    moved = [k for k in want if not torch.equal(got[k], want[k])]
+    if moved not in ([], ["timestamp"]):
+        raise AssertionError(f"K1-ablate: the stage-{ABLATE_STAGE} cut "
+                             f"changed {moved}")
+    del states, got, want
+    # the perfect cache changes nothing where no arena is touched
+    alu = make_entry_state(
+        config, [assemble(ablate_fused.PROG_ALU)] * config.batch,
+        ergs=FULL_ERGS, device=entry.done.device)
+    default, skipped = clone_state(alu), clone_state(alu)
+    fused_cycle.cycle_chunk(default, config, K)
+    with fused_cycle.k1_hooks(skip=ABLATE_SKIP):
+        fused_cycle.cycle_chunk(skipped, config, K)
+    require_equal("K1-ablate skip build, PROG_ALU", state_tensors(skipped),
+                  state_tensors(default))
+    del alu, default, skipped
+    # and the default K1 after both, against its plain version
+    ks, ps = clone_state(entry), clone_state(entry)
+    fused_cycle.cycle_chunk(ks, config, K)
+    batched_vm.run_cycles(ps, config, K)
+    require_equal("K1-ablate default after the hooks", state_tensors(ks),
+                  state_tensors(ps))
+    del ks, ps
+    torch.cuda.empty_cache()
+    phase("K1-ablate", **card_fields(t_phase), batch=config.batch, cycles=K,
+          equal=True, skip=",".join(sorted(ABLATE_SKIP)), stage=ABLATE_STAGE,
+          build_s=round(build_s, 1), **fields)
+
+
 def main() -> int:
     t_start = time.time()
     # -- device --------------------------------------------------------
@@ -2466,6 +2538,22 @@ def main() -> int:
 
     oracle_thread = threading.Thread(target=build_oracle)
     oracle_thread.start()
+    # K1-ablate's two hooked builds, beside the main build: no timed phase
+    # runs while they compile
+    ablate_flags = [ablate_fused.hook_flags(ABLATE_SKIP),
+                    ablate_fused.hook_flags(stage=ABLATE_STAGE)]
+    ablate_build = {}
+
+    def build_ablate():
+        t = time.perf_counter()
+        try:
+            _build.build_hooked([list(f) for f in ablate_flags])
+        except Exception as exc:       # raised on the main thread below
+            ablate_build["error"] = exc
+        ablate_build["seconds"] = time.perf_counter() - t
+
+    ablate_thread = threading.Thread(target=build_ablate)
+    ablate_thread.start()
     t0 = time.time()
     lib_path = _build.build()
     _build.load()
@@ -2483,6 +2571,9 @@ def main() -> int:
     phase("build", seconds=round(time.time() - t0, 2),
           lib=lib_path.parent.name, ptxas=" | ".join(regs), sms=sms,
           k1_threads=threads, ptxas_kernels=json.dumps(named))
+    ablate_thread.join()
+    if "error" in ablate_build:
+        raise ablate_build["error"]
     t0 = time.time()
     oracle_thread.join()
     if "error" in oracle:
@@ -2530,6 +2621,7 @@ def main() -> int:
           plain_ms=round(k1_plain_ms, 3), bound_ms=round(k1_bound[0], 3),
           bound_by=k1_bound[1], bound_bytes=k1_nbytes)
     del ks, ps
+    ablate_phase(cfg_a, entry_a, ablate_flags, ablate_build["seconds"])
 
     # -- K1 in mode (b) and K2 against plain ----------------------------
     cfg_b = bench_config(B_FULL, rolling=True)

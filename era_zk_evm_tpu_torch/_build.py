@@ -9,7 +9,10 @@ The shared library goes to
 `era_zk_evm_tpu_torch/_build/<kind>-<hash>/`, keyed by a hash of the
 sources, the flags and the generated header; a build or load failure
 raises.  nvcc compiles each source into an object file, all at once in
-parallel, then links them.  `build_host()` compiles the same per-lane bodies with g++ for
+parallel, then links them.  `build_hooked()` builds K1 alone with its
+development hooks (models/fused_cycle.py: DEBUG_SKIP, DEBUG_STAGE,
+DEBUG_PASSTHROUGH) as -D flags, a library for each set, for timing only.
+`build_host()` compiles the same per-lane bodies with g++ for
 checking them on a machine without CUDA; no runtime path uses it.
 
 Nothing here runs at import time: `load()` builds on first use.
@@ -33,10 +36,11 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HOST_FLAGS = ["-std=c++17", "-O1", "-fPIC"]
-SOURCES = ("cycle_kernel.cu", "cycle_kernel_ec.cu", "rolling_fold.cu",
-           "keccak_f.cu", "keccak_sponge.cu", "probe_keccak.cu",
-           "probe_rate.cu", "probe_uniform.cu", "bisect_fold.cu",
-           "pq_splice.cu")
+#: K1's sources: its instances, and the ecrecover instance's own
+K1_SOURCES = ("cycle_kernel.cu", "cycle_kernel_ec.cu")
+SOURCES = K1_SOURCES + (
+    "rolling_fold.cu", "keccak_f.cu", "keccak_sponge.cu", "probe_keccak.cu",
+    "probe_rate.cu", "probe_uniform.cu", "bisect_fold.cu", "pq_splice.cu")
 
 
 def generate_header() -> str:
@@ -49,6 +53,7 @@ def generate_header() -> str:
         ShiftOp, UMAOp, decode_consts,
     )
     from .isa.abi import PrecompileCallABI
+    from .models.fused_cycle import K1_PASSTHROUGH_BITS, K1_SKIP_BITS
     from .ops import secp256k1 as secp
     from .ops.keccak import KECCAK_RC, KECCAK_ROTATIONS
     from .ops.sha256 import SHA256_IV, SHA256_K
@@ -103,6 +108,11 @@ def generate_header() -> str:
     define("NF", len(CS_SCALAR_FIELDS))
     for i, name in enumerate(CS_SCALAR_FIELDS):
         define(f"CS_{name.upper()}", i)
+    # K1's development hooks' bits (models/fused_cycle.py)
+    for prefix, bits in (("K1_SKIP", K1_SKIP_BITS),
+                         ("K1_PASS", K1_PASSTHROUGH_BITS)):
+        for name, bit in bits.items():
+            define(f"{prefix}_{name.upper()}", bit)
     out.append("")
     for name, arr in decode_consts().items():
         vals = ", ".join(f"{int(v)}u" for v in arr)
@@ -286,20 +296,20 @@ def _key(header: str, flags: list[str]) -> str:
 
 
 _LIB = None
-_HOST_LIB = None
+_HOST_LIBS = {}
+_HOOKED_LIBS = {}
 
 
-def _compile(kind: str, compiler: str, flags: list[str],
-             sources: tuple[str, ...], lib_name: str) -> pathlib.Path:
-    """Compile `sources` into `_build/<kind>-<hash>/<lib_name>` once per
-    source hash: one compiler process per source, all started together, then
-    one link.  The compilers' output goes beside it in `build.log`; raise on
-    failure."""
+def _start(kind: str, compiler: str, flags: list[str],
+           sources: tuple[str, ...], lib_name: str):
+    """Start compiling `sources` into `_build/<kind>-<hash>/<lib_name>`, one
+    compiler process per source, unless that library exists; `_finish`
+    waits, links and returns its path."""
     header = generate_header()
     out_dir = BUILD_ROOT / f"{kind}-{_key(header, flags)}"
     lib = out_dir / lib_name
     if lib.exists():
-        return lib
+        return lib, None
     BUILD_ROOT.mkdir(exist_ok=True)
     # build in a private directory, then rename: a concurrent or interrupted
     # build never leaves a half-written library under the final name
@@ -311,6 +321,17 @@ def _compile(kind: str, compiler: str, flags: list[str],
          "-o", str(obj), str(CSRC / src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src, obj in zip(sources, objects)]
+    return lib, (compiler, sources, tmp, objects, procs)
+
+
+def _finish(lib: pathlib.Path, job) -> pathlib.Path:
+    """Wait for `_start`'s compilers, link, and move the library to its
+    directory; the compilers' output goes beside it in `build.log`; raise
+    on failure."""
+    if job is None:
+        return lib
+    compiler, sources, tmp, objects, procs = job
+    out_dir, lib_name = lib.parent, lib.name
     outputs = [proc.communicate()[0] for proc in procs]
     log = "".join(outputs)
     failed = [src for src, proc in zip(sources, procs) if proc.returncode]
@@ -333,20 +354,57 @@ def _compile(kind: str, compiler: str, flags: list[str],
     return lib
 
 
-def build() -> pathlib.Path:
-    """Compile the CUDA kernels with nvcc; return the library path."""
+def _compile(kind: str, compiler: str, flags: list[str],
+             sources: tuple[str, ...], lib_name: str) -> pathlib.Path:
+    """Compile `sources` into `_build/<kind>-<hash>/<lib_name>` once per
+    source hash: one compiler process per source, all started together, then
+    one link (`_start`, `_finish`)."""
+    return _finish(*_start(kind, compiler, flags, sources, lib_name))
+
+
+def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
                            "toolkit")
-    return _compile("cuda", nvcc, NVCC_FLAGS, SOURCES, "liberavm_kernels.so")
+    return nvcc
 
 
-def build_host() -> pathlib.Path:
+def build() -> pathlib.Path:
+    """Compile the CUDA kernels with nvcc; return the library path."""
+    return _compile("cuda", _nvcc(), NVCC_FLAGS, SOURCES,
+                    "liberavm_kernels.so")
+
+
+def build_hooked(variants: list[list[str]]) -> list[pathlib.Path]:
+    """K1's hooked libraries (dev-only), one for each list of -D flags
+    (`models/fused_cycle.k1_hook_flags`), from K1's sources alone: every
+    variant's nvcc processes started together, so that a group of variants
+    costs about one build's time; each library in `_build/k1hook-<hash>/`,
+    keyed by its flags."""
+    nvcc = _nvcc()
+    jobs = [_start("k1hook", nvcc, NVCC_FLAGS + list(flags), K1_SOURCES,
+                   "liberavm_k1.so") for flags in variants]
+    # wait for every variant's compilers before raising a failure
+    paths, errors = [], []
+    for job in jobs:
+        try:
+            paths.append(_finish(*job))
+        except RuntimeError as exc:
+            errors.append(exc)
+    if errors:
+        raise errors[0]
+    return paths
+
+
+def build_host(hooks: bool = False) -> pathlib.Path:
     """Compile the kernels' per-lane bodies with the host C++ compiler, for
-    checking their logic without a card (csrc/host_entry.cpp)."""
-    return _compile("host", "g++", HOST_FLAGS, ("host_entry.cpp",),
-                    "liberavm_kernels_host.so")
+    checking their logic without a card (csrc/host_entry.cpp); with
+    `hooks`, K1's development hooks set at run time
+    (`eravm_k1_hooks_host`)."""
+    return _compile("host", "g++",
+                    HOST_FLAGS + ["-DK1_HOOKS_HOST"] * hooks,
+                    ("host_entry.cpp",), "liberavm_kernels_host.so")
 
 
 class K1Args(ctypes.Structure):
@@ -416,17 +474,32 @@ def _bind_probes(lib: ctypes.CDLL, kind: str, specs: dict) -> None:
         fn.restype = ctypes.c_int
 
 
+def _bind_k1(lib: ctypes.CDLL) -> None:
+    lib.eravm_k1_launch.argtypes = [ctypes.POINTER(K1Args), ctypes.c_int,
+                                    ctypes.c_void_p]
+    lib.eravm_k1_launch.restype = ctypes.c_int
+    lib.eravm_k1_threads.argtypes = [ctypes.c_int]
+    lib.eravm_k1_threads.restype = ctypes.c_int
+
+
+def load_hooked(flags: list[str]) -> ctypes.CDLL:
+    """Build if needed and load K1's hooked library for these -D flags
+    (`build_hooked`; once per process and flags)."""
+    key = tuple(flags)
+    if key not in _HOOKED_LIBS:
+        lib = ctypes.CDLL(str(build_hooked([list(flags)])[0]))
+        _bind_k1(lib)
+        _HOOKED_LIBS[key] = lib
+    return _HOOKED_LIBS[key]
+
+
 def load() -> ctypes.CDLL:
     """Build if needed and load the CUDA kernels' library (once per
     process)."""
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        lib.eravm_k1_launch.argtypes = [ctypes.POINTER(K1Args),
-                                        ctypes.c_int, ctypes.c_void_p]
-        lib.eravm_k1_launch.restype = ctypes.c_int
-        lib.eravm_k1_threads.argtypes = [ctypes.c_int]
-        lib.eravm_k1_threads.restype = ctypes.c_int
+        _bind_k1(lib)
         lib.eravm_k2_launch.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.eravm_k2_launch.restype = ctypes.c_int
@@ -456,11 +529,12 @@ def load() -> ctypes.CDLL:
     return _LIB
 
 
-def load_host() -> ctypes.CDLL:
-    """Build if needed and load the host build (once per process)."""
-    global _HOST_LIB
-    if _HOST_LIB is None:
-        lib = ctypes.CDLL(str(build_host()))
+def load_host(hooks: bool = False) -> ctypes.CDLL:
+    """Build if needed and load the host build (once per process), with
+    `hooks` the one whose K1 hooks `eravm_k1_hooks_host(skip, stage, pass)`
+    sets."""
+    if hooks not in _HOST_LIBS:
+        lib = ctypes.CDLL(str(build_host(hooks)))
         lib.eravm_k1_host.argtypes = [ctypes.POINTER(K1Args), ctypes.c_int]
         lib.eravm_k1_host.restype = ctypes.c_int
         lib.eravm_k2_host.argtypes = [ctypes.c_void_p] * 6 + [
@@ -490,5 +564,9 @@ def load_host() -> ctypes.CDLL:
         lib.eravm_pq_splice_scratch.argtypes = [ctypes.c_int] * 3
         lib.eravm_pq_splice_scratch.restype = ctypes.c_int
         _bind_probes(lib, "host", _PROBE_HOST)
-        _HOST_LIB = lib
-    return _HOST_LIB
+        if hooks:
+            lib.eravm_k1_hooks_host.argtypes = [ctypes.c_uint, ctypes.c_int,
+                                                ctypes.c_uint]
+            lib.eravm_k1_hooks_host.restype = ctypes.c_int
+        _HOST_LIBS[hooks] = lib
+    return _HOST_LIBS[hooks]

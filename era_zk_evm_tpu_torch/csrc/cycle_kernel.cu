@@ -116,6 +116,84 @@
 #include "sha256.cuh"
 #include "u256.cuh"
 
+// Development hooks, dev-only (the JAX kernel's DEBUG_SKIP, DEBUG_STAGE and
+// DEBUG_PASSTHROUGH, fused_cycle.py:527-544, with their names and
+// semantics; models/fused_cycle.py sets them and maps their names to the
+// K1_SKIP_* / K1_PASS_* bits of eravm_gen.h).  A hooked launch computes
+// wrong results by design and serves timing alone (tools/ablate_fused.py).
+// On the card each hook is a compile-time constant (-D K1_DEBUG_SKIP=mask,
+// K1_DEBUG_STAGE=n, K1_DEBUG_PASSTHROUGH=mask), in a library of its own;
+// the host build with K1_HOOKS_HOST reads them from globals that
+// eravm_k1_hooks_host sets, so that one g++ build checks every hook.
+// Without any of them (K1_HOOKS 0, the default build) each hook site below
+// expands to the unhooked code, so the default build's SASS is the
+// unhooked kernel's.
+#if defined(K1_HOOKS_HOST) || defined(K1_DEBUG_SKIP) || \
+    defined(K1_DEBUG_STAGE) || defined(K1_DEBUG_PASSTHROUGH)
+#define K1_HOOKS 1
+#else
+#define K1_HOOKS 0
+#endif
+#ifdef K1_HOOKS_HOST
+static uint32_t k1_hook_skip = 0u, k1_hook_pass = 0u;
+static int k1_hook_stage = -1;
+#define K1_DEBUG_SKIP k1_hook_skip
+#define K1_DEBUG_STAGE k1_hook_stage
+#define K1_DEBUG_PASSTHROUGH k1_hook_pass
+#else
+#ifndef K1_DEBUG_SKIP
+#define K1_DEBUG_SKIP 0u
+#endif
+#ifndef K1_DEBUG_STAGE
+#define K1_DEBUG_STAGE (-1)
+#endif
+#ifndef K1_DEBUG_PASSTHROUGH
+#define K1_DEBUG_PASSTHROUGH 0u
+#endif
+#endif
+// DEBUG_SKIP: "mul", "div", "shift" and "uma_shift" replace their unit's
+// outputs (uma_shift: read w0, write src1 to both words, as JAX); stack_rw
+// and heap_rw force the stack and the heap / aux-heap reads and stores off
+// (a perfect cache's bound); stack_rw_rt and stack_st_rt make the stack
+// read's and the stack store's condition false at run time (k1_rt_false)
+// with the code kept; stack_st_off removes the stack store.
+#define K1_SKIP(bit) ((K1_DEBUG_SKIP & (bit)) != 0u)
+// DEBUG_PASSTHROUGH: "mem" turns the stack, heap and aux-heap stores and the
+// callstack's push stores off; a lane field named there keeps its carried
+// value each cycle (k1_passthrough; regs and reg_ptr: no register write).
+#define K1_PASS(bit) ((K1_DEBUG_PASSTHROUGH & (bit)) != 0u)
+// DEBUG_STAGE: lane_cycle's K1_CUT points, below.
+#define K1_STAGED (K1_DEBUG_STAGE >= 0)
+
+// the hook sites: each takes the unhooked code's condition or value
+#if K1_HOOKS
+#define K1_IF_UNIT(cond, bit) ((cond) && !K1_SKIP(bit))
+#define K1_IF_HEAP_READ(cond) ((cond) && !K1_SKIP(K1_SKIP_HEAP_RW))
+#define K1_IF_HEAP_STORE(cond) \
+    ((cond) && !K1_SKIP(K1_SKIP_HEAP_RW) && !K1_PASS(K1_PASS_MEM))
+#define K1_IF_PUSH_STORE(cond) ((cond) && !K1_PASS(K1_PASS_MEM))
+#define K1_IF_STACK_STORE(cond) ((cond) && k1_stack_store(L))
+#define K1_STACK_READ(value, zero) (k1_stack_read(L) ? (value) : (zero))
+#define K1_SPLICE(value, skipped) \
+    (K1_SKIP(K1_SKIP_UMA_SHIFT) ? (skipped) : (value))
+#define K1_SET_LIMB(L, r, l, v) \
+    (K1_PASS(K1_PASS_REGS) ? 0u : (reg_limb(L, r, l) = (v)))
+#define K1_SET_TAG(L, r, t) \
+    (K1_PASS(K1_PASS_REG_PTR) ? 0u : (reg_tag(L, r) = (t)))
+#define K1_IF_EMIT(cond) ((cond) && !K1_STAGED)
+#else
+#define K1_IF_UNIT(cond, bit) (cond)
+#define K1_IF_HEAP_READ(cond) (cond)
+#define K1_IF_HEAP_STORE(cond) (cond)
+#define K1_IF_PUSH_STORE(cond) (cond)
+#define K1_IF_STACK_STORE(cond) (cond)
+#define K1_STACK_READ(value, zero) (value)
+#define K1_SPLICE(value, skipped) (value)
+#define K1_SET_LIMB(L, r, l, v) (reg_limb(L, r, l) = (v))
+#define K1_SET_TAG(L, r, t) (reg_tag(L, r) = (t))
+#define K1_IF_EMIT(cond) (cond)
+#endif
+
 struct K1Args {
     int32_t *regs;          // [B, 15, 8]
     uint8_t *reg_ptr;       // [B, 15]
@@ -344,8 +422,8 @@ HD void read_reg(const Lane &L, uint32_t idx, U256 *v, bool *tag) {
 }
 
 HD void write_reg(Lane &L, uint32_t idx, const U256 &v, bool tag) {
-    for (int l = 0; l < 8; l++) reg_limb(L, idx - 1, l) = v.w[l];
-    reg_tag(L, idx - 1) = tag;
+    for (int l = 0; l < 8; l++) K1_SET_LIMB(L, idx - 1, l, v.w[l]);
+    K1_SET_TAG(L, idx - 1, tag);
 }
 
 // (on the heap, on the aux heap, frame slot) of the read page and of the
@@ -683,7 +761,7 @@ HD bool precompile_unit(const K1Args &a, int b, int c, const uint32_t abi[8],
     const uint32_t W = w_on_h ? a.heap_words : a.aux_heap_words;
     const bool hw_ok = out_off + (uint32_t)is_ec < W;
     err |= !hw_ok;
-    if (hw_ok && (w_on_h || w_on_a)) {
+    if (K1_IF_HEAP_STORE(hw_ok && (w_on_h || w_on_a))) {
         const uint64_t n = (uint64_t)a.heap_frames * W;
         int32_t *arena = w_on_h ? a.heap : a.aux_heap;
         if (is_ec) {
@@ -697,6 +775,80 @@ HD bool precompile_unit(const K1Args &a, int b, int c, const uint32_t abi[8],
     return err;
 }
 
+// The stage cut (JAX _stage_cut, dev-only): with DEBUG_STAGE == n the
+// cycle ends after section n, the lane as it entered the cycle but for
+// timestamp += probe, the section's values folded so that nvcc keeps its
+// work (as the JAX fold keeps XLA from removing it); k1_run_lane then
+// writes none of the cycle's rows (JAX returns no slots).  Stores made
+// before the cut stay made, as the JAX kernel's ref stores do.  The cut
+// points, JAX stage (its _stage_cut line) -> the section of lane_cycle
+// that it closes (models/fused_cycle.py: K1_STAGES):
+//   0  :683   frame: the callstack frame's read
+//   1  :719   fetch: the instruction words
+//   11 :738   decode: the variant's raw fields
+//   12 :775   decode: the price and the static checks
+//   13 :801   masking: panic and nop
+//   21 :845   masking: the masked opcode, modes and flags
+//   22 :863   operand addressing: src0
+//   23 :881   operand addressing: dst0
+//   24 :922   the memory operand's reads (stack, code)
+//   25 :936   src0 selected
+//   26 :947   src1 read, the operands swapped
+//   2  :963   pointer-taint erasure
+//   3  :1027  the ALU: add, sub, mul, div, shift, binop
+//   4  :1099  context and ptr ops
+//   5  :1274  UMA: the heap reads and the splice
+//   6  :1657  log, the precompile units, near call and ret; the port's log
+//             section stores its storage, journal and event entries in
+//             place, where JAX stores them after stage 10
+//   7  :1885  far call, the flags, dst0 / dst1 selected
+//   8  :2087  pc and the frame machinery (the callstack stores)
+//   9  :2142  the register writebacks; the register file stays written
+//             (shared memory here, the loop carry in JAX)
+//   10 :2294  the memory writebacks: stack, heap, aux heap
+#if K1_HOOKS
+struct K1Entry {
+    bool lane_error;
+    uint32_t spent_pubdata, page_counter;
+    int32_t st_count, frame_count;
+};
+
+HD void k1_cut(Lane &L, const K1Entry &e, uint32_t probe) {
+    L.lane_error = e.lane_error;
+    L.spent_pubdata = e.spent_pubdata;
+    L.page_counter = e.page_counter;
+    L.st_count = e.st_count;
+    L.frame_count = e.frame_count;
+    L.timestamp += probe;
+}
+
+// what a cut restores, taken as the cycle starts
+#define K1_SAVE_ENTRY \
+    const K1Entry entry = {L.lane_error, L.spent_pubdata, L.page_counter, \
+                           L.st_count, L.frame_count}
+#define K1_CUT(n, probe) \
+    if (K1_DEBUG_STAGE == (n)) { k1_cut(L, entry, (uint32_t)(probe)); return; }
+
+// the hooks' run-time false condition (stack_rw_rt, stack_st_rt): a live
+// lane's depth is at least 1, which nvcc cannot know (JAX: done > 1)
+HD bool k1_rt_false(const Lane &L) { return L.depth < 0; }
+
+// whether the cycle's stack read and stack store are made
+HD bool k1_stack_read(const Lane &L) {
+    return !K1_SKIP(K1_SKIP_STACK_RW) &&
+        (!K1_SKIP(K1_SKIP_STACK_RW_RT) || k1_rt_false(L));
+}
+
+HD bool k1_stack_store(const Lane &L) {
+    return !K1_PASS(K1_PASS_MEM) && !K1_SKIP(K1_SKIP_STACK_RW) &&
+        !K1_SKIP(K1_SKIP_STACK_ST_OFF) &&
+        (!K1_SKIP(K1_SKIP_STACK_ST_RT) || k1_rt_false(L));
+}
+#else
+#define K1_SAVE_ENTRY
+#define K1_CUT(n, probe)
+#endif
+
 // one cycle of one live lane (done lanes never get here); fills the
 // cycle's 8 witness slots and, with kLog, its log and decommit rows
 template <bool kLog, bool kPrecomp, bool kEc>
@@ -706,6 +858,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     for (int s = 0; s < SLOTS_PER_CYCLE; s++) slots[s].valid = false;
     lr.valid = dr.valid = false;
     L.pq_emit = L.pq_nslots = 0;
+    K1_SAVE_ENTRY;
 
     // ---------------------------------------------------------- frame
     const int32_t depth = L.depth;
@@ -733,6 +886,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     const uint32_t base_page = scal[CS_BASE_MEMORY_PAGE];
     const uint32_t heap_bound0 = scal[CS_HEAP_BOUND];
     const uint32_t aux_bound0 = scal[CS_AUX_HEAP_BOUND];
+    K1_CUT(0, L.timestamp ^ pc);
 
     // ---------------------------------------------------------- fetch
     const bool pending = L.pending;
@@ -761,6 +915,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     uint32_t insn_lo = pending ? PANIC_LO : code_word.w[lo_idx];
     uint32_t insn_hi = pending ? PANIC_HI : code_word.w[lo_idx + 1];
     bool new_pending = false;
+    K1_CUT(1, insn_lo ^ insn_hi);
 
     // ------------------------------------------------ decode + masking
     const uint32_t raw_variant = insn_lo & VARIANT_MASK;
@@ -782,6 +937,8 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     const uint32_t src0_mode_raw = DC_SRC_BASE[fam] + src_i;
     const uint32_t dst0_mode_raw = DC_DST_BASE[fam] + dst_i;
     const bool flag0_raw = combo & 1, flag1_raw = (combo >> 1) & 1;
+    K1_CUT(11, fam ^ sub_raw ^ combo ^ src0_mode_raw ^ dst0_mode_raw ^ imm0 ^
+               imm1);
 
     const bool invalid = fam == OP_INVALID;
     const bool requires_kernel =
@@ -813,6 +970,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     else if (fam == OP_RET) price = RET_ERGS;
     else if (fam == OP_UMA) price = UMA_ERGS;
     else price = INVALID_OPCODE_ERGS;
+    K1_CUT(12, price ^ invalid ^ requires_kernel ^ allowed_in_static);
 
     const bool not_enough = ergs0 < price;
     const uint32_t ergs1 = not_enough ? 0 : ergs0 - price;
@@ -828,6 +986,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
                                 lt_f || eq_f, !eq_f, gt_f || lt_f};
     const bool cond_met = cond_table[condition];
     const bool mask_nop = !cond_met && !mask_panic;
+    K1_CUT(13, mask_panic ^ mask_nop ^ ergs1);
     const bool zeroed = mask_panic || mask_nop;
     if (zeroed) src0_reg = src1_reg = dst0_reg = dst1_reg = imm0 = imm1 = 0;
 
@@ -848,6 +1007,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
         opcode == OP_FAR_CALL ||
         (opcode == OP_UMA && sub_variant == UMA_FAT_POINTER_READ);
     const bool src1_can_ptr = opcode == OP_PTR;
+    K1_CUT(21, opcode ^ sub_variant ^ src0_mode ^ dst0_mode ^ set_flags ^ price);
 
     // ------------------------------------------- operand addressing
     const uint32_t sp0 = scal[CS_SP];
@@ -863,6 +1023,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     const uint32_t src0_loc = src0_pushpop ? sp1
         : (src0_stack_off ? ((sp1 - vaddr0) & 0xFFFF) : vaddr0);
     const bool src0_is_stack_mem = src0_pushpop || src0_stack_off || src0_abs;
+    K1_CUT(22, src0_reg_val.w[0] ^ src0_loc ^ sp1 ^ src0_reg_tag);
 
     U256 dst0_reg_val;
     bool dst0_reg_tag_unused;
@@ -878,19 +1039,22 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
 
     const bool is_nop_op = opcode == OP_NOP;
     const bool do_src0_mem_read = (src0_is_stack_mem || src0_code) && !is_nop_op;
+    K1_CUT(23, dst0_loc ^ sp2 ^ do_src0_mem_read);
 
     const uint64_t SW = a.stack_words;
     uint32_t src0_phys;
     const bool src0_in_window = map_stack(a, src0_loc, &src0_phys);
-    const U256 stack_val = load_word(a, a.stack, b, SW, src0_phys);
-    const bool stack_tag =
-        src0_phys < SW ? a.stack_tag[ll(a, b, src0_phys)] != 0 : false;
+    const U256 stack_val =
+        K1_STACK_READ(load_word(a, a.stack, b, SW, src0_phys), u256_zero());
+    const bool stack_tag = K1_STACK_READ(
+        src0_phys < SW ? a.stack_tag[ll(a, b, src0_phys)] != 0 : false, false);
     const U256 code_val = load_word(a, a.code, b, code_n,
                                     code_slot * a.code_words + src0_loc);
     if (do_src0_mem_read && src0_is_stack_mem && !src0_in_window)
         L.lane_error = true;
     if (do_src0_mem_read && src0_code && src0_loc >= (uint32_t)a.code_words)
         L.lane_error = true;
+    K1_CUT(24, stack_val.w[0] ^ code_val.w[0] ^ stack_tag ^ L.lane_error);
 
     const U256 src0_mem_val = src0_code ? code_val : stack_val;
     const bool src0_mem_tag = !src0_code && stack_tag && do_src0_mem_read;
@@ -900,6 +1064,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
                          src0_mode == MODE_REG_OR_IMM_IMM;
     U256 src0 = use_reg ? src0_reg_val : (use_imm ? u256_from32(imm0) : src0_mem_val);
     bool src0_tag = use_reg ? src0_reg_tag : (!use_imm && src0_mem_tag);
+    K1_CUT(25, src0.w[0] ^ src0_tag);
     U256 src1;
     bool src1_tag;
     read_reg(L, src1_reg, &src1, &src1_tag);
@@ -907,6 +1072,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
         U256 t = src0; src0 = src1; src1 = t;
         bool tt = src0_tag; src0_tag = src1_tag; src1_tag = tt;
     }
+    K1_CUT(26, src0.w[0] ^ src1.w[0] ^ src1_tag);
     const uint32_t new_pc_lin = (pc + 1) & 0xFFFF;
 
     // pointer-taint erasure: clear page/start/length limbs
@@ -918,6 +1084,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
         src1.w[1] = src1.w[2] = src1.w[3] = 0;
         src1_tag = false;
     }
+    K1_CUT(2, src0.w[0] ^ src1.w[0] ^ dst0_loc ^ sp2);
 
     // ============================================ opcode semantics
     const bool is_add = opcode == OP_ADD, is_sub = opcode == OP_SUB;
@@ -936,13 +1103,13 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     const U256 sum_val = u256_add(src0, src1, &carry);
     const U256 diff_val = u256_sub(src0, src1, &borrow);
     U256 mul_lo = u256_zero(), mul_hi = u256_zero();
-    if (is_mul) u256_mul_full(src0, src1, &mul_lo, &mul_hi);
+    if (K1_IF_UNIT(is_mul, K1_SKIP_MUL)) u256_mul_full(src0, src1, &mul_lo, &mul_hi);
     U256 div_q = u256_zero(), div_r = u256_zero();
-    if (is_div) u256_divmod(src0, src1, &div_q, &div_r);
+    if (K1_IF_UNIT(is_div, K1_SKIP_DIV)) u256_divmod(src0, src1, &div_q, &div_r);
     const bool div_by_zero = u256_is_zero(src1);
 
     U256 shift_val = u256_zero();
-    if (is_shift) {
+    if (K1_IF_UNIT(is_shift, K1_SKIP_SHIFT)) {
         const uint32_t n = src1.w[0] & 0xFF;
         if (sub_variant == SHIFT_SHL) shift_val = u256_shl(src0, n);
         else if (sub_variant == SHIFT_SHR) shift_val = u256_shr(src0, n);
@@ -953,6 +1120,8 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     }
     const U256 binop_val = sub_variant == 0 ? u256_xor(src0, src1)
         : (sub_variant == 1 ? u256_and(src0, src1) : u256_or(src0, src1));
+    K1_CUT(3, sum_val.w[0] ^ diff_val.w[0] ^ mul_lo.w[0] ^ div_q.w[0] ^
+              shift_val.w[0] ^ binop_val.w[0]);
 
     // ---------------------------------------------------- context
     U256 ctx_val = u256_zero();
@@ -1009,6 +1178,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
             for (int i = 4; i < 8; i++) ptr_result.w[i] = src1.w[i];
     }
     const bool ptr_writes = is_ptr && !ptr_panic;
+    K1_CUT(4, ctx_val.w[0] ^ ptr_result.w[0] ^ ptr_panic);
 
     // ---------------------------------------------------------- UMA
     const uint32_t us = sub_variant;
@@ -1080,27 +1250,31 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     const uint32_t m_base = uma_slot * arena_words;
     const uint64_t m_n = (uint64_t)F * arena_words;
     int32_t *mem = use_heap_arena ? a.heap : a.aux_heap;
-    const U256 w0 = do_mem ? load_word(a, mem, b, m_n, (uint32_t)(m_base + word0))
-                           : u256_zero();
-    const U256 w1 = (do_mem && is_unaligned)
+    const U256 w0 = K1_IF_HEAP_READ(do_mem)
+        ? load_word(a, mem, b, m_n, (uint32_t)(m_base + word0)) : u256_zero();
+    const U256 w1 = K1_IF_HEAP_READ(do_mem && is_unaligned)
         ? load_word(a, mem, b, m_n, (uint32_t)(m_base + word1)) : u256_zero();
 
     const uint32_t una_bits = unalign * 8;
-    U256 read_val = u256_or(u256_shl(w0, una_bits), u256_shr(w1, 256 - una_bits));
+    U256 read_val = K1_SPLICE(
+        u256_or(u256_shl(w0, una_bits), u256_shr(w1, 256 - una_bits)), w0);
     if (uma_is_ptr_read) {
         const uint32_t beyond = ((incremented < u_length || uma_skip_mem)
                                  ? 0 : incremented - u_length) & 31;
         read_val = u256_shl(u256_shr(read_val, beyond * 8), beyond * 8);
     }
     const uint32_t keep_hi_bits = (32 - unalign) * 8;
-    const U256 new_w0 = u256_or(u256_shl(u256_shr(w0, keep_hi_bits), keep_hi_bits),
-                                u256_shr(src1, una_bits));
-    const U256 new_w1 = u256_or(u256_shr(u256_shl(w1, una_bits), una_bits),
-                                u256_shl(src1, keep_hi_bits));
+    const U256 new_w0 = K1_SPLICE(
+        u256_or(u256_shl(u256_shr(w0, keep_hi_bits), keep_hi_bits),
+                u256_shr(src1, una_bits)), src1);
+    const U256 new_w1 = K1_SPLICE(
+        u256_or(u256_shr(u256_shl(w1, una_bits), una_bits),
+                u256_shl(src1, keep_hi_bits)), src1);
     const bool uma_do_write = uma_is_write && !uma_skip_mem;
     const bool uma_do_read_mem = is_uma && !uma_skip_mem;
     U256 incremented_src0 = src0;
     incremented_src0.w[0] = incremented;
+    K1_CUT(5, read_val.w[0] ^ new_w0.w[0] ^ new_w1.w[0] ^ uma_cost ^ uma_slot);
 
     // ---------------------------------------------------- log family
     // pubdata ergs first, then the storage / event action (log.rs)
@@ -1243,6 +1417,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     if (ret_panic2) r_off = r_page = r_start = r_len = 0;
     const bool ret_panicked = is_ret && (sub_variant == RET_REVERT || ret_final_panic);
     const bool is_to_label = is_ret && vflag0;
+    K1_CUT(6, r_off ^ ergs3 ^ nc_passed);
 
     // ------------------------------------------ far call (far_call.rs)
     const bool is_far_call = kLog && opcode == OP_FAR_CALL;
@@ -1447,6 +1622,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
 
     new_pending = (is_ptr && ptr_panic) || uma_set_panic ||
                   (is_far_call && fc_exc);
+    K1_CUT(7, dst0_val.w[0] ^ dst1_val.w[0] ^ f_lt);
 
     // ====================================== pc + frame machinery
     uint32_t cur[NF];
@@ -1465,7 +1641,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     if (is_near_call || is_far_call) {
         const int32_t push_idx = depth + 1 < D - 1 ? depth + 1 : D - 1;
         if (depth + 1 >= D) L.lane_error = true;
-        if (push_idx >= 0) {
+        if (K1_IF_PUSH_STORE(push_idx >= 0)) {
             uint32_t pushed[NF];
             for (int f = 0; f < (int)NF; f++) pushed[f] = cur[f];
             pushed[CS_JOURNAL_SNAPSHOT] = (uint32_t)new_j_count;
@@ -1560,6 +1736,7 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     int32_t new_depth = depth + ((is_near_call || is_far_call) ? 1 : 0) -
                         (is_ret ? 1 : 0);
     if (new_depth < 0) new_depth = 0;
+    K1_CUT(8, cur[0] ^ (uint32_t)new_depth);
 
     // ====================================== register writebacks
     if (dst0_write && !dst0_is_stack_mem && dst0_reg > 0)
@@ -1568,11 +1745,11 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     if (nonlocal_ret) {
         // r1 = returndata pointer, the rest of the file wiped
         for (int r = 0; r < 15; r++) {
-            for (int l = 0; l < 8; l++) reg_limb(L, r, l) = 0;
-            reg_tag(L, r) = r == 0;
+            for (int l = 0; l < 8; l++) K1_SET_LIMB(L, r, l, 0);
+            K1_SET_TAG(L, r, r == 0);
         }
-        reg_limb(L, 0, 0) = r_off; reg_limb(L, 0, 1) = r_page;
-        reg_limb(L, 0, 2) = r_start; reg_limb(L, 0, 3) = r_len;
+        K1_SET_LIMB(L, 0, 0, r_off); K1_SET_LIMB(L, 0, 1, r_page);
+        K1_SET_LIMB(L, 0, 2, r_start); K1_SET_LIMB(L, 0, 3, r_len);
         for (int i = 0; i < 4; i++) new_ctx[i] = 0;
     }
     if (is_far_call) {
@@ -1582,12 +1759,13 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
         for (int r = 0; r < 15; r++) {
             const bool keep = fc_to_system && r >= 2 && r <= 11;
             if (!keep)
-                for (int l = 0; l < 8; l++) reg_limb(L, r, l) = 0;
-            reg_tag(L, r) = r == 0;
+                for (int l = 0; l < 8; l++) K1_SET_LIMB(L, r, l, 0);
+            K1_SET_TAG(L, r, r == 0);
         }
-        for (int i = 0; i < 4; i++) reg_limb(L, 0, i) = fc_cd[i];
-        reg_limb(L, 1, 0) = (uint32_t)fc_ctor | ((uint32_t)fc_to_system << 1);
+        for (int i = 0; i < 4; i++) K1_SET_LIMB(L, 0, i, fc_cd[i]);
+        K1_SET_LIMB(L, 1, 0, (uint32_t)fc_ctor | ((uint32_t)fc_to_system << 1));
     }
+    K1_CUT(9, reg_limb(L, 0, 0) ^ reg_tag(L, 0) ^ new_ctx[0]);
 
     // ======================================== memory writebacks
     const bool dst0_to_stack = dst0_write && dst0_is_stack_mem;
@@ -1595,16 +1773,17 @@ HD void lane_cycle(const K1Args &a, int b, int c, Lane &L, Slot *slots,
     const bool dst0_in_window = map_stack(a, dst0_loc, &dst0_phys);
     if (dst0_to_stack) {
         if (!dst0_in_window) L.lane_error = true;
-        if (dst0_phys < SW) {
+        if (K1_IF_STACK_STORE(dst0_phys < SW)) {
             store_word(a, a.stack, b, SW, dst0_phys, dst0_val);
             a.stack_tag[ll(a, b, dst0_phys)] = dst0_is_ptr;
         }
     }
-    if (uma_do_write) {
+    if (K1_IF_HEAP_STORE(uma_do_write)) {
         store_word(a, mem, b, m_n, (uint32_t)(m_base + word0), new_w0);
         if (is_unaligned)
             store_word(a, mem, b, m_n, (uint32_t)(m_base + word1), new_w1);
     }
+    K1_CUT(10, dst0_val.w[0] ^ new_w0.w[0] ^ new_w1.w[0]);
 
     // ====================================== memory witness slots
     const uint32_t ts0 = L.timestamp, ts3 = L.timestamp + 3;
@@ -1774,6 +1953,44 @@ HD void emit_decommit_row(const K1Args &a, int b, int64_t step,
     L.dq_count += v;
 }
 
+#if K1_HOOKS
+// DEBUG_PASSTHROUGH's lane fields (dev-only): each one named keeps the
+// value it carried into the cycle, its producers then dead code (JAX:
+// nv[name] = v[name] after each cycle); regs and reg_ptr by K1_SET_LIMB
+// and K1_SET_TAG
+HD void k1_passthrough(Lane &L, const Lane &v) {
+    if (K1_PASS(K1_PASS_FLAGS)) { L.lt = v.lt; L.eq = v.eq; L.gt = v.gt; }
+    if (K1_PASS(K1_PASS_TIMESTAMP)) L.timestamp = v.timestamp;
+    if (K1_PASS(K1_PASS_MONOTONIC_CYCLE_COUNTER)) L.mcc = v.mcc;
+    if (K1_PASS(K1_PASS_ERGS_PER_PUBDATA)) L.ergs_per_pubdata = v.ergs_per_pubdata;
+    if (K1_PASS(K1_PASS_TX_NUMBER)) L.tx_number = v.tx_number;
+    if (K1_PASS(K1_PASS_PENDING_EXCEPTION)) L.pending = v.pending;
+    if (K1_PASS(K1_PASS_PREVIOUS_CODE_WORD)) L.prev_code_word = v.prev_code_word;
+    if (K1_PASS(K1_PASS_PREVIOUS_SUPER_PC)) L.prev_super_pc = v.prev_super_pc;
+    if (K1_PASS(K1_PASS_PREVIOUS_CODE_PAGE)) L.prev_code_page = v.prev_code_page;
+    if (K1_PASS(K1_PASS_CONTEXT_U128))
+        for (int i = 0; i < 4; i++) L.ctx[i] = v.ctx[i];
+    if (K1_PASS(K1_PASS_DEPTH)) L.depth = v.depth;
+    if (K1_PASS(K1_PASS_DONE)) L.done = v.done;
+    if (K1_PASS(K1_PASS_LANE_ERROR)) L.lane_error = v.lane_error;
+    if (K1_PASS(K1_PASS_WQ_COUNT)) L.wq_count = v.wq_count;
+    if (K1_PASS(K1_PASS_SPENT_PUBDATA)) L.spent_pubdata = v.spent_pubdata;
+    if (K1_PASS(K1_PASS_PAGE_COUNTER)) L.page_counter = v.page_counter;
+    if (K1_PASS(K1_PASS_ST_COUNT)) L.st_count = v.st_count;
+    if (K1_PASS(K1_PASS_J_COUNT)) L.j_count = v.j_count;
+    if (K1_PASS(K1_PASS_EV_COUNT)) L.ev_count = v.ev_count;
+    if (K1_PASS(K1_PASS_LQ_COUNT)) L.lq_count = v.lq_count;
+    if (K1_PASS(K1_PASS_DQ_COUNT)) L.dq_count = v.dq_count;
+    if (K1_PASS(K1_PASS_FRAME_COUNT)) L.frame_count = v.frame_count;
+}
+
+#define K1_SAVE_CARRIED const Lane carried = L
+#define K1_PASSTHROUGH k1_passthrough(L, carried)
+#else
+#define K1_SAVE_CARRIED
+#define K1_PASSTHROUGH
+#endif
+
 // lane b's whole launch, its register file at rf (RF_WORDS words, stride
 // rs)
 template <bool kLog, bool kPrecomp, bool kEc = false>
@@ -1823,6 +2040,7 @@ HD void k1_run_lane(const K1Args &a, int b, uint32_t *rf, uint32_t rs) {
     LogRow lr;
     DecRow dr;
     for (int c = 0; c < n; c++) {
+        K1_SAVE_CARRIED;
         if (L.done) {
             // a frozen lane writes nothing but its all-zero rows
             for (int s = 0; s < SLOTS_PER_CYCLE; s++) slots[s].valid = false;
@@ -1835,11 +2053,12 @@ HD void k1_run_lane(const K1Args &a, int b, uint32_t *rf, uint32_t rs) {
             a.pq_emit_blk[(uint64_t)c * a.batch + b] = (int32_t)L.pq_emit;
             a.pq_nslots_blk[(uint64_t)c * a.batch + b] = (int32_t)L.pq_nslots;
         }
-        if (kLog && a.log_queue_capacity > 0)
+        // (a stage cut writes none of the cycle's rows)
+        if (K1_IF_EMIT(kLog && a.log_queue_capacity > 0))
             emit_log_row(a, b, step0 + c, lr, L);
-        if (kLog && a.decommit_queue_capacity > 0)
+        if (K1_IF_EMIT(kLog && a.decommit_queue_capacity > 0))
             emit_decommit_row(a, b, step0 + c, dr, L);
-        if (a.emit_queue) {
+        if (K1_IF_EMIT(a.emit_queue)) {
             const int64_t pos = (step0 + c) * SLOTS_PER_CYCLE;
             const int64_t last = (int64_t)a.queue_capacity - SLOTS_PER_CYCLE;
             L.wq_count += emit_slots(a, a.q_meta, a.q_value, a.q_flags, b,
@@ -1848,7 +2067,8 @@ HD void k1_run_lane(const K1Args &a, int b, uint32_t *rf, uint32_t rs) {
         }
         // the block K2 folds keeps every valid slot, past a queue
         // overflow too, as the reference's rolling absorb does
-        if (a.emit_block) emit_block_rows(a, b, slots, L);
+        if (K1_IF_EMIT(a.emit_block)) emit_block_rows(a, b, slots, L);
+        K1_PASSTHROUGH;
     }
 
     for (int r = 0; r < 15; r++) {

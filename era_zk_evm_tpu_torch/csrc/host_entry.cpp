@@ -5,7 +5,9 @@
 // Not a runtime path: the port's wrappers take the kernels on CUDA tensors
 // and the plain torch versions on CPU tensors.  This entry lets the tests
 // check the kernels' lane logic against the plain versions on a machine
-// without CUDA (tests/test_torch_kernel_host.py).
+// without CUDA (tests/test_torch_kernel_host.py).  Built again with
+// K1_HOOKS_HOST (_build.load_host(hooks=True)), K1's development hooks are
+// set at run time (eravm_k1_hooks_host; tests/test_torch_ablate.py).
 
 #include <vector>
 
@@ -34,6 +36,18 @@ extern "C" int eravm_k1_host(const K1Args *a, int ecrecover) {
     }
     return 0;
 }
+
+#ifdef K1_HOOKS_HOST
+// the development hooks of the next eravm_k1_host runs (the build with
+// K1_HOOKS_HOST; on the card each is a compile-time constant): the
+// DEBUG_SKIP and DEBUG_PASSTHROUGH bits (eravm_gen.h) and the stage, -1 off
+extern "C" int eravm_k1_hooks_host(unsigned skip, int stage, unsigned pass) {
+    k1_hook_skip = skip;
+    k1_hook_stage = stage;
+    k1_hook_pass = pass;
+    return 0;
+}
+#endif
 
 // K2 over a compacted chunk block of `rows` rows and its count int32[B]
 extern "C" int eravm_k2_host(const void *meta, const void *value,

@@ -33,6 +33,7 @@ the interpreter; its plain version is `precompile_units_plain`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -53,6 +54,114 @@ K1_ECRECOVER_LAUNCHES = 0
 K2_LAUNCHES = 0
 PQ_SPLICE_LAUNCHES = 0
 PRECOMPILE_UNIT_LAUNCHES = 0
+
+# K1's development hooks, the JAX kernel's (era_zk_evm_tpu/models/
+# fused_cycle.py:527-544), with its names and semantics.  Each is fixed when
+# K1 is compiled, as the JAX ones are when it is traced: while one is set,
+# `cycle_chunk` launches K1 from a library of its own, built from K1's
+# sources with the hooks as -D flags (`k1_hook_flags`, `_build.load_hooked`);
+# no product entry point reads or sets them.  A hooked launch computes wrong
+# results by design (tools/ablate_fused.py times them); csrc/cycle_kernel.cu
+# says what each does.
+
+#: dev-only output-passthrough set: nv fields forced back to the carried
+#: value after _cycle_tile (XLA then DCEs their producers) — liveness-level
+#: crash bisection.  "mem" disables the arena ref stores.
+#: (K1: a lane field named here keeps its carried value each cycle; "mem"
+#: turns the stack, heap and aux-heap stores and the callstack's push
+#: stores off.  The names: `K1_PASSTHROUGH_BITS`.)
+DEBUG_PASSTHROUGH: frozenset = frozenset()
+
+#: dev-only section-skip set: named heavyweight units replaced by zeros to
+#: bisect compile-resource blowups ("mul", "div", "shift", "uma_shift").
+#: (K1: also the JAX probes' "stack_rw", "heap_rw", "stack_rw_rt",
+#: "stack_st_rt" and "stack_st_off": `K1_SKIP_BITS`.)
+DEBUG_SKIP: frozenset = frozenset()
+
+#: dev-only bisect hook: when set to stage N, _cycle_tile returns early after
+#: that stage (carry structure preserved; probe value folded into timestamp
+#: to keep the truncated computation live).  Used to localize Mosaic crashes.
+#: (K1: its cycle returns after the section `K1_STAGES[N]` names.)
+DEBUG_STAGE = None
+
+#: DEBUG_SKIP's names, each a bit of K1_SKIP_* (csrc/eravm_gen.h)
+K1_SKIP_BITS = {name: 1 << i for i, name in enumerate((
+    "mul", "div", "shift", "uma_shift", "stack_rw", "heap_rw", "stack_rw_rt",
+    "stack_st_rt", "stack_st_off"))}
+
+#: DEBUG_PASSTHROUGH's names, each a bit of K1_PASS_*: "mem" and the lane
+#: fields that K1 writes back (the state's names, as the JAX nv keys)
+K1_PASSTHROUGH_BITS = {name: 1 << i for i, name in enumerate((
+    "mem", "regs", "reg_ptr", "flags", "timestamp", "monotonic_cycle_counter",
+    "ergs_per_pubdata", "tx_number", "pending_exception",
+    "previous_code_word", "previous_super_pc", "previous_code_page",
+    "context_u128", "depth", "done", "lane_error", "wq_count",
+    "spent_pubdata", "page_counter", "st_count", "j_count", "ev_count",
+    "lq_count", "dq_count", "frame_count"))}
+
+#: DEBUG_STAGE's stages, the JAX kernel's _stage_cut numbers, in the order
+#: of the cycle: the section of K1's lane_cycle that each closes (the table
+#: above K1_CUT in csrc/cycle_kernel.cu)
+K1_STAGES = {
+    0: "frame", 1: "fetch", 11: "decode fields", 12: "price",
+    13: "masking", 21: "masked opcode", 22: "src0 address",
+    23: "dst0 address", 24: "memory operand reads", 25: "src0 selected",
+    26: "src1 + swap", 2: "taint erasure", 3: "ALU", 4: "context + ptr",
+    5: "UMA", 6: "log, units, near call, ret", 7: "far call, flags, dst",
+    8: "frame machinery", 9: "register writebacks", 10: "memory writebacks",
+}
+
+#: the stages that close before K1's first store in an instance without
+#: LOG (with it, the log section's stores come before stage 6): a cut there
+#: leaves every field of the state as it was but timestamp
+K1_STAGES_BEFORE_STORES = tuple(K1_STAGES)[:tuple(K1_STAGES).index(8)]
+
+
+def k1_hook_flags() -> list[str]:
+    """The -D flags of K1's hooked build for the hooks as set now, [] when
+    none is.  Raises ValueError on a name or stage that K1 does not have."""
+    skip, stage = frozenset(DEBUG_SKIP), DEBUG_STAGE
+    passthrough = frozenset(DEBUG_PASSTHROUGH)
+    for hook, names, known in (("DEBUG_SKIP", skip, K1_SKIP_BITS),
+                               ("DEBUG_PASSTHROUGH", passthrough,
+                                K1_PASSTHROUGH_BITS)):
+        if names - set(known):
+            raise ValueError(f"{hook}: unknown {sorted(names - set(known))}"
+                             f"; K1 has {sorted(known)}")
+    if stage is not None and stage not in K1_STAGES:
+        raise ValueError(f"DEBUG_STAGE: no stage {stage!r}; K1 has "
+                         f"{sorted(K1_STAGES)}")
+    flags = []
+    if skip:
+        flags.append(f"-DK1_DEBUG_SKIP={sum(K1_SKIP_BITS[n] for n in skip)}u")
+    if stage is not None:
+        flags.append(f"-DK1_DEBUG_STAGE={stage}")
+    if passthrough:
+        flags.append("-DK1_DEBUG_PASSTHROUGH="
+                     f"{sum(K1_PASSTHROUGH_BITS[n] for n in passthrough)}u")
+    return flags
+
+
+@contextlib.contextmanager
+def k1_hooks(skip=frozenset(), stage=None, passthrough=frozenset()):
+    """K1's development hooks set for the block, all reset after it."""
+    global DEBUG_SKIP, DEBUG_STAGE, DEBUG_PASSTHROUGH
+    DEBUG_SKIP, DEBUG_STAGE = frozenset(skip), stage
+    DEBUG_PASSTHROUGH = frozenset(passthrough)
+    try:
+        yield
+    finally:
+        DEBUG_SKIP, DEBUG_STAGE = frozenset(), None
+        DEBUG_PASSTHROUGH = frozenset()
+
+
+def k1_library():
+    """The library that `cycle_chunk` launches K1 from: `_build.load()`'s,
+    or while a hook is set the hooked build's."""
+    from .. import _build
+
+    flags = k1_hook_flags()
+    return _build.load_hooked(flags) if flags else _build.load()
 
 
 def precompile_instance(config: VmConfig) -> bool:
@@ -484,6 +593,9 @@ def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
         raise ValueError("rolling mode needs a slot block")
     device = state.done.device
     if device.type == "cpu":
+        if k1_hook_flags():
+            raise ValueError("K1's development hooks change K1, which runs "
+                             "on a CUDA state; the plain engine has none")
         dense = None if block is None else tuple(
             torch.empty(s, dtype=torch.int32)
             for s in _slot_block_shapes(config, n * SLOTS_PER_CYCLE))
@@ -499,16 +611,14 @@ def cycle_chunk(state: BatchedVmState, config: VmConfig, k_cycles: int,
     if device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {device}")
 
-    from .._build import load
-
     if pq_block is None:
         pq_block = new_pq_block(config, n, device)
     step0 = state.global_step.min()   # stays on the device: no host sync
     args = k1_args(state, config, k_cycles, n, block, step0, pq_block)
     stream = torch.cuda.current_stream(device).cuda_stream
     ec = ecrecover_instance(config)
-    rc = load().eravm_k1_launch(ctypes.byref(args), ec,
-                                ctypes.c_void_p(stream))
+    rc = k1_library().eravm_k1_launch(ctypes.byref(args), ec,
+                                      ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     K1_LAUNCHES += 1
