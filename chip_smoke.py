@@ -110,6 +110,18 @@ Phases, one line each; any failure raises and the exit code is nonzero:
                 floor (a warp's chain of dependent strong loads) and
                 line_sum, which bound nothing; P7 B = 32768, 16 slots,
                 every variant);
+  fold-tools    the fold tools' entry points at their default shapes
+                (era_zk_evm_tpu_torch/tools/: probe_rolling's profile, fold
+                and rates, B = 32768, 128 cycles; probe_foldparts' none,
+                half and noperm; probe_bsparts; probe_fold_split, main and
+                pieces; probe_bsfold's perm and transpose): K2's time on
+                each block beside its bound, both memory-witness modes'
+                rates with K1's and K2's device time; their own checks
+                (mode (a)'s valid slots equal to mode (b)'s records a lane,
+                K2 on mode (a)'s queue compacted equal to mode (b)'s
+                sponges, every K2 run equal to rolling_absorb_rows), K2 and
+                P2 launched, every timed value finite and > 0, every line
+                without a counterpart with its reason;
   K1-wave-segment  the witness wave's first 256-cycle segment, B = 4096,
                 kernel vs plain over the whole batch;
   witness-wave  the log family's witness path at bench_block's tiny-mix
@@ -297,7 +309,9 @@ from era_zk_evm_tpu_torch.testing.programs import (
 from era_zk_evm_tpu_torch.testing.wave import run_wave, wave_commitments
 from era_zk_evm_tpu_torch.tools.k1_times import splice_bytes
 from era_zk_evm_tpu_torch.tools import (
-    ablate_fused, bisect_fold, k1_times, probe_keccak, probe_uniform,
+    ablate_fused, bisect_fold, k1_times, probe_bsfold, probe_bsparts,
+    probe_fold_split, probe_foldparts, probe_keccak, probe_rolling,
+    probe_uniform,
 )
 from era_zk_evm_tpu_torch.witness import packed, sorted_queue
 from era_zk_evm_tpu_torch.witness.commitment import (
@@ -2455,6 +2469,57 @@ def probe_phases(dev, sm_mhz: float, listing: str | None,
     return {p: [launches[p]] + rows[p] for p in PROBE_COUNTS}
 
 
+def fold_tools_phase() -> None:
+    """The fold tools (era_zk_evm_tpu_torch/tools/probe_rolling.py,
+    probe_foldparts.py, probe_bsparts.py, probe_fold_split.py,
+    probe_bsfold.py) at their default shapes, through their entry points:
+    each raises when its own checks fail (mode (a)'s counts against mode
+    (b)'s, K2 on the compacted capture queue against mode (b)'s sponges,
+    every K2 run against rolling_absorb_rows on the card).  Raises unless
+    K2 and P2 launched, every timed value is finite and > 0 and every line
+    without a counterpart says why."""
+    k2_0, p2_0 = fused_cycle.K2_LAUNCHES, probe_keccak.P2_LAUNCHES
+    t0 = time.time()
+    out = {"rolling": probe_rolling.main([]),
+           "foldparts": probe_foldparts.main([]),
+           "bsparts": probe_bsparts.main([]),
+           "fold_split": probe_fold_split.main([]),
+           "fold_split_pieces": probe_fold_split.main(["pieces"]),
+           "bsfold": probe_bsfold.main([])}
+    seconds = time.time() - t0
+    launches = {"K2": fused_cycle.K2_LAUNCHES - k2_0,
+                "P2": probe_keccak.P2_LAUNCHES - p2_0}
+    bad = [f"{tool}: {label}" for tool, rows in out.items()
+           for label, row in rows.items()
+           if any(v is None for v in row.values()) and not row.get("reason")
+           or not all(math.isfinite(v) and v > 0 for v in row.values()
+                      if isinstance(v, float))]
+    rolling = out["rolling"]
+    checks = (rolling["profile"]["counts_equal"]
+              and rolling["fold[u32pair]"]["equal_to_mode_b"]
+              and all(row.get("equal_to_plain", True)
+                      for rows in out.values() for row in rows.values()))
+    if bad or not checks or not all(launches.values()):
+        raise AssertionError(f"fold tools: launches {launches}, rows {bad}, "
+                             f"checks {checks}")
+    parts = out["foldparts"]
+    phase("fold-tools", seconds=round(seconds, 1),
+          **{f"launches_{k}": v for k, v in launches.items()},
+          **{f"k2_{v}_ms": round(parts[v]["ms"], 4)
+             for v in probe_foldparts.VARIANTS},
+          **{f"k2_{v}_device_ms": round(parts[v]["device_ms"], 4)
+             for v in probe_foldparts.VARIANTS},
+          **{f"k2_{v}_bound_ms": round(parts[v]["bound_ms"], 4)
+             for v in probe_foldparts.VARIANTS},
+          k2_fold_ms=round(rolling["fold[u32pair]"]["ms"], 4),
+          k2_fold_device_ms=round(rolling["fold[u32pair]"]["device_ms"], 4),
+          k2_fold_bound_ms=round(rolling["fold[u32pair]"]["bound_ms"], 4),
+          records_lane=rolling["profile"]["mean_lane_records"],
+          **{f"{m}_{k}": rolling[m][k] for m in probe_rolling.MODES
+             for k in ("piped_cycles_per_sec", "sync_cycles_per_sec",
+                       "k1_device_ms", "k2_device_ms", "other_device_ms")})
+
+
 def ablate_phase(config: VmConfig, entry, flags: list, build_s: float):
     """K1-ablate: the default K1, the perfect-cache build (ABLATE_SKIP) and
     the stage cut (ABLATE_STAGE) on WORKLOAD, each the best of 3 calls on a
@@ -2672,18 +2737,15 @@ def main() -> int:
         "K2 B=32768",
         {"wc_state": wa, "wc_count": ca, "digest": finalize_rolling(wa, ca)},
         {"wc_state": wb, "wc_count": cb, "digest": finalize_rolling(wb, cb)})
-    # the work the records need, whatever folds them: a permutation for
-    # each record that lands at an odd position of its lane's stream; the
-    # records (52 bytes each), the counts, and the sponges read and written
-    c0 = st.wc_count.to(torch.int64) & 0xFFFFFFFF
-    n_rec = block[3].to(torch.int64)
-    n_perms = int(((c0 + n_rec) // 2 - c0 // 2).sum())
-    k2_bound = bound_ms(int(n_rec.sum()) * 52 + block[3].nbytes
-                        + 2 * wa.nbytes + 2 * ca.nbytes,
-                        n_perms * KECCAK_OPS, sm_mhz)
+    # the work the records need, whatever folds them (the count the fold
+    # tools share)
+    k2_work = k1_times.k2_bound(st.wc_count, block[3], sm_mhz)
+    k2_bound = (k2_work["bound_ms"], k2_work["bound_by"])
+    n_perms = k2_work["permutations"]
+    n_rec = block[3]
     # K1 in mode (b): the state it changes (as for mode (a)), then the
     # records it writes (52 bytes each) and the counts
-    k1b_nbytes += int(n_rec.sum()) * 52 + block[3].nbytes
+    k1b_nbytes += k2_work["records"] * 52 + block[3].nbytes
     k1b_bound = bound_ms(k1b_nbytes, B_FULL * K * K1_MIN_OPS, sm_mhz)
     phase("K1-b", batch=B_FULL, cycles=K, equal=True, ms=round(k1b_ms, 3),
           plain_ms=round(k1b_plain_ms, 3), bound_ms=round(k1b_bound[0], 3),
@@ -3176,6 +3238,7 @@ def main() -> int:
     # -- the tool probes P1-P7 ------------------------------------------
     probes = probe_phases(dev, sm_mhz, listing, rates["bench_keccak"][0],
                           n1_us)
+    fold_tools_phase()
 
     # -- the witness wave at full size: the log family's main path ------
     cfg_w = wave_config(B_WAVE)

@@ -33,7 +33,6 @@ cache.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -44,7 +43,7 @@ from ..config import VmConfig
 from ..models import fused_cycle
 from ..models.state import make_entry_state
 from ..testing.programs import WORKLOAD, assemble
-from .k1_times import ptxas
+from .k1_times import card, elapsed_ms, ptxas
 
 N_CYCLES = 128
 
@@ -106,14 +105,6 @@ PROG_HEAP = """
 BUILD_S: dict = {}
 
 
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-
-
 def hook_flags(skip=frozenset(), stage=None) -> tuple:
     """The -D flags of K1's build for these hooks (`k1_hook_flags`)."""
     with fused_cycle.k1_hooks(skip, stage):
@@ -156,15 +147,7 @@ def time_run(config: VmConfig, program: str, run, reps: int = 3) -> tuple:
     state = make_entry_state(config, [words] * config.batch,
                              ergs=(1 << 31) - 1, device="cuda")
     run(state)
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run(state)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+    times = [elapsed_ms(lambda: run(state)) for _ in range(reps)]
     errors = int(state.lane_error.sum())
     del state
     torch.cuda.empty_cache()

@@ -29,6 +29,7 @@ import sys
 import torch
 
 from ..ops.keccak import keccak_f1600_lanes
+from .k1_times import device_for
 
 P7_LAUNCHES = 0
 KQ = 16
@@ -102,9 +103,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--batch", type=int, default=B)
     args = ap.parse_args(argv)
-    device = torch.device("cpu" if args.cpu else "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA card: pass --cpu to run the plain version")
+    device = device_for(args.cpu)
     flags, st = tool_inputs(args.batch, device)
     from .probe_keccak import best_seconds
 

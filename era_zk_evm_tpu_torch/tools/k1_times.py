@@ -152,6 +152,30 @@ def splice_bytes(emit, nslots, ps: int, cap: int, blocks0: int) -> int:
         + 2 * B * (4 + 4 + 1)
 
 
+def k2_bound(wc_count, count, sm_mhz: float = SM_MHZ) -> dict:
+    """The least time K2 could take on a block of records (its bound's
+    count, the same for every caller): a keccak-f for each record that lands
+    at an odd position of its lane's stream, the sponges' counts before the
+    fold being `wc_count` and the records a lane `count` (int32 [B]); the
+    records read (52 bytes each), the counts read, the sponges (int32
+    [B, 25, 2]) and their counts read and written.  Returns {records,
+    permutations, bytes, bound_ms, bound_by}: the larger of the bytes over
+    the HBM rate and the permutations' int32 operations over 132 SMs x 64
+    lanes at `sm_mhz`."""
+    import torch
+
+    c0 = wc_count.to(torch.int64) & 0xFFFFFFFF
+    n_rec = count.to(torch.int64)
+    perms = int(((c0 + n_rec) // 2 - c0 // 2).sum())
+    B = count.numel()
+    n_bytes = int(n_rec.sum()) * 52 + 4 * B + 2 * (B * 25 * 2 * 4 + 4 * B)
+    t_bytes = n_bytes / HBM_BYTES_PER_MS
+    t_ops = perms * KECCAK_OPS / (SMS * 64 * sm_mhz * 1e3)
+    return {"records": int(n_rec.sum()), "permutations": perms,
+            "bytes": n_bytes, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def held_ms(fn) -> float:
     """One call's device time in ms: the card is held busy
     (`torch.cuda._sleep`, HOLD_CYCLES clocks) while the host queues the
@@ -167,6 +191,110 @@ def held_ms(fn) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
+
+
+# ---- helpers the port's tools share --------------------------------------
+
+def card(device="cuda") -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    if str(device) == "cpu":
+        return "none (--cpu: the plain versions on the CPU)"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def device_for(cpu: bool):
+    """The card, or the CPU when asked; no card and no --cpu is an error."""
+    import torch
+
+    if cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA card: pass --cpu to run the plain versions")
+    return torch.device("cuda")
+
+
+def elapsed_ms(fn, device="cuda") -> float:
+    """One call of fn in ms: CUDA events around it on the card (the host's
+    launch work included), the host clock on the CPU."""
+    import torch
+
+    if str(device) == "cpu":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def best_ms(fn, reps: int = 3, device="cuda") -> float:
+    """The best of `reps` `elapsed_ms` calls of fn after a warm one."""
+    fn()
+    return min(elapsed_ms(fn, device) for _ in range(reps))
+
+
+def fold_row(block: tuple, reps: int = 3) -> tuple:
+    """K2 (`fused_cycle.rolling_fold`) on a compacted record block from zero
+    sponges: (row, (wc_state, wc_count) after it).  The row: the first
+    call's ms and the best of `reps` more (`elapsed_ms`), each on a fresh
+    copy of the zero sponges; on the card the best of `reps` device times
+    (`held_ms`); the records and permutations the block needs and its bound
+    (`k2_bound`).  Raises unless K2's sponges equal `rolling_absorb_rows` on
+    the same block (the plain version, on the block's device)."""
+    import torch
+
+    from era_zk_evm_tpu_torch.models import fused_cycle
+    from era_zk_evm_tpu_torch.witness.rolling import rolling_absorb_rows
+
+    count = block[3]
+    device = count.device
+    zero = (torch.zeros((count.shape[0], 25, 2), dtype=torch.int32,
+                        device=device),
+            torch.zeros_like(count))
+    times, out = [], None
+    for _ in range(reps + 1):
+        out = tuple(z.clone() for z in zero)
+        times.append(elapsed_ms(
+            lambda: fused_cycle.rolling_fold(*out, block), device))
+    plain = tuple(z.clone() for z in zero)
+    rolling_absorb_rows(*plain, *block)
+    if not all(torch.equal(a, b) for a, b in zip(out, plain)):
+        raise AssertionError("K2's sponges differ from rolling_absorb_rows")
+    work = k2_bound(zero[1], count)
+    row = {"ms": min(times[1:]), "ms_all": times[1:], "first_ms": times[0],
+           "records": work["records"], "permutations": work["permutations"],
+           "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+           "equal_to_plain": True}
+    if device.type == "cuda":
+        held = []
+        for _ in range(reps):
+            sponges = tuple(z.clone() for z in zero)
+            held.append(held_ms(
+                lambda: fused_cycle.rolling_fold(*sponges, block)))
+        row["device_ms"] = min(held)
+    return row, out
+
+
+def fold_line(label: str, row: dict) -> str:
+    """A `fold_row` as one printed line."""
+    held = f", device {row['device_ms']:.4f} ms" if "device_ms" in row else ""
+    return (f"{label}: {row['ms']:.4f}ms (K2, best of {len(row['ms_all'])}"
+            f"{held}; {row['records']} records, {row['permutations']} "
+            f"keccak-f; bound {row['bound_ms']:.4f} ms, {row['bound_by']})")
+
+
+def report(tool: str, device, card_line: str, rows: dict) -> dict:
+    """Print a tool's rows as one JSON line (its last) and return them."""
+    print(json.dumps({"tool": tool, "device": str(device),
+                      "card": card_line, "rows": rows}), flush=True)
+    return rows
 
 
 def ptxas(log: str) -> dict:
@@ -490,23 +618,11 @@ def main(argv=None) -> dict:
 
     dev = torch.device("cuda:0")
     K, ERGS = 128, (1 << 31) - 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card_line = card()
     t0 = time.time()
     lib = _build.build()
     _build.load()
     build_s = time.time() - t0
-
-    def timed(fn) -> float:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end)
 
     def base(batch, **kw):
         return VmConfig(batch=batch, code_words=16, stack_words=256,
@@ -592,8 +708,9 @@ def main(argv=None) -> dict:
             .to(torch.int32).to(dev) for i in (0, 2, 3))
         v = torch.tensor([c[1] for c in sigs], dtype=torch.int32).to(dev)
         secp256k1.ecrecover_unit(digest, v, r, s)          # warm
-        times = [timed(lambda: secp256k1.ecrecover_unit(digest, v, r, s))
-                 for _ in range(args.reps)]
+        times = [elapsed_ms(
+            lambda: secp256k1.ecrecover_unit(digest, v, r, s))
+            for _ in range(args.reps)]
         return {"unit_ms": min(times), "unit_ms_all": times,
                 "unit_recoveries_per_sec": batch / (min(times) / 1e3)}
 
@@ -618,8 +735,9 @@ def main(argv=None) -> dict:
             np.zeros_like(rounds), np.where(rounds > 0, 0, 64), rounds],
             axis=1).astype(np.int32)).to(dev)
         fused_cycle.precompile_units(cfg, arena, call)          # warm
-        times = [timed(lambda: fused_cycle.precompile_units(cfg, arena, call))
-                 for _ in range(args.reps)]
+        times = [elapsed_ms(
+            lambda: fused_cycle.precompile_units(cfg, arena, call))
+            for _ in range(args.reps)]
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -654,21 +772,17 @@ def main(argv=None) -> dict:
             return torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
                                  dtype=torch.int32, device=dev)
 
-        def best(fn):
-            fn()
-            return min(timed(fn) for _ in range(args.reps))
-
         res = {}
         for n, iters in K3_SHAPES:
             st = words(n * 50).view(n, 25, 2)
-            ms = best(lambda: keccak.keccak_f1600_(st, iters))
+            ms = best_ms(lambda: keccak.keccak_f1600_(st, iters))
             res[f"k3_{n}x{iters}_ms"] = ms
             res[f"k3_{n}x{iters}_bound_ms"] = max(
                 2 * n * 200 / HBM_BYTES_PER_MS,
                 n * iters * KECCAK_OPS / INT32_OPS_PER_MS)
             del st
         one = words(50).view(1, 25, 2)
-        perm_us = best(lambda: keccak.keccak_f1600_(one, SERIAL_ITERS)) \
+        perm_us = best_ms(lambda: keccak.keccak_f1600_(one, SERIAL_ITERS)) \
             * 1e3 / SERIAL_ITERS
         res["k3_n1_us"] = perm_us
         rng = np.random.default_rng(15)
@@ -682,7 +796,7 @@ def main(argv=None) -> dict:
                 [[0], np.cumsum(lengths)]).astype(np.int64)).to(dev)
             w = words(int(lengths.sum()))
             nbs = lengths // 34 + 1
-            res[f"sponge_{name}_ms"] = best(
+            res[f"sponge_{name}_ms"] = best_ms(
                 lambda: keccak.keccak256_ragged(w, offsets))
             res[f"sponge_{name}_blocks"] = int(nbs.sum())
             res[f"sponge_{name}_longest"] = int(nbs.max())
@@ -719,10 +833,6 @@ def main(argv=None) -> dict:
         res = {"design": design, "sass_round": bitslice_round_sass(
             sass, design.get("trip"))}
 
-        def best(fn):
-            fn()
-            return min(timed(fn) for _ in range(args.reps))
-
         for g8 in BITSLICE_G8:
             n = 256 * g8
             states = torch.randint(-2**31, 2**31 - 1, (n, 25, 2),
@@ -739,13 +849,14 @@ def main(argv=None) -> dict:
                             ("p5", pk.keccak_bitslice_fused)):
                 res[f"{name}_g{g8}_equal"] = torch.equal(
                     pk.planes_to_states(f(planes, 1)), k3)
-                res[f"{name}_g{g8}_ms"] = best(
+                res[f"{name}_g{g8}_ms"] = best_ms(
                     lambda: f(planes, BITSLICE_ITERS))
             del states, planes, k3
         n, iters = BITSLICE_K3
         st = torch.randint(-2**31, 2**31 - 1, (n, 25, 2), generator=gen,
                            dtype=torch.int32, device=dev)
-        res["k3_same_perms_ms"] = best(lambda: keccak.keccak_f1600_(st, iters))
+        res["k3_same_perms_ms"] = best_ms(
+            lambda: keccak.keccak_f1600_(st, iters))
         return res
 
     def uniform_times() -> dict:
@@ -761,10 +872,6 @@ def main(argv=None) -> dict:
 
         from era_zk_evm_tpu_torch.tools import probe_uniform as pu
 
-        def best(fn):
-            fn()
-            return min(timed(fn) for _ in range(args.reps))
-
         def best_held(fn):
             fn()
             return min(held_ms(fn) for _ in range(args.reps))
@@ -776,7 +883,7 @@ def main(argv=None) -> dict:
                         for f in ("p6_kernel", "p6w_kernel")},
                "cases": {}, "unequal": []}
         if hasattr(pu, "empty_launch"):
-            res["empty_ms"] = best(lambda: pu.empty_launch(dev))
+            res["empty_ms"] = best_ms(lambda: pu.empty_launch(dev))
             res["empty_device_ms"] = best_held(lambda: pu.empty_launch(dev))
         for tb in UNIFORM_TBS:
             if takes_split:
@@ -816,7 +923,7 @@ def main(argv=None) -> dict:
                             tag = (f"tb{tb}_{layout}_{kind}{suffix}"
                                    + (f"_split{s}" if s else ""))
                             box = {}
-                            ms = best(lambda: box.__setitem__("k", run(s)))
+                            ms = best_ms(lambda: box.__setitem__("k", run(s)))
                             if not torch.equal(box["k"], want):
                                 res["unequal"].append(tag)
                             dev_ms = best_held(lambda: run(s))
@@ -909,7 +1016,7 @@ def main(argv=None) -> dict:
                 "records_lane0_per_chunk": records, "lane_errors": errors}
 
     sass = read_sass(lib)
-    out = {"card": card, "tree": args.tree, "build_s": build_s,
+    out = {"card": card_line, "tree": args.tree, "build_s": build_s,
            "torch": torch.__version__,
            "ptxas": ptxas((lib.parent / "build.log").read_text()),
            "sass_round": keccak_round_sass(sass),
@@ -955,11 +1062,11 @@ def main(argv=None) -> dict:
             st = clone_state(entry)
             for _ in range(warm_calls):
                 fused_cycle.cycle_chunk(st, cfg, K, pq_block=pq)
-            times.append(timed(lambda: fused_cycle.cycle_chunk(
+            times.append(elapsed_ms(lambda: fused_cycle.cycle_chunk(
                 st, cfg, K, pq_block=pq)))
             if pq is not None:
                 sp = clone_state(entry)
-                splices.append(timed(lambda: splice_fn(sp, cfg, pq, K)))
+                splices.append(elapsed_ms(lambda: splice_fn(sp, cfg, pq, K)))
                 del sp
                 kernels = splice_kernels(entry, cfg, pq)
             errors = int(st.lane_error.sum())

@@ -43,6 +43,7 @@ import torch
 
 from ..ops import keccak
 from ..ops.keccak import KECCAK_RC, KECCAK_ROTATIONS, keccak_f1600_plain
+from .k1_times import device_for
 
 P1_LAUNCHES = 0
 P2_LAUNCHES = 0
@@ -358,9 +359,7 @@ def main(argv=None) -> dict:
                          "(permutations 128, rounds 4096, vpu loops 65536)")
     args = ap.parse_args(argv)
     variants = args.variants or ["base", "rows2d"]
-    device = torch.device("cpu" if args.cpu else "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA card: pass --cpu to run the plain versions")
+    device = device_for(args.cpu)
     print(f"device: {torch.cuda.get_device_name(0) if device.type == 'cuda' else 'cpu'}",
           file=sys.stderr)
     batch = args.batch

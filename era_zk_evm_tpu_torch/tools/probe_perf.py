@@ -28,8 +28,9 @@ import torch
 from ..config import VmConfig
 from ..models import batched_vm, fused_cycle
 from .ablate_fused import (
-    BUILD_S, card, prebuild, ptxas_line, ptxas_text, time_run,
+    BUILD_S, prebuild, ptxas_line, ptxas_text, time_run,
 )
+from .k1_times import card
 
 N_CYCLES = 128
 

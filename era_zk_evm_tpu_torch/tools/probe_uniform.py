@@ -40,6 +40,8 @@ import sys
 
 import torch
 
+from .k1_times import device_for
+
 P6_LAUNCHES = 0
 P6C_LAUNCHES = 0
 W, TB, REPS = 256, 256, 512
@@ -335,9 +337,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--sweep", metavar="TB,TB,...",
                     help="time every layout at these TBs (one JSON line)")
     args = ap.parse_args(argv)
-    device = torch.device("cpu" if args.cpu else "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA card: pass --cpu to run the plain version")
+    device = device_for(args.cpu)
     if args.sweep:
         out = sweep([int(t) for t in args.sweep.split(",")], device, args.w,
                     args.reps)
